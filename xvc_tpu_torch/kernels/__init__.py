@@ -1,0 +1,37 @@
+"""Hand-written Hopper kernels of the decode path and their launch counts.
+
+Sources live in ``csrc/`` and are compiled by ``build.py`` at first use.
+Each wrapper (``gpu/mc.py``, ``gpu/itx.py``, ``gpu/deblock.py``) adds one
+to its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
+else, so a run can show that its main path went through the kernels.
+"""
+LAUNCHES = {"mc": 0, "itx": 0, "deblock_luma": 0}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def on_cuda(*tensors):
+    """True if every tensor lies on one CUDA device, False if every one
+    lies on the CPU (the wrapper then runs the plain PyTorch version).
+    Anything else is an error: a kernel is never skipped for a tensor on
+    the card."""
+    kinds = {t.device for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError("tensors on several devices: %r" % (kinds,))
+    dev = kinds.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError("unsupported device %r" % (dev,))
+
+
+def require(t, dtype, ndim, name):
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError("%s must be a contiguous %d-d %s tensor, got %s %r"
+                         " contiguous=%s" % (name, ndim, dtype, t.dtype,
+                                             tuple(t.shape),
+                                             t.is_contiguous()))
