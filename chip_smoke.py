@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA decode path (xvc_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (xvc_tpu_torch) on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -7,22 +7,33 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
 Phases:
   0  device: nvidia-smi name and power limit, torch device name;
-  1  build: compile the CUDA kernels from xvc_tpu_torch/kernels/csrc;
-  2  kernels: MC, ITX and luma deblock on the card against their plain
-     PyTorch versions on the same inputs (numpy seed, main-path shapes),
-     bit-exact, each timed with CUDA events beside its plain version;
-  3  main path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
+  1  build: compile the CUDA kernels from xvc_tpu_torch/kernels/csrc
+     (one nvcc per source, all at once) and, beside them, the native
+     parse library from xvc_tpu_torch/native/csrc (g++);
+  2  kernels: MC, ITX, luma deblock and SATD on the card against their
+     plain PyTorch versions on the same inputs (numpy seed, main-path
+     shapes), bit-exact, each timed with CUDA events beside its plain
+     version and beside its bound (the least time the card could take:
+     bytes over the HBM rate, or operations over the peak rate);
+  3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
-     card; every picture must be checksum-conforming and byte-identical
-     to the host native decode of xvc_tpu, and every kernel's launch
-     count over that decode must be above 0;
-  4  goldens: sp_fast, ai64x48 and ai64x48b10 against tests/data.
+     card; every picture must be checksum-conforming and equal the
+     recorded host decode (tests/data/bench/hd720_ld_dec.sha256), and
+     the launch count of every kernel of that path must be above 0;
+  4  goldens: sp_fast, ai64x48 and ai64x48b10 against tests/data;
+  5  lookahead path: the luma plane of picture 0 of phase 3 (1280x720,
+     8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
+     the card, sizes 4/8/16/32, 67 modes; the maps must equal the same
+     call on the CPU device (plain versions) bit for bit, and the SATD
+     kernel's launch count over that call must be above 0.
 
 Any mismatch raises, so the exit code is nonzero.  The second-to-last
 lines are a JSON object of per-kernel results and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
 """
+import concurrent.futures
+import hashlib
 import json
 import os
 import subprocess
@@ -41,7 +52,29 @@ KERNELS = {
             "xvc_tpu/tpu/flat_recon.py:336"),
     "deblock_luma": ("xvc_tpu_torch/kernels/csrc/deblock.cu",
                      "xvc_tpu/tpu/deblock_jax.py:179"),
+    "satd": ("xvc_tpu_torch/kernels/csrc/satd.cu",
+             "xvc_tpu/tpu/pallas_satd.py:62"),
 }
+# the kernels each path must launch
+DECODE_KERNELS = ("mc", "itx", "deblock_luma")
+LOOKAHEAD_KERNELS = ("satd",)
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
+# no int32 rate: the CUDA cores' float32 rate stands in for their integer
+# operations, which issue at that rate at most, so a bound computed with
+# it is still a time the card cannot beat.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and operations over the CUDA cores' peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(ops))
 
 
 def log(*args):
@@ -130,7 +163,7 @@ def deblock_case(rng, H, W, bd):
     """A blocky plane (8x8 steps + small noise) so that strong, weak and
     untouched edges all occur, with random per-edge tc/beta/mask."""
     import numpy as np
-    from xvc_tpu.ops import deblock as dbk
+    from xvc_tpu_torch.ops import deblock as dbk
     blocks = rng.randint(0, 1 << bd, (H // 8 + 1, W // 8 + 1))
     plane = np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:H, :W]
     step = (1 << (bd - 8)) * 6
@@ -148,6 +181,73 @@ def deblock_case(rng, H, W, bd):
     return plane, xs, mask, tc, beta
 
 
+def satd_case(rng, shape, bd):
+    """Differences over the full range +-(2^bd - 1), extremes included."""
+    import numpy as np
+    lim = (1 << bd) - 1
+    diff = rng.randint(-lim, lim + 1, shape).astype(np.int32)
+    diff.reshape(-1)[:2] = (lim, -lim)
+    return diff
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the bytes each kernel must move (every input read once, every
+# output written once) and the integer operations it does, for the inputs
+# of this run
+# ---------------------------------------------------------------------------
+
+def mc_bound(planes, params, taps, short):
+    """Per valid job: its (h+taps-1) x (w+taps-1) int16 window (capped
+    by the size of the store), its w x h int16 output (and mask when
+    short); 2 operations per filter tap, horizontal pass over the
+    extended rows when both fractions are set."""
+    import numpy as np
+    p = params[:, params[5] < _BIG].astype(np.int64)
+    fx, fy, w, h = p[3], p[4], p[8], p[9]
+    win = min(int(((h + taps - 1) * (w + taps - 1)).sum()) * 2,
+              planes.nbytes)
+    out = int((w * h).sum()) * 2 * (2 if short else 1)
+    hor = np.where(fx != 0, np.where(fy != 0, h + taps - 1, h) * w, 0)
+    ver = np.where(fy != 0, h * w, 0)
+    ops = int((hor + ver).sum()) * 2 * taps + int((w * h).sum()) * 4
+    return bound(win + params.nbytes + out, ops)
+
+
+def itx_bound(coeff, scale, params, w, h):
+    """Coefficients, scales, parameters and the two 5-family basis
+    stacks in; w x h int32 residual out per valid block; 4 operations
+    per coefficient to dequantize, 2 per multiply-add of the two
+    passes (zero-out: at most 32 input rows/columns)."""
+    valid = int((params[0] < _BIG).sum())
+    in1, cols = min(h, 32), min(w, 32)
+    bases = 5 * (in1 * h + cols * w + 2) * 4
+    nbytes = coeff.nbytes + scale.nbytes + params.nbytes + bases + \
+        valid * w * h * 4
+    ops = valid * (4 * w * h + 2 * in1 * h * cols + 2 * cols * h * w +
+                   8 * h * w)
+    return bound(nbytes, ops)
+
+
+def deblock_bound(plane, xs, mask, tc, beta):
+    """The plane read and written once, the edge tensors read once;
+    about 60 operations per row of an active (edge, 4-row group), 10 per
+    inactive group."""
+    active = int((mask != 0).sum())
+    nbytes = 2 * plane.nbytes + xs.nbytes + mask.nbytes + tc.nbytes + \
+        beta.nbytes
+    ops = active * 4 * 60 + (mask.size - active) * 10
+    return bound(nbytes, ops)
+
+
+def satd_bound(diff, n):
+    """Every difference read once, one int32 out per block; per 8x8 tile
+    2 x 192 butterfly additions, 64 |.| and 64 additions (per 4x4: 2 x 32
+    + 16 + 16)."""
+    blocks = diff.size // (n * n)
+    per_block = 96 if n == 4 else (n // 8) ** 2 * 512
+    return bound(diff.nbytes + blocks * 4, blocks * per_block)
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -155,9 +255,9 @@ def deblock_case(rng, H, W, bd):
 def phase_kernels(torch, dev):
     """Each kernel against its plain version on the same CUDA inputs."""
     import numpy as np
-    from xvc_tpu import constants as k
-    from xvc_tpu.codec.yuv import YuvPicture
-    from xvc_tpu_torch.gpu import deblock, flat_recon, itx, mc
+    from xvc_tpu_torch import constants as k
+    from xvc_tpu_torch.codec.yuv import YuvPicture
+    from xvc_tpu_torch.gpu import deblock, flat_recon, itx, mc, satd
     rng = np.random.RandomState(SEED)
     T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # a copy
     pic = YuvPicture(k.ChromaFormat.YUV420, 1280, 720, 8, True)
@@ -195,6 +295,7 @@ def phase_kernels(torch, dev):
     p, m = T(pred), T(mask)
     res["mc"] = dict(
         max_abs_err=err, shape="luma 16x16 uni, B=1024, 720p store",
+        **mc_bound(planes, params, 8, False),
         ms=cuda_ms(torch, lambda: mc.mc_scatter(p, m, *args)),
         plain_ms=cuda_ms(torch, lambda: mc.mc_scatter_plain(p, m, *args),
                          5))
@@ -235,6 +336,7 @@ def phase_kernels(torch, dev):
     a = (r, T(coeff), T(scale), T(params), 8, 8, 8)
     res["itx"] = dict(
         max_abs_err=err, shape="gen 8x8, B=2048",
+        **itx_bound(coeff, scale, params, 8, 8),
         ms=cuda_ms(torch, lambda: itx.itx_scatter_gen(*a, True)),
         plain_ms=cuda_ms(torch, lambda: itx.itx_scatter_plain(*a, True),
                          5))
@@ -268,7 +370,7 @@ def phase_kernels(torch, dev):
     pl = T(plane)
     a = (T(xs), T(mask), T(tc), T(beta), 8, (False,) * 5)
     res["deblock_luma"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, **deblock_bound(plane, xs, mask, tc, beta),
         shape="vertical edges, 1280x720, %d edges" % len(xs),
         ms=cuda_ms(torch, lambda: deblock.luma_pass(pl, *a)),
         plain_ms=cuda_ms(torch, lambda: deblock.luma_pass_plain(pl, *a),
@@ -277,23 +379,40 @@ def phase_kernels(torch, dev):
         "%.4f ms, plain %.4f ms" % (2 * len(flags_list) * 2,
                                     res["deblock_luma"]["ms"],
                                     res["deblock_luma"]["plain_ms"]))
+
+    # SATD: every size, 8 and 10 bit, full-range differences, a batch
+    # that fills no whole warp, tile or group of 1024; plain and fused
+    err = 0
+    cases = [(n, bd) for n in (4, 8, 16, 32, 64) for bd in (8, 10)]
+    for n, bd in cases:
+        diff = satd_case(rng, (1031, 3, n, n), bd)
+        d = T(diff)
+        got = satd.satd_square(d, bd)
+        want = satd.satd_plain(d, bd)
+        orig = rng.randint(0, 1 << bd, (1031, n, n)).astype(np.int32)
+        fused = satd.satd_pred(T(orig), T(orig[:, None] - diff), bd)
+        torch.cuda.synchronize()
+        e = max(max_err(torch, got, want), max_err(torch, fused, want))
+        if e:
+            raise AssertionError("satd mismatch %r" % ((n, bd, e),))
+        err = max(err, e)
+    diff = satd_case(rng, (14400, 67, 8, 8), 8)
+    d = T(diff)
+    orig = T(rng.randint(0, 256, (14400, 8, 8)).astype(np.int32))
+    res["satd"] = dict(
+        max_abs_err=err, shape="[14400, 67, 8, 8] int32 (720p, n=8)",
+        **satd_bound(diff, 8),
+        ms=cuda_ms(torch, lambda: satd.satd_square(d, 8)),
+        plain_ms=cuda_ms(torch, lambda: satd.satd_plain(d, 8), 3),
+        fused_ms=cuda_ms(torch, lambda: satd.satd_pred(orig, d, 8)))
+    log("phase 2: satd bit-exact over %d cases (plain-diff and fused); "
+        "[14400, 67, 8, 8]: kernel %.4f ms, fused %.4f ms, plain %.4f ms, "
+        "bound %.4f ms (%s)" % (len(cases), res["satd"]["ms"],
+                                res["satd"]["fused_ms"],
+                                res["satd"]["plain_ms"],
+                                res["satd"]["bound_ms"],
+                                res["satd"]["bound_by"]))
     return res
-
-
-def host_decode(data):
-    """xvc_tpu's host native decode, drained with the blocking pull."""
-    from xvc_tpu.codec.decoder import Decoder
-    from xvc_tpu.nal import split_nal_units
-    dec = Decoder()
-    pics = []
-    for nal in split_nal_units(data):
-        dec.decode_nal(nal)
-        while (pic := dec.get_decoded_picture()) is not None:
-            pics.append(pic)
-    dec.flush()
-    while (pic := dec.get_decoded_picture()) is not None:
-        pics.append(pic)
-    return pics
 
 
 def phase_decode(torch, dev):
@@ -301,12 +420,9 @@ def phase_decode(torch, dev):
     from xvc_tpu_torch.codec.decoder import decode_stream
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         data = f.read()
-    t0 = time.perf_counter()
-    host = host_decode(data)
-    host_s = time.perf_counter() - t0
-    if len(host) != 8:
-        raise AssertionError("host decode returned %d pictures" % len(host))
-    decode_stream(data, device=dev)  # warm-up (first-use costs)
+    with open(os.path.join(DATA, "bench", "hd720_ld_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    decode_stream(data)  # warm-up (first-use costs); the card by default
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -315,28 +431,27 @@ def phase_decode(torch, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    if len(pics) != 8:
+    if len(pics) != 8 or len(want) != 8:
         raise AssertionError("device decode returned %d pictures"
                              % len(pics))
-    for a, b in zip(pics, host):
-        if not a.conforming:
-            raise AssertionError("poc %d not conforming" % a.poc)
-        if a.bytes != b.bytes or a.poc != b.poc:
-            raise AssertionError("poc %d differs from the host decode"
-                                 % a.poc)
-    for name, n in launches.items():
-        if n <= 0:
+    for pic, sha in zip(pics, want):
+        if not pic.conforming:
+            raise AssertionError("poc %d not conforming" % pic.poc)
+        if hashlib.sha256(pic.bytes).hexdigest() != sha:
+            raise AssertionError("poc %d differs from the recorded host "
+                                 "decode" % pic.poc)
+    for name in DECODE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError("kernel %s was not launched" % name)
     out = dict(pictures=len(pics), seconds=dt, ms_per_picture=dt * 1e3 / 8,
-               mpix_per_s=1280 * 720 * 8 / dt / 1e6, host_seconds=host_s,
+               mpix_per_s=1280 * 720 * 8 / dt / 1e6,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                launches=launches)
-    log("phase 3: hd720_ld 8/8 conforming, byte-identical to host; "
-        "%.2f ms/picture, %.3f Mpix/s, peak %d bytes, launches %s "
-        "(host native decode %.3f s)" % (
-            out["ms_per_picture"], out["mpix_per_s"],
-            out["max_memory_allocated"], launches, host_s))
-    return out
+    log("phase 3: hd720_ld 8/8 conforming, equal to the recorded host "
+        "decode; %.2f ms/picture, %.3f Mpix/s, peak %d bytes, launches %s"
+        % (out["ms_per_picture"], out["mpix_per_s"],
+           out["max_memory_allocated"], launches))
+    return out, pics[0]
 
 
 def phase_goldens(dev):
@@ -353,6 +468,73 @@ def phase_goldens(dev):
     log("phase 4: sp_fast, ai64x48, ai64x48b10 equal their goldens")
 
 
+def phase_lookahead(torch, dev, pic):
+    """The lookahead slice at full width on the luma plane of a decoded
+    1280x720 8-bit picture."""
+    import numpy as np
+    from xvc_tpu_torch import kernels
+    from xvc_tpu_torch.gpu import analysis, intra_batch
+    from xvc_tpu_torch.gpu.lookahead import SIZES, frame_intra_lookahead
+    from xvc_tpu_torch.restrictions import Restrictions
+    H, W = 720, 1280
+    luma = np.frombuffer(pic.bytes, np.uint8, count=H * W).reshape(H, W)
+    restr = Restrictions()
+    frame_intra_lookahead(luma[:64, :64], 8, restr)  # first-use costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    maps = frame_intra_lookahead(luma, 8, restr, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in LOOKAHEAD_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError("kernel %s was not launched" % name)
+    t0 = time.perf_counter()
+    want = frame_intra_lookahead(luma, 8, restr, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if sorted(maps) != list(SIZES):
+        raise AssertionError("lookahead sizes %r" % sorted(maps))
+    for n in SIZES:
+        if maps[n].shape != (H // n, W // n, 67) or \
+                maps[n].dtype != np.int32 or \
+                not np.array_equal(maps[n], want[n]) or maps[n].min() < 0:
+            raise AssertionError("lookahead map n=%d differs from the CPU "
+                                 "device's" % n)
+    # the device step alone, and its prediction half (tensors resident,
+    # CUDA events); the rest of the step is the SATD kernel
+    step_ms, predict_ms = {}, {}
+    for n in SIZES:
+        args = [torch.from_numpy(a).to(dev)
+                for a in analysis.extract_blocks(luma, n, 8, restr)]
+        fn = analysis.make_intra_satd_fn(n, 8)
+        step_ms[n] = cuda_ms(torch, lambda: fn(*args), 5)
+        weights = analysis.weights_on(n, 1, dev)
+        predict_ms[n] = cuda_ms(torch, lambda: intra_batch.predict_all_modes(
+            n, args[1], args[2], weights, 8, n <= 16), 5)
+        del args
+    out = dict(
+        seconds=dt, launches=launches, max_memory_allocated=peak,
+        extract_ms={n: stats[n]["extract_s"] * 1e3 for n in SIZES},
+        device_ms={n: stats[n]["device_s"] * 1e3 for n in SIZES},
+        step_ms=step_ms, predict_ms=predict_ms, blocks={n: stats[n]["blocks"] for n in SIZES},
+        cpu_device_seconds=cpu_s)
+    log("phase 5: lookahead 1280x720, sizes %s, 67 modes: maps equal the "
+        "CPU device's; %.1f ms in all, host extraction %.1f ms, device "
+        "(upload + step + download) %.1f ms, device step alone %s ms (of "
+        "which prediction %s ms), peak %d bytes, satd launches %d (the "
+        "same call on the CPU device %.1f s)" % (
+            list(SIZES), dt * 1e3, sum(out["extract_ms"].values()),
+            sum(out["device_ms"].values()),
+            {n: round(t, 3) for n, t in step_ms.items()},
+            {n: round(t, 3) for n, t in predict_ms.items()}, peak,
+            launches["satd"], cpu_s))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -360,8 +542,8 @@ def main():
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    os.environ.pop("XVC_DSP", None)  # the reference is the host path
     import xvc_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from xvc_tpu_torch import native
     from xvc_tpu_torch.kernels import build
 
     smi = subprocess.run(
@@ -373,28 +555,48 @@ def main():
     log("phase 0: %s | torch %s cuda %s | python %s" % (
         name, torch.__version__, torch.version.cuda, sys.version.split()[0]))
 
-    t0 = time.perf_counter()
-    build.lib()
-    build_s = time.perf_counter() - t0
-    log("phase 1: kernels built and loaded in %.2f s" % build_s)
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # nvcc (one process per source) and g++ side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(timed, build.lib), pool.submit(timed, native.lib)]
+        build_s, native_s = [f.result() for f in futs]
+    log("phase 1: kernels built and loaded in %.2f s, native parse library "
+        "in %.2f s (side by side)" % (build_s, native_s))
     for line in build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log("  ptxas: " + line.strip())
 
     res = phase_kernels(torch, dev)
-    dec = phase_decode(torch, dev)
+    dec, pic0 = phase_decode(torch, dev)
     phase_goldens(dev)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    look = phase_lookahead(torch, dev, pic0)
+    for module in ("jax", "xvc_tpu"):
+        if module in sys.modules:
+            raise AssertionError("%s was imported" % module)
 
-    log(json.dumps({"build_seconds": build_s, "decode": dec,
-                    "timed_shapes": {n: r["shape"] for n, r in res.items()}}))
+    log(json.dumps({"build_seconds": build_s,
+                    "native_build_seconds": native_s, "decode": dec,
+                    "lookahead": look, "satd_fused_ms": res["satd"]["fused_ms"],
+                    "timed_shapes": {n: r["shape"] for n, r in res.items()},
+                    "bounds": {n: {"bytes": r["bound_bytes"],
+                                   "operations": r["bound_ops"]}
+                               for n, r in res.items()}}))
+    launches = {n: dec["launches"][n] for n in DECODE_KERNELS}
+    launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
+    # library_ms: no single PyTorch call computes any of these integer
+    # functions on CUDA (gather + wrapped int16 filters, int32 transform
+    # with per-block bases, the sequential edge scan, Hadamard + |.| sum)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
-             replaces=KERNELS[n][1], launches=dec["launches"][n],
+             replaces=KERNELS[n][1], launches=launches[n],
              max_abs_err=res[n]["max_abs_err"], ms=res[n]["ms"],
-             plain_ms=res[n]["plain_ms"])
-        for n in ("mc", "itx", "deblock_luma")]}))
+             plain_ms=res[n]["plain_ms"], bound_ms=res[n]["bound_ms"],
+             bound_by=res[n]["bound_by"], library_ms=None)
+        for n in ("mc", "itx", "deblock_luma", "satd")]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

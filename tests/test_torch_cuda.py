@@ -4,18 +4,24 @@ These tests carry the ``cuda`` marker and skip without a CUDA device (a
 fixture decides); on the card they run with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.  They import no
 JAX (the machine with the card has none): each kernel is held against
-its plain PyTorch version on the same CUDA inputs, bit-exact, and the
-device decode against the goldens and the host native decode.
+its plain PyTorch version on the same CUDA inputs, bit-exact, the
+device decode against the goldens and the recorded host decode
+(tests/data/bench/hd720_ld_dec.sha256), and the lookahead on the card
+against the same call on the CPU device.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from xvc_tpu_torch import kernels
 from xvc_tpu_torch.codec.decoder import decode_stream
-from xvc_tpu_torch.gpu import deblock, itx, mc
+from xvc_tpu_torch.gpu import deblock, itx, lookahead, mc, satd
+from xvc_tpu_torch.ops import deblock as dbk
+from xvc_tpu_torch.restrictions import Restrictions
 
-from .util import read_data
+from .util import data_path, read_data
 
 pytestmark = pytest.mark.cuda
 
@@ -106,7 +112,6 @@ def test_itx_kernel_matches_plain(cuda, w, h, bd, variant):
                                    (False, True, False, False, False),
                                    (False, False, True, False, False)])
 def test_deblock_kernel_matches_plain(cuda, flags):
-    from xvc_tpu.ops import deblock as dbk
     rng = np.random.RandomState(sum(flags))
     for H, W in ((720, 1280), (1280, 720)):
         blocks = rng.randint(0, 256, (H // 8, W // 8))
@@ -137,21 +142,62 @@ def test_decode_matches_golden_on_card(cuda, name, count):
 
 
 def test_720p_decode_matches_host_on_card(cuda):
-    from xvc_tpu.codec.decoder import Decoder
-    from xvc_tpu.nal import split_nal_units
-    data = read_data("bench/hd720_ld.xvc")
-    dec = Decoder()
-    host = []
-    for nal in split_nal_units(data):
-        dec.decode_nal(nal)
-        while (pic := dec.get_decoded_picture()) is not None:
-            host.append(pic)
-    dec.flush()
-    while (pic := dec.get_decoded_picture()) is not None:
-        host.append(pic)
+    with open(data_path("bench/hd720_ld_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
     kernels.reset_launches()
-    pics = decode_stream(data, device=cuda)
-    assert len(pics) == len(host) == 8
+    pics = decode_stream(read_data("bench/hd720_ld.xvc"), device=cuda)
+    assert len(pics) == len(want) == 8
     assert all(p.conforming for p in pics)
-    assert [p.bytes for p in pics] == [p.bytes for p in host]
-    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert all(kernels.LAUNCHES[name] > 0
+               for name in ("mc", "itx", "deblock_luma"))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("bd", [8, 10, 14])
+def test_satd_kernel_matches_plain(cuda, n, bd):
+    rng = np.random.RandomState(n + bd)
+    lim = 2 ** bd - 1
+    # a batch that fills no whole warp, tile or 1024-block group
+    diff = rng.randint(-lim, lim + 1, (1031, 3, n, n)).astype(np.int32)
+    diff[0, 0], diff[0, 1] = lim, -lim
+    d, = _to(cuda, diff)
+    kernels.reset_launches()
+    got = satd.satd_square(d, bd)
+    assert kernels.LAUNCHES["satd"] == 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1031, 3)
+    want = satd.satd_plain(d, bd)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), satd.satd_plain(torch.from_numpy(diff), bd))
+    if n == 8:
+        np.testing.assert_array_equal(
+            satd.satd8(d[:, 0].contiguous(), bd).cpu().numpy(),
+            want[:, 0].cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_satd_pred_kernel_matches_plain(cuda, n):
+    rng = np.random.RandomState(n)
+    orig = rng.randint(0, 1024, (77, n, n)).astype(np.int32)
+    preds = rng.randint(0, 1024, (77, 67, n, n)).astype(np.int32)
+    o, p = _to(cuda, orig, preds)
+    got = satd.satd_pred(o, p, 10)
+    want = satd.satd_plain(torch.from_numpy(orig[:, None] - preds), 10)
+    assert tuple(got.shape) == (77, 67)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode_step", [1, 4])
+def test_lookahead_on_card_matches_cpu(cuda, mode_step):
+    frame = np.fromfile(data_path("ai352x288_in.yuv"), np.uint8,
+                        count=352 * 288).reshape(288, 352)
+    want = lookahead.frame_intra_lookahead(frame, 8, Restrictions(),
+                                           mode_step=mode_step, device="cpu")
+    kernels.reset_launches()
+    got = lookahead.frame_intra_lookahead(frame, 8, Restrictions(),
+                                          mode_step=mode_step, device=cuda)
+    assert kernels.LAUNCHES["satd"] == 4
+    assert sorted(got) == [4, 8, 16, 32]
+    for n in got:
+        np.testing.assert_array_equal(got[n], want[n])

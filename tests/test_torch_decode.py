@@ -40,7 +40,7 @@ def test_decode_matches_golden(name):
 
 def test_session_api_matches_golden():
     """DecoderSession(device=...) with the xvc_tpu.api method set."""
-    from xvc_tpu.nal import split_nal_units
+    from xvc_tpu_torch.nal import split_nal_units
     sess = DecoderSession(DecoderParameters(), device="cpu")
     assert sess.device == torch.device("cpu")
     out = []

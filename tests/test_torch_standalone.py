@@ -1,0 +1,114 @@
+"""The port stands on its own: xvc_tpu_torch imports torch and numpy,
+never jax and nothing of xvc_tpu.
+
+- In a fresh process whose import system refuses ``jax``, ``jaxlib`` and
+  ``xvc_tpu``, every module of the package imports, and ai64x48 decodes on
+  the CPU device to its golden; a source scan finds no import of either
+  in the package or in chip_smoke.py.
+- tests/data/bench/hd720_ld_dec.sha256, the reference chip_smoke.py
+  compares the card's 720p pictures with, equals the JAX package's host
+  decode of that stream (drained with the blocking pull).
+- An entry point called with no device asks for the card and raises
+  where there is none, instead of decoding on the CPU.
+"""
+import hashlib
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from .util import data_path, read_data
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "xvc_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("import of %s is refused here" % name)
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[1])
+import xvc_tpu_torch
+
+names = ["xvc_tpu_torch"]
+for mod in pkgutil.walk_packages(xvc_tpu_torch.__path__, "xvc_tpu_torch."):
+    importlib.import_module(mod.name)
+    names.append(mod.name)
+assert len(names) > 30, names
+
+from xvc_tpu_torch.codec.decoder import decode_stream
+with open(sys.argv[2], "rb") as f:
+    data = f.read()
+with open(sys.argv[3], "rb") as f:
+    want = f.read()
+pics = decode_stream(data, device="cpu")
+assert len(pics) == 3 and all(p.conforming for p in pics)
+assert b"".join(p.bytes for p in pics) == want
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("STANDALONE-OK", len(names))
+"""
+
+
+def test_port_imports_and_decodes_without_jax_and_xvc_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", _CHILD, ROOT, data_path("ai64x48.xvc"),
+         data_path("ai64x48_dec.yuv")],
+        capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "STANDALONE-OK" in res.stdout
+
+
+def test_no_source_imports_jax_or_xvc_tpu():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|xvc_tpu)(\.|\s|$)",
+                     re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "xvc_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    assert len(files) > 30
+    bad = [os.path.relpath(f, ROOT) for f in files
+           if pat.search(open(f).read())]
+    assert not bad, bad
+
+
+def test_hd720_sha256_file_matches_the_jax_package_host_decode():
+    from xvc_tpu.codec.decoder import Decoder
+    from xvc_tpu.nal import split_nal_units
+    dec = Decoder()
+    pics = []
+    for nal in split_nal_units(read_data("bench/hd720_ld.xvc")):
+        dec.decode_nal(nal)
+        while (pic := dec.get_decoded_picture()) is not None:
+            pics.append(pic)
+    dec.flush()
+    while (pic := dec.get_decoded_picture()) is not None:
+        pics.append(pic)
+    with open(data_path("bench/hd720_ld_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    assert len(pics) == len(want) == 8
+    assert all(p.conforming for p in pics)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    from xvc_tpu_torch.api import DecoderSession
+    from xvc_tpu_torch.codec.decoder import Decoder, decode_stream
+    data = read_data("ai64x48.xvc")
+    for call in (lambda: decode_stream(data), Decoder, DecoderSession):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()

@@ -1,16 +1,23 @@
-"""xvc_tpu_torch: the xvc decoder's device path in PyTorch and CUDA.
+"""xvc_tpu_torch: the xvc codec's device path in PyTorch and CUDA.
 
-A second package beside ``xvc_tpu``.  It reuses the JAX-free layers of
-``xvc_tpu`` by import (native CABAC parse, ``codec/``, ``ops/``,
-``cabac/``, ``nal``, ``segment``) and decodes real xvc streams through
-the flat, record-driven reconstruction path on an explicit
-``torch.device``.  On ``cuda`` the motion compensation, inverse
-transform and luma deblock stages run as hand-written Hopper kernels
-(``kernels/csrc``); every other stage is plain PyTorch.
+A second package beside ``xvc_tpu`` that stands on its own: it imports
+``torch`` and numpy, never ``jax`` and nothing of ``xvc_tpu``.  What it
+needs of that package's JAX-free layers (the native CABAC parse,
+``codec/``, ``ops/``, ``cabac/``, ``nal``, ``segment``) it keeps as its
+own trimmed copies under the same names.
 
-This package never imports jax.  Its integer stages are exact, so the
-float paths that could round silently (TF32 matmul and convolution) are
-switched off here once, for every caller.
+- Decode: real xvc streams through the flat, record-driven
+  reconstruction path (``codec.decoder.decode_stream``,
+  ``api.DecoderSession``).  Motion compensation, inverse transform and
+  luma deblock run as hand-written Hopper kernels (``kernels/csrc``).
+- Encoder lookahead: whole-frame open-loop intra SATD cost maps
+  (``gpu.lookahead.frame_intra_lookahead``), with the Hadamard SATD as a
+  hand-written kernel.
+
+Every entry point runs on the card unless the caller names another
+device.  The integer stages are exact, so the float paths that could
+round silently (TF32 matmul and convolution) are switched off here once,
+for every caller.
 """
 import torch
 

@@ -1,2 +1,3 @@
-"""Decoder entry points of the PyTorch device path (subclasses of the
-``xvc_tpu.codec`` session and picture decoder)."""
+"""Decoder session, picture decoder and their host-side helpers (frame
+store, checksum, output conversion, reference lists) of the PyTorch
+device path."""

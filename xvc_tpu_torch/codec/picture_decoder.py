@@ -1,49 +1,196 @@
-"""Per-picture decoding through the flat device path on a torch device.
+"""Per-picture decoding on a torch device: header parse, native CABAC
+parse, flat device reconstruction, device deblock, checksum and output.
 
-A subclass of ``xvc_tpu.codec.picture_decoder.PictureDecoder``: header
-handling, checksum and output are the base class's; ``_decode_impl``
-replaces the reconstruction with native parse -> ``FlatReconstructor``
--> device deblock, in the order of the base's flat branch.  A picture
-the flat path cannot decode raises ``NotImplementedError`` naming the
-reason; nothing falls back to the host path.
+Behavioral equivalent of the reference picture decoder
+(ref: src/xvc_dec_lib/picture_decoder.cc).  Header handling, checksum
+and output are copies of ``xvc_tpu/codec/picture_decoder.py``;
+``decode`` is the flat branch of that module's ``_decode_impl`` alone: native parse ->
+``FlatReconstructor`` -> device deblock.  A picture the flat path cannot
+decode raises ``NotImplementedError`` naming the reason; there is no
+host CU path to fall back to.
 """
-from xvc_tpu import constants as k
-from xvc_tpu.codec import picture_decoder as base
-from xvc_tpu.native import pic as native_pic
-from xvc_tpu.ops.deblock import DeblockingFilter
-from xvc_tpu.ops.quant import Qp
+from dataclasses import dataclass
+
+from .. import constants as k
+from .. import segment as seg
 from ..gpu import flat_recon
 from ..gpu.deblock import deblock_picture
+from ..native import pic as native_pic
+from ..ops import resample
+from ..ops.deblock import DeblockingFilter
+from ..ops.quant import Qp
+from . import checksum as cksum
+from . import output
+from .cu import PictureData
+from .yuv import YuvPicture
 
 
-class PictureDecoder(base.PictureDecoder):
+@dataclass
+class PicNalHeader:
+    nal_unit_type: int = 0
+    soc: int = 0
+    poc: int = 0
+    doc: int = 0
+    tid: int = 0
+    pic_qp: int = 0
+    highest_layer: bool = False
+    deblock: bool = True
+    allow_lic: bool = False
+
+
+def decode_header(segment_header, bit_reader, state, prev_sub_gop_length,
+                  doc, soc_counter, num_buffered_nals, restrictions):
+    """Reconstruct POC/DOC/TID from the picture NAL header.
+
+    state: dict with keys sub_gop_end_poc, sub_gop_start_poc,
+    sub_gop_length (mutated).  (ref: picture_decoder.cc:52-141)
+    """
+    header_byte = bit_reader.read_bits(8)
+    nal_unit_type = k.NalUnitType((header_byte >> 1) & 31)
+    buffer_flag = bit_reader.read_bits(1)
+    soc = (soc_counter - 1) & 0xFF if buffer_flag else soc_counter
+    tid = bit_reader.read_bits(3)
+    if nal_unit_type == k.NalUnitType.INTRA_ACCESS_PICTURE and \
+            segment_header.leading_pictures:
+        state["sub_gop_length"] = segment_header.max_sub_gop_length
+        state["sub_gop_start_poc"] += k.MAX_SUB_GOP_LENGTH if doc > 1 else 0
+        state["sub_gop_end_poc"] = state["sub_gop_start_poc"]
+    elif tid == 0:
+        length = segment_header.max_sub_gop_length
+        if num_buffered_nals:
+            state["sub_gop_length"] = prev_sub_gop_length
+        elif nal_unit_type == k.NalUnitType.INTRA_ACCESS_PICTURE:
+            state["sub_gop_length"] = 1
+        elif length > 0:
+            state["sub_gop_length"] = length
+        elif doc > 0:
+            state["sub_gop_length"] = 1
+        state["sub_gop_start_poc"] = state["sub_gop_end_poc"]
+    elif segment_header.max_sub_gop_length > state["sub_gop_length"]:
+        state["sub_gop_length"] = segment_header.max_sub_gop_length
+    pic_qp = bit_reader.read_bits(7) - k.QP_SIGNAL_BASE
+    allow_lic = False
+    if not restrictions.disable_ext2_inter_local_illumination_comp:
+        allow_lic = bit_reader.read_bit() != 0
+    deblock = segment_header.deblocking_mode != k.DeblockingMode.DISABLED
+    if segment_header.deblocking_mode == k.DeblockingMode.PER_PICTURE:
+        deblock = bit_reader.read_bit() != 0
+    bit_reader.skip_bits()
+
+    if doc > state["sub_gop_end_poc"]:
+        state["sub_gop_start_poc"] = state["sub_gop_end_poc"]
+    while doc > state["sub_gop_start_poc"] + state["sub_gop_length"]:
+        state["sub_gop_start_poc"] += state["sub_gop_length"]
+    if doc > 0 and doc <= state["sub_gop_start_poc"]:
+        doc = state["sub_gop_start_poc"] + 1
+    # Bounded tid resync: the reference loop (picture_decoder.cc:111-118)
+    # is unbounded and spins forever on a corrupt tid; valid resync
+    # (dropped temporal layers / truncated sub-GOPs) converges within a
+    # sub-GOP span, so cap the walk and reject the NAL beyond it.
+    resync_cap = 4 * k.MAX_SUB_GOP_LENGTH + 16
+    while not segment_header.low_delay and \
+            seg.calc_tid_from_doc(doc, state["sub_gop_length"],
+                                  state["sub_gop_start_poc"]) != tid:
+        doc += 1
+        if doc > state["sub_gop_end_poc"]:
+            state["sub_gop_start_poc"] = state["sub_gop_end_poc"]
+        resync_cap -= 1
+        if resync_cap <= 0:
+            raise ValueError("unresolvable tid in picture header")
+    if tid == 0:
+        state["sub_gop_end_poc"] = seg.calc_poc_from_doc(
+            doc, state["sub_gop_length"], state["sub_gop_start_poc"])
+    poc = seg.calc_poc_from_doc(doc, state["sub_gop_length"],
+                                state["sub_gop_start_poc"])
+    if segment_header.low_delay:
+        poc = doc
+    return PicNalHeader(
+        nal_unit_type=nal_unit_type, soc=soc, poc=poc, doc=doc, tid=tid,
+        pic_qp=pic_qp,
+        highest_layer=(tid == seg.get_max_tid(state["sub_gop_length"])),
+        deblock=deblock, allow_lic=allow_lic)
+
+
+class PictureDecoder:
+    """Holds reconstruction state for one picture; recycled via the pool."""
+
     def __init__(self, pic_format_chroma, width, height, bitdepth,
                  crop_width=0, crop_height=0, *, device):
-        super().__init__(pic_format_chroma, width, height, bitdepth,
-                         crop_width, crop_height)
         self.device = device
+        self.pic_data = PictureData(pic_format_chroma, width, height,
+                                    bitdepth)
+        self.rec_pic = YuvPicture(pic_format_chroma, width, height, bitdepth,
+                                  True, crop_width, crop_height)
+        self.alt_rec_pic = None
+        self.output_status_done = True  # has been output
+        self.ref_count = 0
+        self.pic_qp = 0
+        self.output_format = None
+        self.user_data = 0
+        self.is_conforming = True
+        self.output_pic_bytes = b""
+        self.pic_hash = b""
+
+    def get_alternative_rec_pic(self, segment_header):
+        """Allocate (but do not fill) the cross-segment alternative
+        reconstruction; content is produced by the picture's own decode
+        via generate_alternative_rec_pic, exactly like the reference so
+        reference-list preparation stays thread-safe
+        (ref: picture_decoder.cc:226-241)."""
+        if self.alt_rec_pic is not None:
+            return self.alt_rec_pic
+        sh = segment_header
+        self.alt_rec_pic = YuvPicture(sh.chroma_format, sh.internal_width,
+                                      sh.internal_height,
+                                      sh.internal_bitdepth, True,
+                                      sh.crop_width, sh.crop_height)
+        return self.alt_rec_pic
+
+    def generate_alternative_rec_pic(self, segment_header):
+        """Fill the alternative reconstruction by rescaling rec_pic
+        (ref: picture_decoder.cc:242-293)."""
+        alt = self.get_alternative_rec_pic(segment_header)
+        for c in range(k.num_components(segment_header.chroma_format)):
+            if (self.rec_pic.chroma_format == k.ChromaFormat.MONOCHROME
+                    and c != 0):
+                alt.plane_view(c)[:] = 1 << (alt.bitdepth - 1)
+                continue
+            resample.resample_pic_plane(alt, c, self.rec_pic)
+        alt.pad_border()
+        return alt
 
     def init_pic(self, segment, header, ref_pic_list, output_pic_format,
                  user_data):
+        self.pic_qp = header.pic_qp
+        self.output_format = output_pic_format
+        self.user_data = user_data
+        self.output_status_done = False
+        self.ref_count = 0
+        self.alt_rec_pic = None
         flat_recon.release_slot(self.rec_pic)  # buffer recycled
-        super().init_pic(segment, header, ref_pic_list, output_pic_format,
-                         user_data)
+        pd = self.pic_data
+        pd.nal_type = header.nal_unit_type
+        pd.soc = header.soc
+        pd.poc = header.poc
+        pd.doc = header.doc
+        pd.tid = header.tid
+        pd.sub_gop_length = segment.max_sub_gop_length
+        pd.highest_layer = header.highest_layer and not segment.low_delay
+        pd.adaptive_qp = segment.adaptive_qp
+        pd.deblock = header.deblock
+        pd.beta_offset = segment.beta_offset
+        pd.tc_offset = segment.tc_offset
+        pd.lic_active = header.allow_lic
+        pd.ref_pic_lists = ref_pic_list
 
     def decode(self, segment, prev_segment, bit_reader, post_process=True):
-        return self._decode_impl(segment, prev_segment, bit_reader,
-                                 post_process)
-
-    def _decode_impl(self, segment, prev_segment, bit_reader,
-                     post_process=True):
+        """Decode one picture on ``self.device``; returns conformance
+        success."""
         pd = self.pic_data
-        self.finish_post()
         restr = segment.restrictions
-        if getattr(segment, "tile_rows", 1) >= 2:
+        if segment.tile_rows >= 2:
             raise NotImplementedError("tile_rows >= 2 (CTU-tile-row "
                                       "extension) is not on the flat path")
-        if not native_pic.parse_available():
-            raise NotImplementedError("the native picture parse is not "
-                                      "available")
         reason = flat_recon.ineligible_reason(pd, restr)
         if reason is not None:
             raise NotImplementedError("picture not decodable on the flat "
@@ -51,11 +198,9 @@ class PictureDecoder(base.PictureDecoder):
         qp = Qp(self.pic_qp, pd.chroma_format, pd.bitdepth, 0.0,
                 segment.chroma_qp_offset_table, segment.chroma_qp_offset_u,
                 segment.chroma_qp_offset_v)
-        pd.init(segment, qp, True, light=True)
-        pd.mv_resolved = False
+        pd.init(segment)
         pd._parse_records = None
-        success = native_pic.parse_picture(self, segment, bit_reader, qp,
-                                           replay=False)
+        success = native_pic.parse_picture(self, segment, bit_reader, qp)
         planes = flat_recon.FlatReconstructor(self, segment,
                                               self.device).run()
         if pd.deblock:
@@ -74,3 +219,50 @@ class PictureDecoder(base.PictureDecoder):
         if post_process:
             success = self.postprocess(segment, bit_reader) and success
         return success
+
+    def _resolved_output_format(self):
+        out_fmt = dict(self.output_format)
+        if not out_fmt.get("width"):
+            out_fmt["width"] = self.rec_pic.get_display_width(0)
+        if not out_fmt.get("height"):
+            out_fmt["height"] = self.rec_pic.get_display_height(0)
+        if out_fmt.get("chroma_format",
+                       k.ChromaFormat.UNDEFINED) == k.ChromaFormat.UNDEFINED:
+            out_fmt["chroma_format"] = self.rec_pic.chroma_format
+        if not out_fmt.get("bitdepth"):
+            out_fmt["bitdepth"] = self.rec_pic.bitdepth
+        return out_fmt
+
+    def _generate_alternative_rec_pic(self, segment, prev_segment):
+        ps = prev_segment
+        if (ps.chroma_format == k.ChromaFormat.UNDEFINED or
+                ps.internal_width <= 0 or ps.internal_height <= 0 or
+                (ps.chroma_format == segment.chroma_format and
+                 ps.internal_width == segment.internal_width and
+                 ps.internal_height == segment.internal_height and
+                 ps.internal_bitdepth == segment.internal_bitdepth)):
+            return
+        self.generate_alternative_rec_pic(prev_segment)
+
+    def postprocess(self, segment, bit_reader):
+        success = True
+        if self.pic_data.tid == 0 or \
+                segment.checksum_mode == k.ChecksumMode.MAX_ROBUST:
+            success = self._validate_checksum(segment, bit_reader)
+        else:
+            self.pic_hash = b""
+        self.output_pic_bytes = output.convert_to(
+            self.rec_pic, self._resolved_output_format())
+        return success
+
+    def _validate_checksum(self, segment, bit_reader):
+        restr = segment.restrictions
+        method = k.ChecksumMethod.CRC if \
+            restr.disable_high_level_default_checksum_method else \
+            k.ChecksumMethod.MD5
+        self.pic_hash = cksum.hash_picture(self.rec_pic, method,
+                                           segment.checksum_mode)
+        if segment.major_version <= 1:
+            bit_reader.read_byte()
+        expected = bit_reader.read_bytes(len(self.pic_hash))
+        return expected == self.pic_hash

@@ -1,4 +1,4 @@
-"""PyTorch device path of the decoder: one module for each module of
-``xvc_tpu/tpu/`` on the flat decode path.  Kernel wrappers launch the
-hand-written CUDA kernels for tensors on the card and run their plain
-PyTorch versions for tensors on the CPU."""
+"""PyTorch device path: one module for each ported module of
+``xvc_tpu/tpu/``.  Kernel wrappers launch the hand-written CUDA kernels
+for tensors on the card and run their plain PyTorch versions for tensors
+on the CPU."""

@@ -2,10 +2,11 @@
 chroma pass.
 
 Port of ``xvc_tpu/tpu/deblock_jax.py``.  The boundary strengths and the
-per-edge tc/beta/chroma gating are state independent, so they come from
-the same numpy code as the JAX version (``compute_edge_metadata``,
-``luma_edge_tensors``, ``chroma_edge_tensors``), fed by the CU maps of
-``xvc_tpu.ops.deblock.DeblockingFilter._build_cu_maps``.
+per-edge tc/beta/chroma gating are state independent, so they are
+computed on the host with numpy (``compute_edge_metadata``,
+``luma_edge_tensors``, ``chroma_edge_tensors``, copied from the JAX
+module), fed by the CU maps of
+``ops.deblock.DeblockingFilter._build_cu_maps``.
 
 - ``luma_pass`` filters one direction in place.  On the card it launches
   ``kernels/csrc/deblock.cu`` (one thread per 4-row group walking the
@@ -17,14 +18,158 @@ the same numpy code as the JAX version (``compute_edge_metadata``,
 import numpy as np
 import torch
 
-from xvc_tpu import constants as k
-from xvc_tpu.ops import deblock as dbk
-from xvc_tpu.tpu.deblock_jax import (chroma_edge_tensors,
-                                     compute_edge_metadata,
-                                     luma_edge_tensors)
+from .. import constants as k
 from .. import kernels
+from ..ops import deblock as dbk
 from . import dsp
 
+
+# ---------------------------------------------------------------------------
+# Host-side metadata (vectorized boundary-strength derivation)
+# ---------------------------------------------------------------------------
+
+def _gather_mv(attrs, idx, lst, corner):
+    """corner is an (ny, nx) array; returns (mvx, mvy) arrays."""
+    base = attrs[idx]  # (ny, nx, 27)
+    cx = 11 + lst * 8 + corner * 2
+    mvx = np.take_along_axis(base, cx[..., None], axis=-1)[..., 0]
+    mvy = np.take_along_axis(base, (cx + 1)[..., None], axis=-1)[..., 0]
+    return mvx, mvy
+
+
+def compute_edge_metadata(pic, cu_map, attrs, direction, subblock_size,
+                          beta_offset, tc_offset, restr):
+    """Vectorized _get_boundary_strength over the whole picture
+    (ref: deblocking_filter.cc:154-241).  Returns dict with per-subblock
+    (ny, nx) arrays: bs, qp_luma, qp_chroma (x = edge positions along
+    the filter direction, y = along the edge).  For direction 1 the
+    arrays are in transposed coordinates (x = vertical edge position in
+    the transposed plane)."""
+    W, H = pic.width, pic.height
+    if direction == 1:
+        W, H = H, W
+    one_step = 16
+    xs = np.arange(subblock_size, W, subblock_size)
+    ys = np.arange(0, H, subblock_size)
+    if direction == 0:
+        # p is the CU at (x-1, y): x is a multiple of sbs>=4 so
+        # (x-1)>>2 == (x>>2) - 1
+        iq = cu_map[np.ix_(ys >> 2, xs >> 2)]
+        ip = cu_map[np.ix_(ys >> 2, (xs >> 2) - 1)]
+    else:
+        iq = cu_map[np.ix_(xs >> 2, ys >> 2)].T
+        ip = cu_map[np.ix_((xs >> 2) - 1, ys >> 2)].T
+    a_p = attrs[ip]
+    a_q = attrs[iq]
+    skip = ip == iq
+
+    ycoord = ys[:, None].astype(np.int64)
+    if direction == 0:
+        # vertical edge: corner from y offset within CU
+        corner_p = np.where((ycoord - a_p[..., 1]) < (a_p[..., 3] >> 1), 1, 3)
+        corner_q = np.where((ycoord - a_q[..., 1]) < (a_q[..., 3] >> 1), 0, 2)
+    else:
+        # horizontal edge: corner from x offset within CU; in transposed
+        # coords the edge position is xcoord (= y in picture coords) and
+        # ycoord runs along the edge (= x in picture coords)
+        corner_p = np.where((ycoord - a_p[..., 0]) < (a_p[..., 2] >> 1), 2, 3)
+        corner_q = np.where((ycoord - a_q[..., 0]) < (a_q[..., 2] >> 1), 0, 1)
+
+    base = np.int32(1 if restr.disable_deblock_boundary_strength_zero else 0)
+    bs = np.full(iq.shape, base, np.int32)
+
+    pred_bi = pic.get_prediction_type() == k.PicturePredictionType.BI
+    if pred_bi:
+        rp0, rp1 = a_p[..., 8], a_p[..., 9]
+        rq0, rq1 = a_q[..., 8], a_q[..., 9]
+        match = ((rp0 == rq0) & (rp1 == rq1)) | ((rp0 == rq1) & (rp1 == rq0))
+        p0x, p0y = _gather_mv(attrs, ip, 0, corner_p)
+        p1x, p1y = _gather_mv(attrs, ip, 1, corner_p)
+        q0x, q0y = _gather_mv(attrs, iq, 0, corner_q)
+        q1x, q1y = _gather_mv(attrs, iq, 1, corner_q)
+        cond1 = ((np.abs(p0x - q0x) >= one_step) |
+                 (np.abs(p0y - q0y) >= one_step) |
+                 (np.abs(p1x - q1x) >= one_step) |
+                 (np.abs(p1y - q1y) >= one_step))
+        cond2 = ((np.abs(p0x - q1x) >= one_step) |
+                 (np.abs(p0y - q1y) >= one_step) |
+                 (np.abs(p1x - q0x) >= one_step) |
+                 (np.abs(p1y - q0y) >= one_step))
+        inner = np.where(rp0 != rp1,
+                         np.where(rp0 == rq0, cond1, cond2),
+                         cond1 & cond2)
+        bs_mv = np.where(match, np.where(inner, 1, base), 1).astype(np.int32)
+    else:
+        p0x, p0y = _gather_mv(attrs, ip, 0, corner_p)
+        q0x, q0y = _gather_mv(attrs, iq, 0, corner_q)
+        diff = (np.abs(p0x - q0x) >= one_step) | (np.abs(p0y - q0y) >=
+                                                  one_step)
+        bs_mv = np.where((a_p[..., 10] != a_q[..., 10]) | diff, 1,
+                         base).astype(np.int32)
+
+    intra_m = (a_p[..., 4] != 0) | (a_q[..., 4] != 0)
+    cbf_m = (a_p[..., 5] != 0) | (a_q[..., 5] != 0)
+    bs = np.where(intra_m, 2, np.where(cbf_m, 1, bs_mv))
+    if restr.disable_deblock_boundary_strength_one:
+        bs = np.where(bs == 1, 2, bs)
+    bs = np.where(skip, 0, bs)
+
+    qp_l = (a_p[..., 6] + a_q[..., 6] + 1) >> 1
+    qp_c = (a_p[..., 7] + a_q[..., 7] + 1) >> 1
+    if restr.disable_deblock_depending_on_qp:
+        qp_l = np.full_like(qp_l, 32)
+        qp_c = np.full_like(qp_c, 31)
+    return {"bs": bs, "qp_l": qp_l.astype(np.int32),
+            "qp_c": qp_c.astype(np.int32), "xs": xs}
+
+
+_TC = np.asarray(dbk.TC_TABLE, np.int32)
+_BETA = np.asarray(dbk.BETA_TABLE, np.int32)
+
+
+def luma_edge_tensors(meta, subblock_size, beta_offset, tc_offset, bitdepth):
+    """Expand per-subblock metadata to per-4-row filter groups, oriented
+    (n_edges, n_groups)."""
+    bs, qp = meta["bs"], meta["qp_l"]
+    sh = bitdepth - 8
+    idx_b = np.clip(qp + beta_offset, 0, len(_BETA) - 1)
+    beta = _BETA[idx_b] << sh
+    idx_t = np.clip(qp + tc_offset + 2 * (bs - 1), 0, len(_TC) - 1)
+    tc = _TC[idx_t] << sh
+    rep = subblock_size // dbk.FILTER_GROUP_SIZE
+    mask = (bs > 0)
+    expand = lambda a: np.repeat(a, rep, axis=0).T.copy()
+    return (expand(mask), expand(tc.astype(np.int32)),
+            expand(beta.astype(np.int32)))
+
+
+def chroma_edge_tensors(meta, direction, subblock_size, tc_offset,
+                        bitdepth, csx, csy):
+    """Per chroma (edge, row) apply mask + tc, in (transposed-for-dir1)
+    chroma coords.  Returns (edges, apply (E, Hc), tc (E, Hc)) or None
+    if no chroma edges exist."""
+    bs, qp = meta["bs"], meta["qp_c"]
+    # scale along the filter direction / along the edge
+    es = csx if direction == 0 else csy      # edge-position scale
+    rs = csy if direction == 0 else csx      # along-edge (row) scale
+    stride_luma = dbk.CHROMA_FILTER_RESOLUTION << es
+    col_stride = stride_luma // subblock_size
+    if col_stride < 1 or bs.shape[1] < col_stride:
+        return None
+    sub_bs = bs[:, col_stride - 1::col_stride]
+    sub_qp = qp[:, col_stride - 1::col_stride]
+    ssb = subblock_size >> rs
+    apply = np.repeat(sub_bs == 2, ssb, axis=0).T.copy()
+    sh = bitdepth - 8
+    idx_t = np.clip(sub_qp + tc_offset + 2, 0, len(_TC) - 1)
+    tc = np.repeat(_TC[idx_t] << sh, ssb, axis=0).T.copy()
+    edges = (meta["xs"][col_stride - 1::col_stride] >> es).astype(np.int32)
+    return edges, apply, tc.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Device passes
+# ---------------------------------------------------------------------------
 
 def luma_pass(plane, xs, mask, tc, beta, bitdepth, flags):
     """One luma filter direction over vertical edges, in place.

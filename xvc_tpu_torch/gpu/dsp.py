@@ -23,9 +23,9 @@ import functools
 import numpy as np
 import torch
 
-from xvc_tpu import constants as k
-from xvc_tpu.codec import inter_mc as mc
-from xvc_tpu.ops import transform as tx
+from .. import constants as k
+from ..codec import inter_mc as mc
+from ..ops import transform as tx
 
 _HIGH_PREC_SHIFT = 2
 

@@ -25,19 +25,20 @@ the JAX package's ``_dev_slots``.
 The numpy job builders (``_build_itx_groups``, ``_build_mc_groups``,
 ``_emit_mc_rows``, ``_emit_affine_rows``, ``_affine_plain``,
 ``_affine_subblocks``, ``_build_intra_meta``, ``_qp_scales``) are copies
-of the JAX module's: that module imports jax at module level, so this
-package cannot import it.  Both packages are to import them from one
-JAX-free module later.
+of the JAX module's, as is the intra-toolset test of
+``xvc_tpu/codec/intra_search.py``: this package imports nothing of
+``xvc_tpu``.
 """
 import weakref
 
 import numpy as np
 import torch
 
-from xvc_tpu import constants as k
-from xvc_tpu.codec import inter_mc as mc
-from xvc_tpu.codec import inter_mv as mv_mod
-from xvc_tpu.ops.quant import Qp
+from .. import constants as k
+from ..codec import inter_mc as mc
+from ..codec import inter_mv as mv_mod
+from ..ops.quant import Qp
+from ..restrictions import Restrictions
 from . import dsp
 from . import intra_scan
 from . import itx
@@ -206,6 +207,22 @@ def device_pad_planes(rec, planes_dev):
 # Eligibility
 # ---------------------------------------------------------------------------
 
+_INTRA_TOOL_FLAGS = (
+    "disable_intra_ref_padding", "disable_intra_ref_sample_filter",
+    "disable_intra_dc_post_filter", "disable_intra_ver_hor_post_filter",
+    "disable_intra_planar", "disable_ext2_intra_67_modes",
+    "disable_ext2_intra_6_predictors",
+    "disable_ext_intra_unrestricted_predictor")
+
+
+def _intra_restrictions_default(restr):
+    """The device intra stages implement the default (unrestricted)
+    intra toolset only."""
+    default = Restrictions()
+    return all(getattr(restr, f) == getattr(default, f)
+               for f in _INTRA_TOOL_FLAGS)
+
+
 def ineligible_reason(pd, restr):
     """Why the flat path cannot decode this picture, or None.  Covers
     the default (unrestricted) toolset on 4:2:0 / monochrome; the
@@ -216,7 +233,6 @@ def ineligible_reason(pd, restr):
         return "bitdepth %d > 14" % pd.bitdepth
     if restr.disable_ext2_intra_67_modes:
         return "restrictions: 67 intra modes disabled"
-    from xvc_tpu.codec.intra_search import _intra_restrictions_default
     if not _intra_restrictions_default(restr):
         return "restrictions: non-default intra toolset"
     if pd.chroma_format == k.ChromaFormat.MONOCHROME:

@@ -29,13 +29,24 @@ import functools
 import numpy as np
 import torch
 
-from xvc_tpu.ops import intra_pred as ip
-from xvc_tpu.tpu.intra_scan import (
-    C_ACTIVE, C_H, C_HAS_A, C_HAS_AL, C_HAS_L, C_IS_LM, C_MODE, C_PLANE,
-    C_PX, C_PY, C_SAR, C_SBL, C_W, CMETA_COLS, LINE, M_ACTIVE, M_H, M_HAS_A,
-    M_HAS_AL, M_HAS_L, M_MODE, M_PX, M_PY, M_SAR, M_SBL, M_W, META_COLS,
-    PAD_BR, PAD_TL, RLEN)
+from ..ops import intra_pred as ip
 from .dsp import ds_start
+
+# Canvas and metadata layout (the JAX module's, so both packages build
+# the same scan inputs)
+PAD_TL = 8      # plane padding top/left (ref line reads at -1)
+PAD_BR = 200    # right/bottom (64x64 window + 128-long ref line reads)
+LINE = 320      # >= 3*64 + 2*64 (the availability line buffer)
+RLEN = 256      # >= base(65) + 129 (projected angular reference line)
+
+# luma metadata columns
+M_PX, M_PY, M_W, M_H, M_MODE, M_HAS_L, M_HAS_A, M_HAS_AL, M_SBL, \
+    M_SAR, M_ACTIVE = range(11)
+META_COLS = 11
+# chroma metadata columns
+C_PLANE, C_PX, C_PY, C_W, C_H, C_MODE, C_IS_LM, C_HAS_L, C_HAS_A, \
+    C_HAS_AL, C_SBL, C_SAR, C_ACTIVE = range(13)
+CMETA_COLS = 13
 
 __all__ = ["intra_scan", "intra_chroma_scan", "PAD_TL", "PAD_BR",
            "META_COLS", "CMETA_COLS"]

@@ -16,8 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from xvc_tpu import constants as k
-from xvc_tpu.ops import transform as tx
+from .. import constants as k
+from ..ops import transform as tx
 from .. import kernels
 from . import dsp
 

@@ -12,7 +12,7 @@ into ``pred[chan]``.  Lanes carrying the ``_BIG`` sentinel write nothing.
 """
 import torch
 
-from xvc_tpu.codec import inter_mc as mc_tab
+from ..codec import inter_mc as mc_tab
 from .. import kernels
 from . import dsp
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one shared
-library with a plain C interface, under ``build/xvc_tpu_torch/`` at the
-root of the checkout, the first time a kernel is needed.  The library
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Each C entry point
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``), one nvcc per
+source and all of them at once, and linked into one shared library with
+a plain C interface, under ``build/xvc_tpu_torch/`` at the root of the
+checkout, the first time a kernel is needed.  The library name carries a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Each C entry point
 enqueues its kernel on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an error.
 """
@@ -21,10 +22,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_ROOT, "build", "xvc_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
@@ -34,6 +36,7 @@ SIGNATURES = {
                         _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "xvc_deblock_luma": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
+    "xvc_satd": [_P, _P, _L, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -70,13 +73,29 @@ def build():
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp%d" % (so_path, os.getpid())
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (res.returncode,
-                                                      BUILD_LOG))
+    nvcc = _nvcc()
+    tag = "%s.tmp%d" % (so_path, os.getpid())
+    objs = ["%s.%s.o" % (tag, os.path.basename(src)) for src in srcs]
+    procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    BUILD_LOG = "".join(outs)
+    failed = [src for src, proc in zip(srcs, procs) if proc.returncode != 0]
+    tmp = tag + ".so"
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                             capture_output=True, text=True)
+        BUILD_LOG += res.stdout + res.stderr
+        if res.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed on %s:\n%s" % (", ".join(failed),
+                                                       BUILD_LOG))
     os.replace(tmp, so_path)
     return so_path
 

@@ -1,0 +1,82 @@
+"""In-loop deblocking filter.
+
+Behavioral equivalent of the reference deblocking filter
+(ref: src/xvc_common_lib/deblocking_filter.cc): vertical edges then
+horizontal edges on a 4-pel (ext) or 8-pel grid, HEVC-style strong/weak
+luma filtering, chroma only at boundary strength 2.
+
+Copy of the tables and the CU-map construction of ``xvc_tpu/ops/deblock.py``.
+The filter itself runs on the device (``gpu/deblock.py``);
+``DeblockingFilter`` only carries the picture, the offsets and the
+restrictions to it and builds the per-4x4 CU maps from the parse
+records.
+"""
+import numpy as np
+
+
+TC_TABLE = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1,
+            1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 5, 5, 6, 6,
+            7, 8, 9, 10, 11, 13, 14, 16, 18, 20, 22, 24)
+BETA_TABLE = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 6, 7, 8, 9,
+              10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24, 26, 28, 30,
+              32, 34, 36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56, 58, 60,
+              62, 64, 66, 68, 70, 72, 74, 76, 78, 80, 82, 84, 86, 88)
+
+SUBBLOCK_SIZE = 8
+SUBBLOCK_SIZE_EXT = 4
+FILTER_GROUP_SIZE = 4
+CHROMA_FILTER_RESOLUTION = 8
+
+
+class DeblockingFilter:
+    def __init__(self, pic_data, rec_pic, beta_offset, tc_offset,
+                 restrictions):
+        self.pic = pic_data
+        self.rec = rec_pic
+        self.beta_offset = beta_offset
+        self.tc_offset = tc_offset
+        self.restr = restrictions
+
+    def _build_cu_maps(self, cu_tree):
+        """Flat per-4x4 CU index map + per-CU attribute records (27
+        columns), vectorized from the native parse's flat CU records
+        (native/pic.py parse_picture)."""
+        pic = self.pic
+        rec = pic._parse_records
+        map_w = (pic.width + 3) >> 2
+        map_h = (pic.height + 3) >> 2
+        cu_map = np.full((map_h, map_w), -1, np.int32)
+        leaf = (rec[:, 6] == 0) & (rec[:, 0] == int(cu_tree))
+        lr = rec[leaf]
+        n = lr.shape[0]
+        if n == 0:
+            return cu_map, np.zeros((1, 27), np.int32)
+        attrs = np.zeros((n, 27), np.int32)
+        attrs[:, 0:4] = lr[:, 2:6]
+        is_intra = lr[:, 11] == 0
+        attrs[:, 4] = is_intra
+        attrs[:, 5] = lr[:, 21] != 0
+        if pic.qps is None:
+            pic._build_qps()  # deferred by light init (flat decode path)
+        qp_lut0 = np.array([q.get_qp_raw(0) for q in pic.qps], np.int32)
+        qp_lut1 = np.array([q.get_qp_raw(1) for q in pic.qps], np.int32)
+        attrs[:, 6] = qp_lut0[lr[:, 12]]
+        attrs[:, 7] = qp_lut1[lr[:, 12]]
+        rpl = pic.ref_pic_lists
+        inter_dir = lr[:, 16]
+        for lst in (0, 1):
+            poc_lut = np.zeros(8, np.int32)  # ref_idx OOB -> poc 0
+            for i in range(min(rpl.get_num_ref_pics(lst), 8)):
+                poc_lut[i] = rpl.get_ref_poc(lst, i)
+            has = (inter_dir != 1) if lst == 0 else (inter_dir >= 1)
+            poc = np.where(has, poc_lut[np.clip(lr[:, 35 + lst], 0, 7)], -1)
+            attrs[:, 8 + lst] = np.where(is_intra, 0, poc)
+        attrs[:, 10] = np.where(is_intra, 0, lr[:, 35])
+        attrs[:, 11:27] = lr[:, 41:57]
+        xs0 = lr[:, 2] >> 2
+        ys0 = lr[:, 3] >> 2
+        xs1 = np.minimum(map_w, (lr[:, 2] + lr[:, 4] + 3) >> 2)
+        ys1 = np.minimum(map_h, (lr[:, 3] + lr[:, 5] + 3) >> 2)
+        for i in range(n):
+            cu_map[ys0[i]:ys1[i], xs0[i]:xs1[i]] = i
+        return cu_map, np.ascontiguousarray(attrs)
