@@ -10,16 +10,21 @@ Phases:
   1  build: compile the CUDA kernels from xvc_tpu_torch/kernels/csrc
      (one nvcc per source, all at once) and, beside them, the native
      parse library from xvc_tpu_torch/native/csrc (g++);
-  2  kernels: MC, ITX, luma deblock and SATD on the card against their
-     plain PyTorch versions on the same inputs (numpy seed, main-path
-     shapes), bit-exact, each timed with CUDA events beside its plain
-     version and beside its bound (the least time the card could take:
-     bytes over the HBM rate, or operations over the peak rate);
+  2  kernels: MC, ITX, luma deblock, SATD and the intra luma and chroma
+     scans on the card against their plain PyTorch versions on the same
+     inputs (numpy seed, main-path shapes; for the scans also the real
+     inputs of picture 0 of hd720_ld, captured during a decode),
+     bit-exact, each timed with CUDA events beside its plain version
+     and beside its bound (the least time the card could take: bytes
+     over the HBM rate, or operations over the peak rate);
   3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
      card; every picture must be checksum-conforming and equal the
      recorded host decode (tests/data/bench/hd720_ld_dec.sha256), and
      the launch count of every kernel of that path must be above 0;
+     then the stage profile of one more decode with synchronising spans
+     (xvc_tpu_torch.profiling) and the device's busy share of a decode
+     (torch.profiler, busy time and decode time from the same run);
   4  goldens: sp_fast, ai64x48 and ai64x48b10 against tests/data;
   5  lookahead path: the luma plane of picture 0 of phase 3 (1280x720,
      8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
@@ -27,9 +32,10 @@ Phases:
      call on the CPU device (plain versions) bit for bit, and the SATD
      kernel's launch count over that call must be above 0.
 
-Any mismatch raises, so the exit code is nonzero.  The second-to-last
-lines are a JSON object of per-kernel results and the nvidia-smi line;
-the last line is {"ok": true, "device": {...}}.  Without a CUDA device
+Any mismatch raises, so the exit code is nonzero.  The lines before the
+last are a JSON object with the stage profile, a JSON object of
+per-kernel results and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
 """
 import concurrent.futures
@@ -54,9 +60,13 @@ KERNELS = {
                      "xvc_tpu/tpu/deblock_jax.py:179"),
     "satd": ("xvc_tpu_torch/kernels/csrc/satd.cu",
              "xvc_tpu/tpu/pallas_satd.py:62"),
+    "intra_luma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
+                   "xvc_tpu/tpu/intra_scan.py:51"),
+    "intra_chroma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
+                     "xvc_tpu/tpu/intra_scan.py:296"),
 }
 # the kernels each path must launch
-DECODE_KERNELS = ("mc", "itx", "deblock_luma")
+DECODE_KERNELS = ("mc", "itx", "deblock_luma", "intra_luma", "intra_chroma")
 LOOKAHEAD_KERNELS = ("satd",)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
@@ -65,6 +75,10 @@ LOOKAHEAD_KERNELS = ("satd",)
 # it is still a time the card cannot beat.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+# One dependent global store -> barrier -> load round trip inside a block,
+# assumed (not measured here) at two L2 accesses of about 270 cycles at
+# 1.7 GHz.  Used only for the scans' chain estimate, which is no bound.
+STORE_LOAD_ROUND_TRIP_S = 0.32e-6
 
 
 def bound(nbytes, ops):
@@ -248,9 +262,154 @@ def satd_bound(diff, n):
     return bound(diff.nbytes + blocks * 4, blocks * per_block)
 
 
+def scan_bound(kind, meta):
+    """What this picture's rows need.  Per active row: its w x h int32
+    residual read and int16 samples written; the canvas samples its
+    reference line is made of (the h + sbl rows of the left column inside
+    the line's w + h when has_l, the corner when has_al, the w above and
+    the min(sar, h) above-right samples when has_a), int16 each; for an
+    LM row the 2 (h + has_a) x (2 w + 3 has_l) int16 luma samples that
+    rescale_luma reads; its metadata row.  An inactive row: its ACTIVE
+    column alone.  About 12 operations per sample, 8 per entry of the
+    2 (w + h) + 1 long reference line, 12 per LM grid sample.  Beside the
+    bound, and no bound itself, the chain estimate: the active rows of
+    the longest walk (luma: all; chroma: one plane's) times one dependent
+    store-to-load round trip."""
+    import numpy as np
+    luma = kind == "luma"
+    live = meta[:, 10 if luma else 12] != 0
+    m = meta[live].astype(np.int64)
+    w, h, has_l, has_a, has_al, sbl, sar = (
+        m[:, c] for c in ((2, 3, 5, 6, 7, 8, 9) if luma else
+                          (3, 4, 7, 8, 9, 10, 11)))
+    has_l, has_a, has_al = has_l != 0, has_a != 0, has_al != 0
+    samples = int((w * h).sum())
+    ref_read = int((has_l * np.minimum(h + sbl, w + h) + has_al +
+                    has_a * (w + np.minimum(sar, h))).sum())
+    ref_line = int((2 * (w + h) + 1).sum())
+    nbytes = samples * 6 + ref_read * 2 + \
+        len(m) * meta.shape[1] * 4 + int((~live).sum()) * 4
+    ops = samples * 12 + ref_line * 8
+    chain_rows = len(m)
+    if not luma:
+        lm = m[:, 6] != 0
+        nbytes += int((lm * 2 * (h + has_a) * (2 * w + 3 * has_l)).sum()) * 2
+        ops += int((lm * (h + 1) * (w + 1)).sum()) * 12
+        chain_rows = int(max((m[:, 0] <= 0).sum(), (m[:, 0] > 0).sum()))
+    return dict(bound(nbytes, ops), rows=len(m), samples=samples,
+                ref_samples_read=ref_read,
+                chain_estimate_ms=chain_rows * STORE_LOAD_ROUND_TRIP_S * 1e3)
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+
+def capture_scan_inputs(data):
+    """Decode ``data`` on the card and keep copies of what the first
+    picture's luma and chroma scans were given (before they wrote)."""
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import intra_scan as scan
+    got = {}
+    orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
+
+    def rec_l(plane, resi, meta, bd):
+        got.setdefault("luma", (plane.clone(), resi.clone(), meta.clone(),
+                                bd))
+        return orig_l(plane, resi, meta, bd)
+
+    def rec_c(planes, resi, luma, meta, bd):
+        got.setdefault("chroma", (planes.clone(), resi.clone(),
+                                  luma.clone(), meta.clone(), bd))
+        return orig_c(planes, resi, luma, meta, bd)
+
+    scan.intra_scan, scan.intra_chroma_scan = rec_l, rec_c
+    try:
+        decode_stream(data)
+    finally:
+        scan.intra_scan, scan.intra_chroma_scan = orig_l, orig_c
+    return got
+
+
+def phase_scan_kernels(torch, dev, res):
+    """The two intra scan kernels against their plain versions: the
+    synthetic families of xvc_tpu_torch/gpu/scan_cases.py, then the real
+    scan inputs of picture 0 of hd720_ld, timed at that shape."""
+    from xvc_tpu_torch.gpu import scan_cases as cases
+    from xvc_tpu_torch.gpu import intra_scan as scan
+    T = lambda a: torch.from_numpy(a.copy()).to(dev)
+
+    kernel = dict(luma=scan.intra_scan, chroma=scan.intra_chroma_scan)
+    plain = dict(luma=scan.intra_scan_plain,
+                 chroma=scan.intra_chroma_scan_plain)
+
+    def run(fns, kind, plane, resi, luma, meta, bd):
+        args = (resi, meta, bd) if kind == "luma" else (resi, luma, meta, bd)
+        return fns[kind](plane.clone(), *args)
+
+    def both(kind, plane, resi, luma, meta, bd, tag):
+        got = run(kernel, kind, plane, resi, luma, meta, bd)
+        want = run(plain, kind, plane, resi, luma, meta, bd)
+        torch.cuda.synchronize()
+        e = max_err(torch, got, want)
+        if e or torch.equal(got, plane):
+            raise AssertionError("intra_%s mismatch or no-op: %r, err %d"
+                                 % (kind, tag, e))
+        return e
+
+    err = {"luma": 0, "chroma": 0}
+    families = []
+    for kind, dims in (("luma", cases.LUMA_DIMS),
+                       ("chroma", cases.CHROMA_DIMS)):
+        for bd in (8, 10):
+            families.append(cases.corner_case(kind, bd))
+            families += [cases.shape_case(kind, w, h, bd)
+                         for w in dims for h in dims]
+    families += [cases.lm_wrap_case(bd) for bd in (8, 10, 12)]
+    for n, c in enumerate(families):
+        luma = None if c["luma"] is None else T(c["luma"])
+        err[c["kind"]] = max(err[c["kind"]], both(
+            c["kind"], T(c["plane"]), T(c["resi"]), luma, T(c["meta"]),
+            c["bd"], ("synthetic", n)))
+
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        real = capture_scan_inputs(f.read())
+    plane, resi, meta, bd = real["luma"]
+    planes_c, resi_c, luma_c, meta_c, bd_c = real["chroma"]
+    err["luma"] = max(err["luma"], both("luma", plane, resi, None, meta, bd,
+                                        "hd720_ld picture 0"))
+    err["chroma"] = max(err["chroma"], both(
+        "chroma", planes_c, resi_c, luma_c, meta_c, bd_c,
+        "hd720_ld picture 0"))
+    # timed in place on the picture-0 inputs (the work of a leaf does not
+    # depend on the sample values)
+    res["intra_luma"] = dict(
+        max_abs_err=err["luma"], **scan_bound("luma", meta.cpu().numpy()),
+        shape="hd720_ld picture 0: %d rows, canvas %dx%d" % (
+            (len(meta),) + tuple(plane.shape)),
+        ms=cuda_ms(torch, lambda: scan.intra_scan(plane, resi, meta, bd)),
+        plain_ms=cuda_ms(torch, lambda: scan.intra_scan_plain(
+            plane, resi, meta, bd), 1))
+    res["intra_chroma"] = dict(
+        max_abs_err=err["chroma"],
+        **scan_bound("chroma", meta_c.cpu().numpy()),
+        shape="hd720_ld picture 0: %d rows, canvas 2x%dx%d" % (
+            (len(meta_c),) + tuple(planes_c.shape[1:])),
+        ms=cuda_ms(torch, lambda: scan.intra_chroma_scan(
+            planes_c, resi_c, luma_c, meta_c, bd_c)),
+        plain_ms=cuda_ms(torch, lambda: scan.intra_chroma_scan_plain(
+            planes_c, resi_c, luma_c, meta_c, bd_c), 1))
+    # the plain versions' cached device tables are no part of a decode
+    scan._DEV.clear()
+    for name in ("intra_luma", "intra_chroma"):
+        r = res[name]
+        log("phase 2: %s bit-exact over %d synthetic cases and %s (%d "
+            "active rows, %d samples): kernel %.4f ms, plain %.4f ms, bound "
+            "%.6f ms (%s), chain estimate %.4f ms (no bound)" % (
+                name, sum(c["kind"] == name[6:] for c in families),
+                r["shape"], r["rows"], r["samples"], r["ms"], r["plain_ms"],
+                r["bound_ms"], r["bound_by"], r["chain_estimate_ms"]))
+
 
 def phase_kernels(torch, dev):
     """Each kernel against its plain version on the same CUDA inputs."""
@@ -412,6 +571,7 @@ def phase_kernels(torch, dev):
                                 res["satd"]["plain_ms"],
                                 res["satd"]["bound_ms"],
                                 res["satd"]["bound_by"]))
+    phase_scan_kernels(torch, dev, res)
     return res
 
 
@@ -425,6 +585,7 @@ def phase_decode(torch, dev):
     decode_stream(data)  # warm-up (first-use costs); the card by default
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # frame stores and the like
     kernels.reset_launches()
     t0 = time.perf_counter()
     pics = decode_stream(data, device=dev)
@@ -446,12 +607,60 @@ def phase_decode(torch, dev):
     out = dict(pictures=len(pics), seconds=dt, ms_per_picture=dt * 1e3 / 8,
                mpix_per_s=1280 * 720 * 8 / dt / 1e6,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
-               launches=launches)
+               memory_allocated_before=resident, launches=launches)
     log("phase 3: hd720_ld 8/8 conforming, equal to the recorded host "
-        "decode; %.2f ms/picture, %.3f Mpix/s, peak %d bytes, launches %s"
+        "decode; %.2f ms/picture, %.3f Mpix/s, peak %d bytes (%d resident "
+        "before the decode), launches %s"
         % (out["ms_per_picture"], out["mpix_per_s"],
-           out["max_memory_allocated"], launches))
+           out["max_memory_allocated"], resident, launches))
     return out, pics[0]
+
+
+def device_busy(torch, data):
+    """torch.profiler over one decode: the seconds that decode took on
+    the host's clock (profiler on), the seconds of device work in it
+    (kernels and copies) and the number of device operations; the last
+    two None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_stream(data)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    busy_us, ops = 0.0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            busy_us += us
+            ops += ev.count
+    return (seconds, busy_us / 1e6, ops) if ops else (seconds, None, None)
+
+
+def phase_stage_profile(torch):
+    """Where a decode's time goes: one decode with synchronising spans,
+    and one under torch.profiler for the device's busy and idle share of
+    that same decode."""
+    from xvc_tpu_torch import profiling
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        data = f.read()
+    report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
+    traced_s, busy_s, ops = device_busy(torch, data)
+    out = dict(profiled_seconds=profiled_s, spans=report,
+               traced_decode_seconds=traced_s, device_busy_seconds=busy_s,
+               device_operations=ops,
+               device_idle_share=None if busy_s is None
+               else 1.0 - busy_s / traced_s)
+    log("phase 3: stage profile: %.3f s with synchronising spans; under "
+        "torch.profiler %.3f s, device busy %s s in %s operations (idle "
+        "share %s); spans (s): %s" % (
+            profiled_s, traced_s, busy_s, ops, out["device_idle_share"],
+            {n: v["seconds"] for n, v in report.items()}))
+    return out
 
 
 def phase_goldens(dev):
@@ -572,6 +781,7 @@ def main():
 
     res = phase_kernels(torch, dev)
     dec, pic0 = phase_decode(torch, dev)
+    stages = phase_stage_profile(torch)
     phase_goldens(dev)
     look = phase_lookahead(torch, dev, pic0)
     for module in ("jax", "xvc_tpu"):
@@ -584,19 +794,27 @@ def main():
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
                                    "operations": r["bound_ops"]}
-                               for n, r in res.items()}}))
+                               for n, r in res.items()},
+                    "scan_ref_samples_read": {
+                        n: res[n]["ref_samples_read"]
+                        for n in ("intra_luma", "intra_chroma")},
+                    "scan_chain_estimate_ms": {
+                        n: res[n]["chain_estimate_ms"]
+                        for n in ("intra_luma", "intra_chroma")}}))
+    log(json.dumps({"stage_profile": stages}))
     launches = {n: dec["launches"][n] for n in DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
     # library_ms: no single PyTorch call computes any of these integer
     # functions on CUDA (gather + wrapped int16 filters, int32 transform
-    # with per-block bases, the sequential edge scan, Hadamard + |.| sum)
+    # with per-block bases, the sequential edge scan, Hadamard + |.| sum,
+    # the sequential intra scans)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],
              max_abs_err=res[n]["max_abs_err"], ms=res[n]["ms"],
              plain_ms=res[n]["plain_ms"], bound_ms=res[n]["bound_ms"],
              bound_by=res[n]["bound_by"], library_ms=None)
-        for n in ("mc", "itx", "deblock_luma", "satd")]}))
+        for n in KERNELS]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,10 +17,12 @@ import torch
 
 from xvc_tpu_torch import kernels
 from xvc_tpu_torch.codec.decoder import decode_stream
-from xvc_tpu_torch.gpu import deblock, itx, lookahead, mc, satd
+from xvc_tpu_torch.gpu import deblock, flat_recon, itx, lookahead, mc, satd
+from xvc_tpu_torch.gpu import intra_scan as scan
 from xvc_tpu_torch.ops import deblock as dbk
 from xvc_tpu_torch.restrictions import Restrictions
 
+from xvc_tpu_torch.gpu import scan_cases as cases
 from .util import data_path, read_data
 
 pytestmark = pytest.mark.cuda
@@ -139,6 +141,8 @@ def test_decode_matches_golden_on_card(cuda, name, count):
     assert len(pics) == count and all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == read_data(name + "_dec.yuv")
     assert kernels.LAUNCHES["itx"] > 0 and kernels.LAUNCHES["deblock_luma"] > 0
+    assert kernels.LAUNCHES["intra_luma"] > 0
+    assert kernels.LAUNCHES["intra_chroma"] > 0
 
 
 def test_720p_decode_matches_host_on_card(cuda):
@@ -150,7 +154,8 @@ def test_720p_decode_matches_host_on_card(cuda):
     assert all(p.conforming for p in pics)
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
     assert all(kernels.LAUNCHES[name] > 0
-               for name in ("mc", "itx", "deblock_luma"))
+               for name in ("mc", "itx", "deblock_luma", "intra_luma",
+                            "intra_chroma"))
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
@@ -201,3 +206,115 @@ def test_lookahead_on_card_matches_cpu(cuda, mode_step):
     assert sorted(got) == [4, 8, 16, 32]
     for n in got:
         np.testing.assert_array_equal(got[n], want[n])
+
+
+def _scan_both(dev, case):
+    """The case through the kernel and through the plain version, on the
+    card; asserts bit-exact and one launch."""
+    plane, resi, meta = _to(dev, case["plane"], case["resi"], case["meta"])
+    kernels.reset_launches()
+    if case["kind"] == "luma":
+        got = scan.intra_scan(plane.clone(), resi, meta, case["bd"])
+        want = scan.intra_scan_plain(plane.clone(), resi, meta, case["bd"])
+        assert kernels.LAUNCHES["intra_luma"] == 1
+    else:
+        luma, = _to(dev, case["luma"])
+        got = scan.intra_chroma_scan(plane.clone(), resi, luma, meta,
+                                     case["bd"])
+        want = scan.intra_chroma_scan_plain(plane.clone(), resi, luma, meta,
+                                            case["bd"])
+        assert kernels.LAUNCHES["intra_chroma"] == 1
+    torch.cuda.synchronize()
+    assert not torch.equal(got, plane)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("h", cases.LUMA_DIMS)
+@pytest.mark.parametrize("w", cases.LUMA_DIMS)
+def test_intra_luma_kernel_every_shape_and_mode(cuda, w, h, bd):
+    _scan_both(cuda, cases.shape_case("luma", w, h, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("h", cases.CHROMA_DIMS)
+@pytest.mark.parametrize("w", cases.CHROMA_DIMS)
+def test_intra_chroma_kernel_every_shape_mode_and_lm(cuda, w, h, bd):
+    _scan_both(cuda, cases.shape_case("chroma", w, h, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_intra_scan_kernels_corner_cases(cuda, kind, bd):
+    _scan_both(cuda, cases.corner_case(kind, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_intra_chroma_kernel_lm_sums_that_wrap(cuda, bd):
+    _scan_both(cuda, cases.lm_wrap_case(bd))
+
+
+@pytest.mark.parametrize("name", ["ai64x48", "ai64x48b10", "sp_fast"])
+def test_intra_scan_kernels_on_captured_inputs(cuda, name):
+    """Every scan call of a decode on the card: the kernel's output
+    against the plain version on copies of the same inputs."""
+    seen = []
+    orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
+
+    def rec_l(plane, resi, meta, bd):
+        want = scan.intra_scan_plain(plane.clone(), resi, meta, bd)
+        got = orig_l(plane, resi, meta, bd)
+        seen.append(("luma", torch.equal(got, want)))
+        return got
+
+    def rec_c(planes, resi, luma, meta, bd):
+        want = scan.intra_chroma_scan_plain(planes.clone(), resi, luma, meta,
+                                            bd)
+        got = orig_c(planes, resi, luma, meta, bd)
+        seen.append(("chroma", torch.equal(got, want)))
+        return got
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(flat_recon.intra_scan, "intra_scan", rec_l)
+    mp.setattr(flat_recon.intra_scan, "intra_chroma_scan", rec_c)
+    try:
+        pics = decode_stream(read_data(name + ".xvc"), device=cuda)
+    finally:
+        mp.undo()
+    assert pics and all(p.conforming for p in pics)
+    assert {kind for kind, _ in seen} == {"luma", "chroma"}
+    assert all(ok for _, ok in seen)
+
+
+def test_decode_on_card_never_takes_the_plain_scans(cuda):
+    """The plain versions and their host tables are off the card's decode
+    path: with each of them made to raise, the decode still runs."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain scan code ran on the card's path")
+
+    mp = pytest.MonkeyPatch()
+    for name in ("intra_scan_plain", "intra_chroma_scan_plain", "_leaf_refs",
+                 "derive_lm"):
+        mp.setattr(scan, name, refuse)
+    kernels.reset_launches()
+    try:
+        pics = decode_stream(read_data("sp_fast.xvc"), device=cuda)
+    finally:
+        mp.undo()
+    assert len(pics) == 6 and all(p.conforming for p in pics)
+    assert b"".join(p.bytes for p in pics) == read_data("sp_fast_dec.yuv")
+    assert kernels.LAUNCHES["intra_luma"] > 0
+    assert kernels.LAUNCHES["intra_chroma"] > 0
+
+
+def test_intra_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    case = cases.corner_case("luma", 8)
+    plane, resi, meta = _to(cuda, case["plane"], case["resi"], case["meta"])
+    with pytest.raises(ValueError):
+        scan.intra_scan(plane, resi.cpu(), meta, 8)
+    with pytest.raises(ValueError):
+        scan.intra_scan(plane, resi, meta.to(torch.int64), 8)
+    with pytest.raises(ValueError):
+        scan.intra_scan(plane.t(), resi.t(), meta, 8)
+    with pytest.raises(RuntimeError):
+        scan.intra_scan(plane, resi, meta, 15)

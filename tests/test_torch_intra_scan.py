@@ -10,7 +10,12 @@ the JAX package's lax.scan versions on the CPU backend: bit-exact
   that every window start (reference strips, 64x64 windows, LM luma
   window) is clamped as lax.dynamic_slice clamps it;
   (the goldens carry no LM block, so LM is held here and below);
-- derive_lm's Python int32 arithmetic against the device derivation.
+- derive_lm's Python int32 arithmetic against the device derivation;
+- the numpy-made families of xvc_tpu_torch/gpu/scan_cases.py, which the card
+  tests put through the CUDA kernels: every block shape over all 67
+  modes (chroma: plus LM with each has_l / has_a pair) at 8 and 10 bit
+  with an inactive row in the middle, clamped windows, and LM sums that
+  wrap int32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +27,7 @@ from xvc_tpu_torch.codec.decoder import decode_stream
 from xvc_tpu_torch.gpu import flat_recon
 from xvc_tpu_torch.gpu import intra_scan as scan
 
+from xvc_tpu_torch.gpu import scan_cases as cases
 from .util import read_data
 
 
@@ -32,13 +38,13 @@ def _capture(name):
     orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
 
     def rec_l(plane, resi, meta, bd):
-        calls.append(("luma", plane.clone(), resi.clone(), meta.copy(), bd,
-                      None))
+        calls.append(("luma", plane.clone(), resi.clone(), np.array(meta),
+                      bd, None))
         return orig_l(plane, resi, meta, bd)
 
     def rec_c(planes, resi, luma, meta, bd):
-        calls.append(("chroma", planes.clone(), resi.clone(), meta.copy(),
-                      bd, luma.clone()))
+        calls.append(("chroma", planes.clone(), resi.clone(),
+                      np.array(meta), bd, luma.clone()))
         return orig_c(planes, resi, luma, meta, bd)
 
     mp = pytest.MonkeyPatch()
@@ -53,19 +59,21 @@ def _capture(name):
 
 
 def _check(kind, plane, resi, meta, bd, luma):
+    """``meta`` is a numpy array; the port takes it as a tensor."""
+    tmeta = torch.from_numpy(meta)
     if kind == "luma":
         ph, pw = plane.shape
         want = jscan.make_intra_scan(ph, pw, bd)(
             jnp.asarray(plane.numpy()), jnp.asarray(resi.numpy()),
             jnp.asarray(meta))
-        got = scan.intra_scan(plane.clone(), resi, meta, bd)
+        got = scan.intra_scan(plane.clone(), resi, tmeta, bd)
     else:
         _, ph, pw = plane.shape
         lh, lw = luma.shape
         want = jscan.make_intra_chroma_scan(ph, pw, lh, lw, bd)(
             jnp.asarray(plane.numpy()), jnp.asarray(resi.numpy()),
             jnp.asarray(luma.numpy()), jnp.asarray(meta))
-        got = scan.intra_chroma_scan(plane.clone(), resi, luma, meta, bd)
+        got = scan.intra_chroma_scan(plane.clone(), resi, luma, tmeta, bd)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -154,3 +162,60 @@ def test_derive_lm_int32_semantics(bd):
             rng.randint(0, 1 << bd, (2, 136, 136)).astype(np.int16))
         resi = torch.zeros((2, 136, 136), dtype=torch.int32)
         _check("chroma", planes, resi, meta, bd, torch.from_numpy(lum))
+
+
+def _check_case(case):
+    T = lambda a: None if a is None else torch.from_numpy(a.copy())
+    _check(case["kind"], T(case["plane"]), T(case["resi"]), case["meta"],
+           case["bd"], T(case["luma"]))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("h", cases.LUMA_DIMS)
+@pytest.mark.parametrize("w", cases.LUMA_DIMS)
+def test_luma_scan_every_shape_and_mode(w, h, bd):
+    _check_case(cases.shape_case("luma", w, h, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("h", cases.CHROMA_DIMS)
+@pytest.mark.parametrize("w", cases.CHROMA_DIMS)
+def test_chroma_scan_every_shape_mode_and_lm(w, h, bd):
+    _check_case(cases.shape_case("chroma", w, h, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_scan_corner_cases(kind, bd):
+    _check_case(cases.corner_case(kind, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_lm_sums_that_wrap_int32(bd):
+    case = cases.lm_wrap_case(bd)
+    _check_case(case)
+    # the case is what it claims: the exact sum of squares of one
+    # block's luma neighbours does not fit int32
+    assert int(case["luma"].astype(np.int64).max()) ** 2 * 16 > 2 ** 31
+
+
+def test_wrappers_take_metadata_as_tensor_or_array():
+    """As an int32 tensor of the layout's width, the one form: an array,
+    another width or type, or a canvas below the windows is refused."""
+    case = cases.corner_case("luma", 8)
+    T = lambda a: torch.from_numpy(a.copy())
+    meta = T(case["meta"])
+    a = scan.intra_scan(T(case["plane"]), T(case["resi"]), meta, 8)
+    b = scan.intra_scan_plain(T(case["plane"]), T(case["resi"]), meta, 8)
+    assert torch.equal(a, b) and not torch.equal(a, T(case["plane"]))
+    with pytest.raises(TypeError):
+        scan.intra_scan(T(case["plane"]), T(case["resi"]), case["meta"], 8)
+    with pytest.raises(ValueError):
+        scan.intra_scan(T(case["plane"]), T(case["resi"]),
+                        meta[:, :5].contiguous(), 8)
+    with pytest.raises(ValueError):
+        scan.intra_scan(T(case["plane"]), T(case["resi"]),
+                        meta.to(torch.int64), 8)
+    with pytest.raises(ValueError):
+        scan.intra_scan(T(case["plane"])[:100], T(case["resi"])[:100],
+                        meta, 8)

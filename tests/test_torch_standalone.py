@@ -46,6 +46,7 @@ for mod in pkgutil.walk_packages(xvc_tpu_torch.__path__, "xvc_tpu_torch."):
     importlib.import_module(mod.name)
     names.append(mod.name)
 assert len(names) > 30, names
+assert "xvc_tpu_torch.profiling" in names, names
 
 from xvc_tpu_torch.codec.decoder import decode_stream
 with open(sys.argv[2], "rb") as f:

@@ -19,6 +19,7 @@ from ..native import pic as native_pic
 from ..ops import resample
 from ..ops.deblock import DeblockingFilter
 from ..ops.quant import Qp
+from ..profiling import span
 from . import checksum as cksum
 from . import output
 from .cu import PictureData
@@ -200,24 +201,32 @@ class PictureDecoder:
                 segment.chroma_qp_offset_v)
         pd.init(segment)
         pd._parse_records = None
-        success = native_pic.parse_picture(self, segment, bit_reader, qp)
-        planes = flat_recon.FlatReconstructor(self, segment,
-                                              self.device).run()
+        with span("decode.parse"):
+            success = native_pic.parse_picture(self, segment, bit_reader, qp)
+        with span("decode.flat"):
+            planes = flat_recon.FlatReconstructor(self, segment,
+                                                  self.device).run()
         if pd.deblock:
-            filt = DeblockingFilter(pd, self.rec_pic, pd.beta_offset,
-                                    pd.tc_offset, restr)
-            deblock_picture(filt, planes, self.device)
-            flat_recon.store_and_download(self.rec_pic, planes, self.device)
+            with span("decode.deblock"):
+                filt = DeblockingFilter(pd, self.rec_pic, pd.beta_offset,
+                                        pd.tc_offset, restr)
+                deblock_picture(filt, planes, self.device)
+                flat_recon.store_and_download(self.rec_pic, planes,
+                                              self.device, "deblock")
         pad_needed = pd.tid == 0 or not pd.highest_layer
         alt_needed = (pd.nal_type == k.NalUnitType.INTRA_ACCESS_PICTURE and
                       prev_segment.open_gop)
-        if pad_needed:
-            self.rec_pic.pad_border()
-        if alt_needed:
-            self._generate_alternative_rec_pic(segment, prev_segment)
-        pd.ref_pic_lists.zero_out_references()
-        if post_process:
-            success = self.postprocess(segment, bit_reader) and success
+        # the port's post step is host Python (border pad, checksum,
+        # output conversion), so its span is not the reference's
+        # decode.native.post
+        with span("decode.post"):
+            if pad_needed:
+                self.rec_pic.pad_border()
+            if alt_needed:
+                self._generate_alternative_rec_pic(segment, prev_segment)
+            pd.ref_pic_lists.zero_out_references()
+            if post_process:
+                success = self.postprocess(segment, bit_reader) and success
         return success
 
     def _resolved_output_format(self):

@@ -21,6 +21,7 @@ import torch
 from .. import constants as k
 from .. import kernels
 from ..ops import deblock as dbk
+from ..profiling import span
 from . import dsp
 
 
@@ -330,49 +331,53 @@ def deblock_picture(filt, planes, device):
     built = {}
     work = []
     batch = dsp.DevBatch()
-    for direction in (0, 1):
-        for cu_tree, sbs, do_luma, do_chroma in passes:
-            if cu_tree not in built:
-                built[cu_tree] = filt._build_cu_maps(cu_tree)
-            cu_map, attrs = built[cu_tree]
-            meta = compute_edge_metadata(pic, cu_map, attrs, direction, sbs,
-                                         filt.beta_offset, filt.tc_offset, r)
-            if meta["xs"].size == 0:
-                continue
-            if do_luma:
-                mask, tc, beta = luma_edge_tensors(
-                    meta, sbs, filt.beta_offset, filt.tc_offset, bd)
-                # fully inactive edges are no-op steps: prune them
-                act = mask.any(axis=1)
-                xs = meta["xs"].astype(np.int32)[act]
-                if len(xs):
-                    work.append((direction, "luma", batch.add(xs),
-                                 batch.add(mask[act].astype(np.int32)),
-                                 batch.add(tc[act]), batch.add(beta[act])))
-            if do_chroma:
-                ct = chroma_edge_tensors(meta, direction, sbs,
-                                         filt.tc_offset, bd, csx, csy)
-                if ct is None:
+    with span("deblock.meta"):
+        for direction in (0, 1):
+            for cu_tree, sbs, do_luma, do_chroma in passes:
+                if cu_tree not in built:
+                    built[cu_tree] = filt._build_cu_maps(cu_tree)
+                cu_map, attrs = built[cu_tree]
+                meta = compute_edge_metadata(
+                    pic, cu_map, attrs, direction, sbs, filt.beta_offset,
+                    filt.tc_offset, r)
+                if meta["xs"].size == 0:
                     continue
-                edges, apply, tc = ct
-                if not apply.any():
-                    continue
-                work.append((direction, "chroma", batch.add(edges),
-                             batch.add(apply.astype(np.int32)),
-                             batch.add(tc)))
-    batch.upload(device)
+                if do_luma:
+                    mask, tc, beta = luma_edge_tensors(
+                        meta, sbs, filt.beta_offset, filt.tc_offset, bd)
+                    # fully inactive edges are no-op steps: prune them
+                    act = mask.any(axis=1)
+                    xs = meta["xs"].astype(np.int32)[act]
+                    if len(xs):
+                        work.append((direction, "luma", batch.add(xs),
+                                     batch.add(mask[act].astype(np.int32)),
+                                     batch.add(tc[act]), batch.add(beta[act])))
+                if do_chroma:
+                    ct = chroma_edge_tensors(meta, direction, sbs,
+                                             filt.tc_offset, bd, csx, csy)
+                    if ct is None:
+                        continue
+                    edges, apply, tc = ct
+                    if not apply.any():
+                        continue
+                    work.append((direction, "chroma", batch.add(edges),
+                                 batch.add(apply.astype(np.int32)),
+                                 batch.add(tc)))
+    with span("deblock.upload"):
+        batch.upload(device)
 
-    for item in work:
-        direction, kind = item[0], item[1]
-        args = [batch.get(h) for h in item[2:]]
-        comps = (0,) if kind == "luma" else (1, 2)
-        for comp in comps:
-            pl = planes[comp].t().contiguous() if direction == 1 \
-                else planes[comp]
-            if kind == "luma":
-                luma_pass(pl, *args, bd, flags)
-            else:
-                chroma_pass(pl, *args, bd)
-            if direction == 1:
-                planes[comp] = pl.t().contiguous()
+    with span("deblock.passes"):
+        for item in work:
+            direction, kind = item[0], item[1]
+            args = [batch.get(h) for h in item[2:]]
+            comps = (0,) if kind == "luma" else (1, 2)
+            for comp in comps:
+                pl = planes[comp].t().contiguous() if direction == 1 \
+                    else planes[comp]
+                if kind == "luma":
+                    luma_pass(pl, *args, bd, flags)
+                else:
+                    chroma_pass(pl, *args, bd)
+                if direction == 1:
+                    planes[comp] = pl.t().contiguous()
     return planes

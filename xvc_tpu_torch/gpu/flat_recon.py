@@ -11,7 +11,7 @@ device in this order:
      (``gpu/mc.py``, kernel 1);
   3. uni/bi combine + residual + clip (``combine``, plain PyTorch);
   4. the intra luma scan, then the chroma scan with LM
-     (``gpu/intra_scan.py``, plain PyTorch);
+     (``gpu/intra_scan.py``, kernels 5 and 6: one launch each);
   5. deblock (``gpu/deblock.py``, kernel 3 for luma);
   6. a frame-store write and one download.
 
@@ -38,6 +38,7 @@ from .. import constants as k
 from ..codec import inter_mc as mc
 from ..codec import inter_mv as mv_mod
 from ..ops.quant import Qp
+from ..profiling import span
 from ..restrictions import Restrictions
 from . import dsp
 from . import intra_scan
@@ -317,65 +318,77 @@ class FlatReconstructor:
         ph, pw = _pad_canvas_dims(H, W)
         phc, pwc = _pad_canvas_dims(Hc, Wc) if not self.mono else (0, 0)
 
-        itx_groups = self._build_itx_groups(leaves)
-        mc_groups, have_inter = self._build_mc_groups(leaves)
-        lmeta, cmeta = self._build_intra_meta(leaves)
-        batch = dsp.DevBatch()
-        itx_prep = [(key, batch.add(c), batch.add(s), batch.add(p))
-                    for key, c, s, p in itx_groups]
-        mc_prep = [(key, batch.add(p)) for key, p in mc_groups]
-        batch.upload(dev)
+        with span("flat.build"):
+            itx_groups = self._build_itx_groups(leaves)
+            mc_groups, have_inter = self._build_mc_groups(leaves)
+            lmeta, cmeta = self._build_intra_meta(leaves)
+            batch = dsp.DevBatch()
+            itx_prep = [(key, batch.add(c), batch.add(s), batch.add(p))
+                        for key, c, s, p in itx_groups]
+            mc_prep = [(key, batch.add(p)) for key, p in mc_groups]
+            # the scan metadata rides in the picture's one upload
+            if lmeta is not None:
+                h_lmeta = batch.add(lmeta)
+            if cmeta is not None:
+                h_cmeta = batch.add(cmeta)
+        with span("flat.upload"):
+            batch.upload(dev)
 
-        zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-        resi_l = zeros((1, H, W), torch.int32)
-        resi_c = zeros((2, Hc, Wc), torch.int32) if not self.mono else None
-        for (wc, hc, txv, txh, var, is_chroma), hc_, hs_, hp_ in itx_prep:
-            args = (resi_c if is_chroma else resi_l, batch.get(hc_),
-                    batch.get(hs_), batch.get(hp_))
-            dsp.STATS["dispatches"] += 1
-            if var == 0:
-                itx.itx_scatter_gen(*args, wc, hc, self.bitdepth,
-                                    self.hp_tx)
-            else:
-                itx.itx_scatter(*args, wc, hc, self.bitdepth, txv, txh,
-                                _VAR_NAMES[var], self.hp_tx)
-
-        # prediction planes + bi coverage masks; channel layout
-        # chan = dslot * nplanes + plane (slot-0 planes first)
-        pred_l = zeros((2, H, W), torch.int16)
-        mask_l = zeros((1, H, W), torch.int16)
-        if not self.mono:
-            pred_c = zeros((4, Hc, Wc), torch.int16)
-            mask_c = zeros((2, Hc, Wc), torch.int16)
-        if have_inter:
-            store = get_store(self.rec, dev)
-            luma_stack = store.luma
-            chroma_stack = None if self.mono else \
-                store.chroma.view((-1,) + store.chroma_shape)
-            for (wb, hb, luma, short), hp_ in mc_prep:
+        with span("flat.dispatch"):
+            zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+            resi_l = zeros((1, H, W), torch.int32)
+            resi_c = zeros((2, Hc, Wc), torch.int32) if not self.mono else None
+            for (wc, hc, txv, txh, var, is_chroma), hc_, hs_, hp_ in itx_prep:
+                args = (resi_c if is_chroma else resi_l, batch.get(hc_),
+                        batch.get(hs_), batch.get(hp_))
                 dsp.STATS["dispatches"] += 1
-                if luma:
-                    mc_kernel.mc_scatter(pred_l, mask_l, luma_stack,
-                                         batch.get(hp_), wb, hb, True,
-                                         self.bitdepth, self.hp_mv, short)
+                if var == 0:
+                    itx.itx_scatter_gen(*args, wc, hc, self.bitdepth,
+                                        self.hp_tx)
                 else:
-                    mc_kernel.mc_scatter(pred_c, mask_c, chroma_stack,
-                                         batch.get(hp_), wb, hb, False,
-                                         self.bitdepth, self.hp_mv, short)
+                    itx.itx_scatter(*args, wc, hc, self.bitdepth, txv, txh,
+                                    _VAR_NAMES[var], self.hp_tx)
 
-        plane_l, rpad_l = combine(pred_l, mask_l, resi_l, H, W, ph, pw,
-                                  self.bitdepth)
-        plane_l, rpad_l = plane_l[0], rpad_l[0]
-        if not self.mono:
-            plane_c, rpad_c = combine(pred_c, mask_c, resi_c, Hc, Wc, phc,
-                                      pwc, self.bitdepth)
+            # prediction planes + bi coverage masks; channel layout
+            # chan = dslot * nplanes + plane (slot-0 planes first)
+            pred_l = zeros((2, H, W), torch.int16)
+            mask_l = zeros((1, H, W), torch.int16)
+            if not self.mono:
+                pred_c = zeros((4, Hc, Wc), torch.int16)
+                mask_c = zeros((2, Hc, Wc), torch.int16)
+            if have_inter:
+                store = get_store(self.rec, dev)
+                luma_stack = store.luma
+                chroma_stack = None if self.mono else \
+                    store.chroma.view((-1,) + store.chroma_shape)
+                for (wb, hb, luma, short), hp_ in mc_prep:
+                    dsp.STATS["dispatches"] += 1
+                    if luma:
+                        mc_kernel.mc_scatter(pred_l, mask_l, luma_stack,
+                                             batch.get(hp_), wb, hb, True,
+                                             self.bitdepth, self.hp_mv, short)
+                    else:
+                        mc_kernel.mc_scatter(pred_c, mask_c, chroma_stack,
+                                             batch.get(hp_), wb, hb, False,
+                                             self.bitdepth, self.hp_mv, short)
+
+            plane_l, rpad_l = combine(pred_l, mask_l, resi_l, H, W, ph, pw,
+                                      self.bitdepth)
+            plane_l, rpad_l = plane_l[0], rpad_l[0]
+            if not self.mono:
+                plane_c, rpad_c = combine(pred_c, mask_c, resi_c, Hc, Wc, phc,
+                                          pwc, self.bitdepth)
 
         # intra scans (decode order; read and write the canvases)
         if lmeta is not None:
-            intra_scan.intra_scan(plane_l, rpad_l, lmeta, self.bitdepth)
+            with span("flat.intra_scan"):
+                intra_scan.intra_scan(plane_l, rpad_l, batch.get(h_lmeta),
+                                      self.bitdepth)
         if cmeta is not None:
-            intra_scan.intra_chroma_scan(plane_c, rpad_c, plane_l, cmeta,
-                                         self.bitdepth)
+            with span("flat.chroma_scan"):
+                intra_scan.intra_chroma_scan(plane_c, rpad_c, plane_l,
+                                             batch.get(h_cmeta),
+                                             self.bitdepth)
 
         # visible device planes
         pt = intra_scan.PAD_TL
@@ -830,12 +843,15 @@ class FlatReconstructor:
         return lmeta, cmeta
 
 
-def store_and_download(rec, planes_dev, device):
+def store_and_download(rec, planes_dev, device, stage="flat"):
     """Pad the final visible device planes into the frame store and fill
-    the host rec planes with one download."""
-    frame_store_put(rec, device_pad_planes(rec, planes_dev), device)
+    the host rec planes with one download (spans ``<stage>.store`` and
+    ``<stage>.download``)."""
+    with span(stage + ".store"):
+        frame_store_put(rec, device_pad_planes(rec, planes_dev), device)
     comps = sorted(planes_dev)
-    flat, offs = dsp.gather_flat([planes_dev[c] for c in comps])
+    with span(stage + ".download"):
+        flat, offs = dsp.gather_flat([planes_dev[c] for c in comps])
     for comp, (off, shape) in zip(comps, offs):
         rec.plane_view(comp)[:] = \
             flat[off:off + int(np.prod(shape))].reshape(shape)

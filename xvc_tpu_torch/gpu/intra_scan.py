@@ -1,4 +1,5 @@
-"""Intra luma and chroma reconstruction scans, in plain PyTorch.
+"""Intra luma and chroma reconstruction scans: two hand-written kernels
+and their plain PyTorch versions.
 
 Port of ``xvc_tpu/tpu/intra_scan.py`` ``make_intra_scan`` and
 ``make_intra_chroma_scan`` (with LM).  The JAX version is one
@@ -7,28 +8,41 @@ plane, predicts (planar / DC / angular with the exact integer semantics
 of ref: intra_prediction.cc:365-558,707-871, and LM chroma, :560-686),
 adds the residual and writes the block back.
 
-Here the step is a host loop over the leaves in decode order that
-branches in Python on the host-known metadata.  Everything that depends
-only on that metadata -- which plane samples form the reference line,
-where the padding copies come from, the reference filter and the
-prediction taps and weights -- is worked out on the host in numpy, as
-index and weight arrays (the JAX code's ``where`` chains mirrored on
-indices instead of samples), cached by block shape and mode.  The device
-does the data-dependent part: one gather of the reference line per
-leaf, weighted sums, clipping and the write-back.  The LM parameters
-come from four sums that are read back to the host (one device sync per
-LM block) and derived in Python with the JAX version's int32 semantics.
+``intra_scan`` and ``intra_chroma_scan`` are the entry points.  For
+tensors on the card they launch ``kernels/csrc/intra_scan.cu``
+(``xvc_intra_luma_scan`` replaces ``make_intra_scan``,
+``xvc_intra_chroma_scan`` replaces ``make_intra_chroma_scan``): one
+launch per picture and scan, the metadata read on the card from the
+picture's one upload, the LM parameters derived on the card.  What
+bounds a scan on this card is neither bytes nor arithmetic but the
+leaf-to-leaf dependency chain (a leaf's reference line is what earlier
+leaves wrote), so the design is one persistent block per plane that
+walks the rows in order and needs no atomics or fences; a failed launch
+raises.  For tensors on the CPU they run the plain versions.
+
+``intra_scan_plain`` and ``intra_chroma_scan_plain`` are the plain
+versions the kernels are held against: a host loop over the leaves in
+decode order that branches in Python on the host-known metadata.
+Everything that depends only on that metadata -- which plane samples
+form the reference line, where the padding copies come from, the
+reference filter and the prediction taps and weights -- is worked out on
+the host in numpy, as index and weight arrays (the JAX code's ``where``
+chains mirrored on indices instead of samples), cached by block shape
+and mode.  The device does the data-dependent part: one gather of the
+reference line per leaf, weighted sums, clipping and the write-back.
+Their LM parameters come from four sums that are read back to the host
+and derived in Python with the JAX version's int32 semantics
+(``derive_lm``).
 
 Window starts are taken as ``lax.dynamic_slice`` takes them
-(``dsp.ds_start``).  This is the expected launch-bound stage of the port
-(a dozen small launches per leaf); a hand kernel for it is the next
-kernel PR.
+(``dsp.ds_start`` here, ``ds_start`` in ``csrc/intra_pred.cuh``).
 """
 import functools
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import intra_pred as ip
 from .dsp import ds_start
 
@@ -48,8 +62,9 @@ C_PLANE, C_PX, C_PY, C_W, C_H, C_MODE, C_IS_LM, C_HAS_L, C_HAS_A, \
     C_HAS_AL, C_SBL, C_SAR, C_ACTIVE = range(13)
 CMETA_COLS = 13
 
-__all__ = ["intra_scan", "intra_chroma_scan", "PAD_TL", "PAD_BR",
-           "META_COLS", "CMETA_COLS"]
+__all__ = ["intra_scan", "intra_chroma_scan", "intra_scan_plain",
+           "intra_chroma_scan_plain", "PAD_TL", "PAD_BR", "META_COLS",
+           "CMETA_COLS"]
 
 HOR, VER, DIAG = 18, 50, 34
 _ANGLE = np.asarray(ip.ANGLE_TABLE_EXT, np.int64)
@@ -361,12 +376,61 @@ _LUMA_COLS = (M_PX, M_PY, M_W, M_H, M_HAS_L, M_HAS_A, M_HAS_AL, M_SBL,
               M_SAR)
 
 
+def _check_meta(meta, cols):
+    if not isinstance(meta, torch.Tensor):
+        raise TypeError("meta must be a tensor beside the canvases, got %s"
+                        % type(meta).__name__)
+    kernels.require(meta, torch.int32, 2, "meta")
+    if meta.shape[1] != cols:
+        raise ValueError("meta must have %d columns, got %d"
+                         % (cols, meta.shape[1]))
+
+
+def _check_canvas(name, shape, min_h, min_w):
+    """The canvas holds the windows both the kernel and the plain version
+    read (the one place this is checked)."""
+    if shape[-2] < min_h or shape[-1] < min_w:
+        raise ValueError("%s %r is smaller than the %d x %d windows the "
+                         "scan reads" % (name, tuple(shape), min_h, min_w))
+
+
 def intra_scan(plane, resi, meta, bitdepth):
-    """Reconstruct every intra luma leaf of ``meta`` (numpy (N,
-    META_COLS) int32, decode order) into ``plane`` (Hp, Wp) int16, in
-    place; ``resi`` (Hp, Wp) int32 holds the residual on the same
-    canvas.  Returns ``plane``."""
-    meta = np.asarray(meta)[np.asarray(meta)[:, M_ACTIVE] != 0]
+    """Reconstruct every intra luma leaf of ``meta`` ((N, META_COLS)
+    int32 tensor beside the canvases, in decode order) into ``plane``
+    (Hp, Wp) int16, in place; ``resi`` (Hp, Wp) int32 holds the residual
+    on the same canvas.  Returns ``plane``.
+    On the card this is one launch of ``xvc_intra_luma_scan``."""
+    kernels.require(plane, torch.int16, 2, "plane")
+    kernels.require(resi, torch.int32, 2, "resi")
+    _check_meta(meta, META_COLS)
+    if resi.shape != plane.shape:
+        raise ValueError("resi %r and plane %r differ in shape"
+                         % (tuple(resi.shape), tuple(plane.shape)))
+    _check_canvas("plane", plane.shape, 128, 130)
+    if not kernels.on_cuda(plane, resi, meta):
+        return intra_scan_plain(plane, resi, meta, bitdepth)
+    if not len(meta):
+        return plane
+    from ..kernels import build
+    Hp, Wp = plane.shape
+    rc = build.lib().xvc_intra_luma_scan(
+        build.ptr(plane), build.ptr(resi), build.ptr(meta), len(meta), Hp,
+        Wp, bitdepth, build.stream_of(plane))
+    build.check(rc, "intra_luma")
+    kernels.LAUNCHES["intra_luma"] += 1
+    return plane
+
+
+def _active_rows(meta, active_col):
+    """The active rows of the metadata tensor, on the host."""
+    meta = meta.cpu().numpy()
+    return meta[meta[:, active_col] != 0]
+
+
+def intra_scan_plain(plane, resi, meta, bitdepth):
+    """Plain PyTorch version of ``intra_scan``: the host loop over the
+    leaves."""
+    meta = _active_rows(meta, M_ACTIVE)
     if not len(meta):
         return plane
     dev = plane.device
@@ -511,11 +575,42 @@ def derive_lm(sums, nbr, has_a, has_l, bitdepth):
 
 
 def intra_chroma_scan(planes, resi, luma, meta, bitdepth):
-    """Reconstruct every intra chroma row of ``meta`` (numpy (N,
-    CMETA_COLS), one row per (leaf, u/v) in decode order) into
-    ``planes`` (2, Hp, Wp) int16, in place.  LM rows read the final
-    reconstructed luma canvas ``luma`` (HpL, WpL).  Returns ``planes``."""
-    meta = np.asarray(meta)[np.asarray(meta)[:, C_ACTIVE] != 0]
+    """Reconstruct every intra chroma row of ``meta`` ((N, CMETA_COLS)
+    int32 tensor beside the canvases, one row per (leaf, u/v) in decode
+    order) into ``planes`` (2, Hp, Wp) int16, in place; ``resi``
+    (2, Hp, Wp) int32.  LM rows read the final
+    reconstructed luma canvas ``luma`` (HpL, WpL).  Returns ``planes``.
+    On the card this is one launch of ``xvc_intra_chroma_scan``, on the
+    stream that ran the luma scan."""
+    kernels.require(planes, torch.int16, 3, "planes")
+    kernels.require(resi, torch.int32, 3, "resi")
+    kernels.require(luma, torch.int16, 2, "luma")
+    _check_meta(meta, CMETA_COLS)
+    if planes.shape[0] != 2 or resi.shape != planes.shape:
+        raise ValueError("planes %r and resi %r must both be (2, Hp, Wp)"
+                         % (tuple(planes.shape), tuple(resi.shape)))
+    _check_canvas("planes", planes.shape, 128, 130)
+    _check_canvas("luma", luma.shape, 68, 72)
+    if not kernels.on_cuda(planes, resi, luma, meta):
+        return intra_chroma_scan_plain(planes, resi, luma, meta, bitdepth)
+    if not len(meta):
+        return planes
+    from ..kernels import build
+    _, Hp, Wp = planes.shape
+    HpL, WpL = luma.shape
+    rc = build.lib().xvc_intra_chroma_scan(
+        build.ptr(planes), build.ptr(resi), build.ptr(luma),
+        build.ptr(meta), len(meta), Hp, Wp, HpL, WpL, bitdepth,
+        build.stream_of(planes))
+    build.check(rc, "intra_chroma")
+    kernels.LAUNCHES["intra_chroma"] += 1
+    return planes
+
+
+def intra_chroma_scan_plain(planes, resi, luma, meta, bitdepth):
+    """Plain PyTorch version of ``intra_chroma_scan``: the host loop
+    over the rows, one device sync per LM block."""
+    meta = _active_rows(meta, C_ACTIVE)
     if not len(meta):
         return planes
     dev = planes.device

@@ -2,11 +2,12 @@
 
 Sources live in ``csrc/`` and are compiled by ``build.py`` at first use.
 Each wrapper (``gpu/mc.py``, ``gpu/itx.py``, ``gpu/deblock.py``,
-``gpu/satd.py``) adds one to its entry of ``LAUNCHES`` where it launches
-its kernel, and nowhere else, so a run can show that its main path went
-through the kernels.
+``gpu/satd.py``, ``gpu/intra_scan.py``) adds one to its entry of
+``LAUNCHES`` where it launches its kernel, and nowhere else, so a run
+can show that its main path went through the kernels.
 """
-LAUNCHES = {"mc": 0, "itx": 0, "deblock_luma": 0, "satd": 0}
+LAUNCHES = {"mc": 0, "itx": 0, "deblock_luma": 0, "satd": 0,
+            "intra_luma": 0, "intra_chroma": 0}
 
 
 def reset_launches():

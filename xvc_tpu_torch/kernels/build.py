@@ -37,6 +37,8 @@ SIGNATURES = {
     "xvc_deblock_luma": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
     "xvc_satd": [_P, _P, _L, _I, _I, _I, _P, _P],
+    "xvc_intra_luma_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

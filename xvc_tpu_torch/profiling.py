@@ -1,0 +1,136 @@
+"""Lightweight per-stage profiling of the port's host and device paths.
+
+Own copy of the span table of ``xvc_tpu/profiling.py`` (``enable``,
+``enabled``, ``reset``, ``span``, ``add_span_time``, ``report``,
+``format_report``), without its environment switches and without the
+``jax.profiler`` hooks:
+
+    from xvc_tpu_torch import profiling
+    profiling.enable(sync=True)
+    ... decode ...
+    print(profiling.format_report())
+
+PyTorch returns from a launch before the card has done the work, so a
+host clock around a stage times its enqueue and the work lands on the
+next stage that waits.  ``enable(sync=True)`` makes every span end with
+``torch.cuda.synchronize()`` when CUDA has been initialised, so the time
+is attributed to the stage that spent it (the reference's blocking
+``XVC_FLAT_SYNC`` profile).  The synchronisation serialises host and
+device and so lengthens the whole run: it is for a breakdown, not for an
+end-to-end time.  Disabled spans record nothing and cost one test of a
+flag.
+
+Run as a script it decodes a stream on the card and prints the table:
+
+    python -m xvc_tpu_torch.profiling tests/data/bench/hd720_ld.xvc
+"""
+import collections
+import contextlib
+import time
+
+_stats = collections.defaultdict(float)
+_counts = collections.defaultdict(int)
+_enabled = False
+_sync = False
+
+
+def enable(on=True, sync=False):
+    global _enabled, _sync
+    _enabled = on
+    _sync = bool(on and sync)
+
+
+def enabled():
+    return _enabled
+
+
+def reset():
+    _stats.clear()
+    _counts.clear()
+
+
+def _device_sync():
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def span(name):
+    """Accumulate wall-clock for a named stage (no-op when disabled)."""
+    if not _enabled:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if _sync:
+            _device_sync()
+        _stats[name] += time.perf_counter() - t0
+        _counts[name] += 1
+
+
+def add_span_time(name, seconds, calls=1):
+    """Fold an externally measured duration (e.g. native-side timers)
+    into the span table (no-op when disabled)."""
+    if not _enabled:
+        return
+    _stats[name] += seconds
+    _counts[name] += calls
+
+
+def report():
+    """{stage: {"seconds": s, "calls": n}} sorted by time desc."""
+    return {name: {"seconds": round(_stats[name], 4),
+                   "calls": _counts[name]}
+            for name in sorted(_stats, key=_stats.get, reverse=True)}
+
+
+def format_report():
+    lines = ["%-28s %10s %8s" % ("stage", "seconds", "calls")]
+    for name, row in report().items():
+        lines.append("%-28s %10.3f %8d" % (name, row["seconds"],
+                                           row["calls"]))
+    return "\n".join(lines)
+
+
+def profile_decode(data, device=None, warmup=1):
+    """Decode ``data`` ``warmup`` times unprofiled (first-use costs), then
+    once with synchronising spans.  Returns (report, seconds of the
+    profiled decode, pictures)."""
+    from .codec.decoder import decode_stream
+    for _ in range(warmup):
+        decode_stream(data, device=device)
+    was_on, was_sync = _enabled, _sync
+    reset()
+    enable(sync=True)
+    try:
+        t0 = time.perf_counter()
+        pics = decode_stream(data, device=device)
+        _device_sync()
+        seconds = time.perf_counter() - t0
+        return report(), seconds, pics
+    finally:
+        enable(was_on, was_sync)
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Stage profile of one decode (synchronising spans).")
+    parser.add_argument("stream", help="an .xvc bitstream")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    with open(args.stream, "rb") as f:
+        data = f.read()
+    _, seconds, pics = profile_decode(data, device=args.device)
+    print(format_report())
+    print("%d pictures in %.3f s (spans synchronise the device)"
+          % (len(pics), seconds))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
