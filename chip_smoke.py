@@ -10,10 +10,11 @@ Phases:
   1  build: compile the CUDA kernels from xvc_tpu_torch/kernels/csrc
      (one nvcc per source, all at once) and, beside them, the native
      parse library from xvc_tpu_torch/native/csrc (g++);
-  2  kernels: MC, ITX, luma deblock, SATD and the intra luma and chroma
-     scans on the card against their plain PyTorch versions on the same
-     inputs (numpy seed, main-path shapes; for the scans also the real
-     inputs of picture 0 of hd720_ld, captured during a decode),
+  2  kernels: MC, ITX, the deblock edge decisions, luma walk and chroma
+     pass, SATD and the intra luma and chroma scans on the card against
+     their plain PyTorch versions on the same inputs (numpy seed,
+     main-path shapes; for the scans and the deblock kernels also the
+     real inputs of pictures of hd720_ld, captured during a decode),
      bit-exact, each timed with CUDA events beside its plain version
      and beside its bound (the least time the card could take: bytes
      over the HBM rate, or operations over the peak rate);
@@ -56,8 +57,12 @@ KERNELS = {
            "xvc_tpu/tpu/pallas_mc.py:43"),
     "itx": ("xvc_tpu_torch/kernels/csrc/itx.cu",
             "xvc_tpu/tpu/flat_recon.py:336"),
+    "deblock_edges": ("xvc_tpu_torch/kernels/csrc/deblock_edges.cu",
+                      "xvc_tpu/tpu/deblock_jax.py:44"),
     "deblock_luma": ("xvc_tpu_torch/kernels/csrc/deblock.cu",
                      "xvc_tpu/tpu/deblock_jax.py:179"),
+    "deblock_chroma": ("xvc_tpu_torch/kernels/csrc/deblock.cu",
+                       "xvc_tpu/tpu/deblock_jax.py:295"),
     "satd": ("xvc_tpu_torch/kernels/csrc/satd.cu",
              "xvc_tpu/tpu/pallas_satd.py:62"),
     "intra_luma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
@@ -66,7 +71,8 @@ KERNELS = {
                      "xvc_tpu/tpu/intra_scan.py:296"),
 }
 # the kernels each path must launch
-DECODE_KERNELS = ("mc", "itx", "deblock_luma", "intra_luma", "intra_chroma")
+DECODE_KERNELS = ("mc", "itx", "deblock_edges", "deblock_luma",
+                  "deblock_chroma", "intra_luma", "intra_chroma")
 LOOKAHEAD_KERNELS = ("satd",)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
@@ -79,6 +85,11 @@ CUDA_CORE_OPS_PER_S = 67e12
 # assumed (not measured here) at two L2 accesses of about 270 cycles at
 # 1.7 GHz.  Used only for the scans' chain estimate, which is no bound.
 STORE_LOAD_ROUND_TRIP_S = 0.32e-6
+# One step of the luma deblock walk, arithmetic only: assumed (not
+# measured here) at about 170 cycles at 1.7 GHz (some 30 dependent integer
+# operations, two shuffle rounds, a ballot and a vote).  Used only for the
+# walk's chain estimate, which is no bound.
+LUMA_STEP_S = 0.1e-6
 
 
 def bound(nbytes, ops):
@@ -95,16 +106,21 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(torch, fn, iters=20):
+def cuda_ms(torch, fn, iters=20, fresh=None):
     """Mean milliseconds per call of fn on the card (CUDA events, after
-    one warm-up call)."""
-    fn()
+    one warm-up call).  Where fn changes its input in place, ``fresh``
+    makes that input: every call gets a copy of its own, made before the
+    first event, and fn takes it as its argument."""
+    calls = [fn] * (iters + 1)
+    if fresh is not None:
+        calls = [lambda x=fresh(): fn(x) for _ in range(iters + 1)]
+    calls[0]()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for call in calls[1:]:
+        call()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -173,28 +189,6 @@ def itx_case(rng, w, h, bd, B, nplanes, gen):
     return coeff, scale, params, resi
 
 
-def deblock_case(rng, H, W, bd):
-    """A blocky plane (8x8 steps + small noise) so that strong, weak and
-    untouched edges all occur, with random per-edge tc/beta/mask."""
-    import numpy as np
-    from xvc_tpu_torch.ops import deblock as dbk
-    blocks = rng.randint(0, 1 << bd, (H // 8 + 1, W // 8 + 1))
-    plane = np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:H, :W]
-    step = (1 << (bd - 8)) * 6
-    plane = (blocks.mean() + (plane - blocks.mean()) // 16 +
-             rng.randint(-step, step + 1, (H, W)))
-    plane = np.clip(plane, 0, (1 << bd) - 1).astype(np.int16)
-    xs = np.arange(4, W, 4).astype(np.int32)
-    G = H // 4
-    qp = rng.randint(18, 52, (len(xs), G))
-    beta = (np.asarray(dbk.BETA_TABLE)[np.clip(qp, 0, 51)]
-            << (bd - 8)).astype(np.int32)
-    tc = (np.asarray(dbk.TC_TABLE)[np.clip(qp + 2, 0, 53)]
-          << (bd - 8)).astype(np.int32)
-    mask = (rng.rand(len(xs), G) < 0.8).astype(np.int32)
-    return plane, xs, mask, tc, beta
-
-
 def satd_case(rng, shape, bd):
     """Differences over the full range +-(2^bd - 1), extremes included."""
     import numpy as np
@@ -242,15 +236,34 @@ def itx_bound(coeff, scale, params, w, h):
     return bound(nbytes, ops)
 
 
-def deblock_bound(plane, xs, mask, tc, beta):
-    """The plane read and written once, the edge tensors read once;
-    about 60 operations per row of an active (edge, 4-row group), 10 per
-    inactive group."""
+def luma_deblock_bound(plane, mask, entry_bytes):
+    """The plane read and written once, the edge entries read once; about
+    60 operations per line of an active (edge, 4-line group), 10 per
+    inactive group.  mask (E, groups) numpy.  Beside the bound, and no
+    bound itself, the chain estimate: the most edges any 4-line group
+    filters (a block walks one group and skips its masked-out edges)
+    times the assumed latency of one step."""
     active = int((mask != 0).sum())
-    nbytes = 2 * plane.nbytes + xs.nbytes + mask.nbytes + tc.nbytes + \
-        beta.nbytes
-    ops = active * 4 * 60 + (mask.size - active) * 10
-    return bound(nbytes, ops)
+    steps = int((mask != 0).sum(axis=0).max())
+    return dict(bound(2 * plane.nbytes + entry_bytes,
+                      active * 4 * 60 + (mask.size - active) * 10),
+                chain_steps=steps,
+                chain_estimate_ms=steps * LUMA_STEP_S * 1e3)
+
+
+def chroma_deblock_bound(planes, apply, entry_bytes):
+    """Both planes read and written once, the entries read once; about
+    20 operations per applied (edge, sample) of a plane, 4 per other."""
+    on = int((apply != 0).sum())
+    return bound(2 * sum(p.nbytes for p in planes) + entry_bytes,
+                 len(planes) * (on * 20 + (apply.size - on) * 4))
+
+
+def edges_bound(attrs, cu_map, params):
+    """The attribute table read once, the CU map and the entries written
+    once; about 100 operations per entry, 2 per map cell."""
+    return bound(attrs.nbytes + cu_map.nbytes + params.nbytes,
+                 params.size * 100 + cu_map.size * 2)
 
 
 def satd_bound(diff, n):
@@ -305,13 +318,18 @@ def scan_bound(kind, meta):
 # Phases
 # ---------------------------------------------------------------------------
 
-def capture_scan_inputs(data):
+def capture_inputs(data):
     """Decode ``data`` on the card and keep copies of what the first
-    picture's luma and chroma scans were given (before they wrote)."""
+    picture's luma and chroma scans were given (before they wrote), of
+    what every ``edge_params`` call of the first two pictures was given,
+    and of those pictures' planes before deblocking."""
+    from xvc_tpu_torch.codec import picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import deblock
     from xvc_tpu_torch.gpu import intra_scan as scan
-    got = {}
+    got = {"pictures": []}
     orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
+    orig_e, orig_d = deblock.edge_params, picture_decoder.deblock_picture
 
     def rec_l(plane, resi, meta, bd):
         got.setdefault("luma", (plane.clone(), resi.clone(), meta.clone(),
@@ -323,18 +341,38 @@ def capture_scan_inputs(data):
                                   luma.clone(), meta.clone(), bd))
         return orig_c(planes, resi, luma, meta, bd)
 
+    def rec_e(attrs, *args):
+        if len(got["pictures"]) <= 2:
+            got["pictures"][-1]["edges"].append((attrs.clone(),) + args)
+        return orig_e(attrs, *args)
+
+    def rec_d(filt, planes, device):
+        if len(got["pictures"]) < 2:
+            passes, flags = deblock.picture_passes(filt)
+            got["pictures"].append(dict(
+                planes={c: p.clone() for c, p in planes.items()},
+                bitdepth=filt.pic.bitdepth, flags=flags, edges=[],
+                secondary=len(passes) > 1))
+        else:
+            got["pictures"].append(None)
+        return orig_d(filt, planes, device)
+
     scan.intra_scan, scan.intra_chroma_scan = rec_l, rec_c
+    deblock.edge_params, picture_decoder.deblock_picture = rec_e, rec_d
     try:
         decode_stream(data)
     finally:
         scan.intra_scan, scan.intra_chroma_scan = orig_l, orig_c
+        deblock.edge_params, picture_decoder.deblock_picture = orig_e, orig_d
+    got["pictures"] = got["pictures"][:2]
     return got
 
 
-def phase_scan_kernels(torch, dev, res):
+def phase_scan_kernels(torch, dev, res, real):
     """The two intra scan kernels against their plain versions: the
     synthetic families of xvc_tpu_torch/gpu/scan_cases.py, then the real
-    scan inputs of picture 0 of hd720_ld, timed at that shape."""
+    scan inputs of picture 0 of hd720_ld (``real``, from
+    ``capture_inputs``), timed at that shape."""
     from xvc_tpu_torch.gpu import scan_cases as cases
     from xvc_tpu_torch.gpu import intra_scan as scan
     T = lambda a: torch.from_numpy(a.copy()).to(dev)
@@ -372,8 +410,6 @@ def phase_scan_kernels(torch, dev, res):
             c["kind"], T(c["plane"]), T(c["resi"]), luma, T(c["meta"]),
             c["bd"], ("synthetic", n)))
 
-    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
-        real = capture_scan_inputs(f.read())
     plane, resi, meta, bd = real["luma"]
     planes_c, resi_c, luma_c, meta_c, bd_c = real["chroma"]
     err["luma"] = max(err["luma"], both("luma", plane, resi, None, meta, bd,
@@ -411,12 +447,234 @@ def phase_scan_kernels(torch, dev, res):
                 r["bound_ms"], r["bound_by"], r["chain_estimate_ms"]))
 
 
+def phase_deblock_kernels(torch, dev, res, real, rng):
+    """The three deblock kernels against their plain versions, on
+    synthetic inputs (xvc_tpu_torch/gpu/deblock_cases.py) and on the real
+    records and planes of pictures 0 (intra, two CU trees) and 1 (inter)
+    of hd720_ld (``real``, from ``capture_inputs``); each timed at
+    1280x720 / 640x360 with the real entries of picture 0."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import deblock
+    from xvc_tpu_torch.gpu import deblock_cases as cases
+    from xvc_tpu_torch.ops import deblock as dbk
+    T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # a copy
+    H, W = 720, 1280
+
+    errs = {"edges": 0, "luma": 0, "chroma": 0}
+
+    def same(kernel, got, want, what):
+        torch.cuda.synchronize()
+        e = max_err(torch, got, want)
+        errs[kernel] = max(errs[kernel], e)
+        if e:
+            raise AssertionError("deblock_%s differs from its plain version "
+                                 "by %d: %s" % (kernel, e, what))
+
+    # edge decisions: synthetic tiled pictures, then the real records
+    n_edges = 0
+    restr_sets = [(False,) * 3, (True, False, False), (False, True, False),
+                  (False, False, True)]
+    for size in cases.EDGE_SIZES:
+        for sbs in (4, 8):
+            for pred_type in (0, 1, 2):
+                for bd, restr_flags in zip((8, 10, 8, 10), restr_sets):
+                    pic = cases.tiled_picture(SEED + n_edges, *size,
+                                              pred_type)
+                    attrs, n = dbk.DeblockingFilter(
+                        pic, None, 0, 0, None).build_cu_attrs(0)
+                    lay = deblock.EdgeLayout(*size, sbs, 1, 1, True, True)
+                    args = (T(attrs), n, lay, 1, -1, bd, pred_type == 0,
+                            restr_flags)
+                    for g, w in zip(deblock.edge_params(*args),
+                                    deblock.edge_params_plain(*args)):
+                        same("edges", g, w, (size, sbs, pred_type, bd,
+                                             restr_flags))
+                    n_edges += 1
+    derived = []  # per picture: [(lay, params)] of its CU trees
+    for n_pic, pic in enumerate(real["pictures"]):
+        derived.append([])
+        for args in pic["edges"]:
+            got = deblock.edge_params(*args)
+            for g, w in zip(got, deblock.edge_params_plain(*args)):
+                same("edges", g, w, "hd720_ld picture %d" % n_pic)
+            derived[-1].append((args[2], got[1]))
+            n_edges += 1
+    if not real["pictures"][0]["secondary"] or len(derived[1]) != 1:
+        raise AssertionError("hd720_ld pictures 0 / 1 should have two CU "
+                             "trees / one")
+    attrs0, n0, lay0 = real["pictures"][0]["edges"][0][:3]
+    rest0 = real["pictures"][0]["edges"][0][3:]
+    map0, params0 = deblock.edge_params(attrs0, n0, lay0, *rest0)
+    res["deblock_edges"] = dict(
+        max_abs_err=errs["edges"], **edges_bound(*(t.cpu().numpy() for t in (
+            attrs0, map0, params0))),
+        shape="hd720_ld picture 0, primary tree: %d CUs, %d entries" % (
+            n0, lay0.total),
+        ms=cuda_ms(torch, lambda: deblock.edge_params(attrs0, n0, lay0,
+                                                      *rest0)),
+        plain_ms=cuda_ms(torch, lambda: deblock.edge_params_plain(
+            attrs0, n0, lay0, *rest0), 2))
+
+    # luma walk: both directions on the plane as it lies
+    n_luma = 0
+    flags_list = [(False,) * 5, (False, False, False, True, False),
+                  (True, False, False, False, True), (False, True, False,
+                                                      False, False)]
+
+    def luma_both(case, bd, flags, direction, tag):
+        outs = []
+        for fn in (deblock.luma_pass, deblock.luma_pass_plain):
+            pl, *a = [T(x) for x in case]
+            fn(pl, *a, bd, flags, direction)
+            outs.append(pl)
+        same("luma", outs[0], outs[1], tag)
+        return int((outs[0] != T(case[0])).sum().item())
+
+    for bd in (8, 10):
+        for flags in flags_list:
+            for direction in (0, 1):
+                tag = ("regular 720p", bd, flags, direction)
+                if not luma_both(cases.luma_case(
+                        "regular", bd, direction, SEED,
+                        (H, W) if direction == 0 else (W, H)), bd, flags,
+                        direction, tag):
+                    raise AssertionError("deblock_luma no-op %r" % (tag,))
+                n_luma += 1
+    for kind in ("pruned", "clamped", "ragged", "odd"):
+        for bd in (8, 10):
+            for direction in (0, 1):
+                luma_both(cases.luma_case(kind, bd, direction, SEED,
+                                          (200, 328)), bd, (False,) * 5,
+                          direction, (kind, bd, direction))
+                n_luma += 1
+    # ... and from the packed entries, on the real planes
+    for n_pic, pic in enumerate(real["pictures"]):
+        bd, flags = pic["bitdepth"], pic["flags"]
+        got = {c: p.clone() for c, p in pic["planes"].items()}
+        want = {c: p.clone() for c, p in pic["planes"].items()}
+        for d in (0, 1):
+            for lay, params in derived[n_pic]:
+                deblock.luma_filter(got[0], params, lay, d, bd, flags)
+                if lay.luma_off[d] >= 0:
+                    xs, mask, tc, beta = deblock.luma_tensors(params, lay, d)
+                    deblock.luma_pass_plain(want[0], xs, mask, tc, beta, bd,
+                                            flags, d)
+                if lay.chroma_off[d] >= 0:
+                    deblock.chroma_filter([got[1], got[2]], params, lay, d,
+                                          bd)
+                    edges, apply, tc = deblock.chroma_tensors(params, lay, d)
+                    for c in (1, 2):
+                        deblock.chroma_pass_plain(want[c], edges, apply, tc,
+                                                  bd, d)
+        for c in got:
+            same("chroma" if c else "luma", got[c], want[c],
+                 "hd720_ld picture %d" % n_pic)
+            # (chroma is filtered beside intra CUs only: picture 1 may
+            # have none)
+            if (c == 0 or n_pic == 0) and \
+                    torch.equal(got[c], pic["planes"][c]):
+                raise AssertionError("deblock of picture %d left component "
+                                     "%d as it was" % (n_pic, c))
+        n_luma += 2
+
+    # timed: the packed-entry path at picture 0's shape, in place, every
+    # call on a copy of the plane as the decode presents it: across
+    # columns on the reconstruction, across rows on what across columns
+    # left
+    pic0 = real["pictures"][0]
+    lay_l, par_l = derived[0][0]
+    lay_c, par_c = derived[0][1]
+    flags, bd = pic0["flags"], pic0["bitdepth"]
+    plane = pic0["planes"][0].clone()
+    uv = [pic0["planes"][1].clone(), pic0["planes"][2].clone()]
+    deblock.luma_filter(plane, par_l, lay_l, 0, bd, flags)
+    deblock.chroma_filter(uv, par_c, lay_c, 0, bd)
+    src = [pic0["planes"][0], plane]
+    src_uv = [[pic0["planes"][1], pic0["planes"][2]], uv]
+    tens = [deblock.luma_tensors(par_l, lay_l, d) for d in (0, 1)]
+    ms = [cuda_ms(torch, lambda p: deblock.luma_filter(p, par_l, lay_l, d,
+                                                       bd, flags),
+                  fresh=src[d].clone) for d in (0, 1)]
+    plain = [cuda_ms(torch, lambda p: deblock.luma_pass_plain(
+        p, *tens[d], bd, flags, d), 1, fresh=src[d].clone) for d in (0, 1)]
+    bounds = [luma_deblock_bound(
+        pic0["planes"][0].cpu().numpy(), tens[d][1].cpu().numpy(),
+        lay_l.nx[d] * lay_l.ny[d] * 4) for d in (0, 1)]
+    # the case the first version of the kernel was timed on: every edge
+    # position of a synthetic plane, 80% of the entries on
+    case = cases.luma_case("regular", 8, 0, SEED, (H, W))
+    pl, *a = [T(x) for x in case]
+    all_on_ms = cuda_ms(torch, lambda p: deblock.luma_pass(
+        p, *a, 8, (False,) * 5), fresh=pl.clone)
+    res["deblock_luma"] = dict(
+        max_abs_err=errs["luma"], **bounds[0], ms=ms[0], plain_ms=plain[0],
+        shape="hd720_ld picture 0, across columns: 1280x720, %d edge "
+        "positions" % lay_l.nx[0],
+        across_rows=dict(bounds[1], ms=ms[1], plain_ms=plain[1],
+                         edge_positions=lay_l.nx[1]),
+        every_position_on_ms=all_on_ms)
+    log("phase 2: deblock_luma bit-exact over %d cases; picture 0 of "
+        "hd720_ld across columns: kernel %.4f ms, plain %.4f ms, bound "
+        "%.6f ms (%s), chain estimate %.4f ms (%d steps, no bound); across "
+        "rows: kernel %.4f ms, plain %.4f ms, bound %.6f ms, chain estimate "
+        "%.4f ms (%d steps); synthetic 720p plane, every position on: "
+        "%.4f ms" % (
+            n_luma, ms[0], plain[0], bounds[0]["bound_ms"],
+            bounds[0]["bound_by"], bounds[0]["chain_estimate_ms"],
+            bounds[0]["chain_steps"], ms[1], plain[1], bounds[1]["bound_ms"],
+            bounds[1]["chain_estimate_ms"], bounds[1]["chain_steps"],
+            all_on_ms))
+
+    # chroma pass
+    n_chroma = 0
+    for case_bd in (8, 10):
+        for direction in (0, 1):
+            case = cases.chroma_case(case_bd, direction, SEED, (360, 640))
+            outs = []
+            for fn in (deblock.chroma_pass, deblock.chroma_pass_plain):
+                pl, *a = [T(x) for x in case]
+                fn(pl, *a, case_bd, direction)
+                outs.append(pl)
+            same("chroma", outs[0], outs[1], (case_bd, direction))
+            if torch.equal(outs[0], T(case[0])):
+                raise AssertionError("deblock_chroma no-op %r" % (
+                    (case_bd, direction),))
+            n_chroma += 1
+    ctens = [deblock.chroma_tensors(par_c, lay_c, d) for d in (0, 1)]
+    cms = [cuda_ms(torch, lambda ps: deblock.chroma_filter(ps, par_c, lay_c,
+                                                           d, bd),
+                   fresh=lambda: [p.clone() for p in src_uv[d]])
+           for d in (0, 1)]
+    cplain = [cuda_ms(torch, lambda ps: [deblock.chroma_pass_plain(
+        p, *ctens[d], bd, d) for p in ps], 3,
+        fresh=lambda: [p.clone() for p in src_uv[d]]) for d in (0, 1)]
+    cbounds = [chroma_deblock_bound(
+        [p.cpu().numpy() for p in uv], ctens[d][1].cpu().numpy(),
+        lay_c.nce[d] * lay_c.ny[d] * 4) for d in (0, 1)]
+    res["deblock_chroma"] = dict(
+        max_abs_err=errs["chroma"], **cbounds[0], ms=cms[0], plain_ms=cplain[0],
+        shape="hd720_ld picture 0, across columns: U and V 640x360, %d "
+        "edges" % lay_c.nce[0],
+        across_rows=dict(cbounds[1], ms=cms[1], plain_ms=cplain[1],
+                         edges=lay_c.nce[1]))
+    r = res["deblock_edges"]
+    log("phase 2: deblock_edges equal tensor for tensor over %d cases (%s): "
+        "kernel %.4f ms, plain %.4f ms, bound %.6f ms (%s); deblock_chroma "
+        "bit-exact over %d cases and the real planes; picture 0, U and V: "
+        "across columns kernel %.4f ms, plain %.4f ms, bound %.6f ms (%s), "
+        "across rows kernel %.4f ms, plain %.4f ms" % (
+            n_edges, r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+            r["bound_by"], n_chroma, cms[0], cplain[0],
+            cbounds[0]["bound_ms"], cbounds[0]["bound_by"], cms[1],
+            cplain[1]))
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version on the same CUDA inputs."""
     import numpy as np
     from xvc_tpu_torch import constants as k
     from xvc_tpu_torch.codec.yuv import YuvPicture
-    from xvc_tpu_torch.gpu import deblock, flat_recon, itx, mc, satd
+    from xvc_tpu_torch.gpu import flat_recon, itx, mc, satd
     rng = np.random.RandomState(SEED)
     T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # a copy
     pic = YuvPicture(k.ChromaFormat.YUV420, 1280, 720, 8, True)
@@ -503,42 +761,6 @@ def phase_kernels(torch, dev):
         "plain %.4f ms" % (len(cases), res["itx"]["ms"],
                            res["itx"]["plain_ms"]))
 
-    # luma deblock: both directions on a 1280x720 plane
-    err = 0
-    flags_list = [(False,) * 5, (False, False, False, True, False),
-                  (True, False, False, False, True), (False, True, False,
-                                                      False, False)]
-    for bd in (8, 10):
-        for flags in flags_list:
-            for direction in (0, 1):
-                H, W = (720, 1280) if direction == 0 else (1280, 720)
-                plane, xs, mask, tc, beta = deblock_case(rng, H, W, bd)
-                outs = []
-                for fn in (deblock.luma_pass, deblock.luma_pass_plain):
-                    pl = T(plane)
-                    fn(pl, T(xs), T(mask), T(tc), T(beta), bd, flags)
-                    outs.append(pl)
-                torch.cuda.synchronize()
-                e = max_err(torch, outs[0], outs[1])
-                changed = int((outs[0] != T(plane)).sum().item())
-                if e or not changed:
-                    raise AssertionError("deblock mismatch or no-op %r" % (
-                        (bd, flags, direction, e, changed),))
-                err = max(err, e)
-    plane, xs, mask, tc, beta = deblock_case(rng, 720, 1280, 8)
-    pl = T(plane)
-    a = (T(xs), T(mask), T(tc), T(beta), 8, (False,) * 5)
-    res["deblock_luma"] = dict(
-        max_abs_err=err, **deblock_bound(plane, xs, mask, tc, beta),
-        shape="vertical edges, 1280x720, %d edges" % len(xs),
-        ms=cuda_ms(torch, lambda: deblock.luma_pass(pl, *a)),
-        plain_ms=cuda_ms(torch, lambda: deblock.luma_pass_plain(pl, *a),
-                         3))
-    log("phase 2: deblock_luma bit-exact over %d cases; 720p: kernel "
-        "%.4f ms, plain %.4f ms" % (2 * len(flags_list) * 2,
-                                    res["deblock_luma"]["ms"],
-                                    res["deblock_luma"]["plain_ms"]))
-
     # SATD: every size, 8 and 10 bit, full-range differences, a batch
     # that fills no whole warp, tile or group of 1024; plain and fused
     err = 0
@@ -571,7 +793,10 @@ def phase_kernels(torch, dev):
                                 res["satd"]["plain_ms"],
                                 res["satd"]["bound_ms"],
                                 res["satd"]["bound_by"]))
-    phase_scan_kernels(torch, dev, res)
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        real = capture_inputs(f.read())
+    phase_deblock_kernels(torch, dev, res, real, rng)
+    phase_scan_kernels(torch, dev, res, real)
     return res
 
 
@@ -776,7 +1001,8 @@ def main():
     log("phase 1: kernels built and loaded in %.2f s, native parse library "
         "in %.2f s (side by side)" % (build_s, native_s))
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "registers" in line or "spill" in line or "smem" in line or \
+                "Compiling entry function" in line:
             log("  ptxas: " + line.strip())
 
     res = phase_kernels(torch, dev)
@@ -798,16 +1024,25 @@ def main():
                     "scan_ref_samples_read": {
                         n: res[n]["ref_samples_read"]
                         for n in ("intra_luma", "intra_chroma")},
-                    "scan_chain_estimate_ms": {
+                    "chain_estimate_ms": {
                         n: res[n]["chain_estimate_ms"]
-                        for n in ("intra_luma", "intra_chroma")}}))
+                        for n in ("intra_luma", "intra_chroma",
+                                  "deblock_luma")},
+                    "deblock_across_rows": {
+                        n: res[n]["across_rows"]
+                        for n in ("deblock_luma", "deblock_chroma")},
+                    "deblock_luma_chain_steps":
+                        res["deblock_luma"]["chain_steps"],
+                    "deblock_luma_every_position_on_ms":
+                        res["deblock_luma"]["every_position_on_ms"]}))
     log(json.dumps({"stage_profile": stages}))
     launches = {n: dec["launches"][n] for n in DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
     # library_ms: no single PyTorch call computes any of these integer
     # functions on CUDA (gather + wrapped int16 filters, int32 transform
-    # with per-block bases, the sequential edge scan, Hadamard + |.| sum,
-    # the sequential intra scans)
+    # with per-block bases, table-driven edge decisions over a painted
+    # map, the sequential edge walk, the gated two-sample chroma update,
+    # Hadamard + |.| sum, the sequential intra scans)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],

@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from xvc_tpu_torch import kernels
+from xvc_tpu_torch.codec import picture_decoder
 from xvc_tpu_torch.codec.decoder import decode_stream
 from xvc_tpu_torch.gpu import deblock, flat_recon, itx, lookahead, mc, satd
 from xvc_tpu_torch.gpu import intra_scan as scan
 from xvc_tpu_torch.ops import deblock as dbk
 from xvc_tpu_torch.restrictions import Restrictions
 
+from xvc_tpu_torch.gpu import deblock_cases as dcases
 from xvc_tpu_torch.gpu import scan_cases as cases
 from .util import data_path, read_data
 
@@ -114,23 +116,184 @@ def test_itx_kernel_matches_plain(cuda, w, h, bd, variant):
                                    (False, True, False, False, False),
                                    (False, False, True, False, False)])
 def test_deblock_kernel_matches_plain(cuda, flags):
+    """Both directions on a 1280x720 plane as it lies (no transpose)."""
     rng = np.random.RandomState(sum(flags))
-    for H, W in ((720, 1280), (1280, 720)):
+    H, W = 720, 1280
+    for direction in (0, 1):
+        L, lines = (W, H) if direction == 0 else (H, W)
         blocks = rng.randint(0, 256, (H // 8, W // 8))
         plane = (np.repeat(np.repeat(blocks, 8, 0), 8, 1) // 12 + 100 +
                  rng.randint(-2, 3, (H, W))).astype(np.int16)
-        xs = np.arange(4, W, 4).astype(np.int32)
-        qp = rng.randint(16, 52, (len(xs), H // 4))
+        xs = np.arange(4, L, 4).astype(np.int32)
+        qp = rng.randint(16, 52, (len(xs), lines // 4))
         beta = np.asarray(dbk.BETA_TABLE, np.int32)[np.clip(qp, 0, 51)]
         tc = np.asarray(dbk.TC_TABLE, np.int32)[np.clip(qp + 2, 0, 53)]
-        mask = (rng.rand(len(xs), H // 4) < 0.8).astype(np.int32)
+        mask = (rng.rand(len(xs), lines // 4) < 0.8).astype(np.int32)
         outs = []
         for fn in (deblock.luma_pass, deblock.luma_pass_plain):
             pl, *a = _to(cuda, plane, xs, mask, tc, beta)
-            fn(pl, *a, 8, flags)
+            fn(pl, *a, 8, flags, direction)
             outs.append(pl.cpu().numpy())
         assert (outs[0] != plane).any()
         np.testing.assert_array_equal(outs[0], outs[1])
+
+
+LUMA_FLAGS = [(False,) * 5, (True, False, False, False, False),
+              (False, True, False, False, False),
+              (False, False, True, False, False),
+              (False, False, False, True, True)]
+
+
+@pytest.mark.parametrize("size", [(48, 96), (200, 328)])
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", dcases.LUMA_KINDS)
+def test_deblock_luma_kernel_edge_lists(cuda, kind, bd, direction, size):
+    """Every position, a pruned list, a clamped last strip and a height
+    that is no multiple of 4, under each restriction flag."""
+    for n, flags in enumerate(LUMA_FLAGS):
+        case = dcases.luma_case(kind, bd, direction, seed=n, size=size)
+        outs = []
+        kernels.reset_launches()
+        for fn in (deblock.luma_pass, deblock.luma_pass_plain):
+            pl, *a = _to(cuda, *case)
+            fn(pl, *a, bd, flags, direction)
+            outs.append(pl.cpu().numpy())
+        assert kernels.LAUNCHES["deblock_luma"] == 1
+        assert n or (outs[0] != case[0]).any()
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_chroma_kernel_matches_plain(cuda, bd, direction):
+    for size in ((24, 48), (360, 640)):
+        case = dcases.chroma_case(bd, direction, size=size)
+        outs = []
+        kernels.reset_launches()
+        for fn in (deblock.chroma_pass, deblock.chroma_pass_plain):
+            pl, *a = _to(cuda, *case)
+            fn(pl, *a, bd, direction)
+            outs.append(pl.cpu().numpy())
+        assert kernels.LAUNCHES["deblock_chroma"] == 1
+        assert (outs[0] != case[0]).any()
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _tiled_edge_params(dev, size, sbs, pred_type, restr_flags, bd,
+                       do_chroma=True):
+    """attrs of a tiled picture on ``dev`` and what edge_params and its
+    plain version make of them."""
+    pic = dcases.tiled_picture(sum(size) + sbs, *size, pred_type)
+    attrs, n = dbk.DeblockingFilter(pic, None, 0, 0, None).build_cu_attrs(0)
+    lay = deblock.EdgeLayout(*size, sbs, 1, 1, True, do_chroma)
+    args = (n, lay, 1, -2, bd, pred_type == 0, restr_flags)
+    a, = _to(dev, attrs)
+    return lay, deblock.edge_params(a, *args), \
+        deblock.edge_params_plain(a, *args)
+
+
+@pytest.mark.parametrize("restr_flags", [
+    (False, False, False), (True, False, False), (False, True, False),
+    (False, False, True)])
+@pytest.mark.parametrize("pred_type", [0, 1, 2])
+@pytest.mark.parametrize("sbs", [4, 8])
+@pytest.mark.parametrize("size", dcases.EDGE_SIZES + ((1280, 720),))
+def test_deblock_edges_kernel_matches_plain(cuda, size, sbs, pred_type,
+                                            restr_flags):
+    for bd in (8, 10):
+        kernels.reset_launches()
+        lay, got, want = _tiled_edge_params(cuda, size, sbs, pred_type,
+                                            restr_flags, bd)
+        assert kernels.LAUNCHES["deblock_edges"] == 1
+        assert lay.total > 0 and got[1].shape == (lay.total,)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.parametrize("sbs", [4, 8])
+@pytest.mark.parametrize("size", [(64, 48), (328, 200), (1280, 720)])
+def test_deblock_filters_from_packed_entries(cuda, size, sbs):
+    """luma_filter and chroma_filter on the entries edge_params derived,
+    against the plain versions fed the unpacked tensors."""
+    W, H = size
+    rng = np.random.RandomState(W + sbs)
+    lay, (_, params), _ = _tiled_edge_params(cuda, size, sbs, 0,
+                                             (False,) * 3, 8)
+    luma = dcases.blocky_plane(rng, H, W, 8)
+    chroma = [dcases.blocky_plane(rng, H // 2, W // 2, 8) for _ in range(2)]
+    got_l, want_l = _to(cuda, luma, luma)
+    got_c, want_c = _to(cuda, *chroma), _to(cuda, *chroma)
+    kernels.reset_launches()
+    for d in (0, 1):
+        deblock.luma_filter(got_l, params, lay, d, 8, (False,) * 5)
+        deblock.chroma_filter(got_c, params, lay, d, 8)
+        xs, mask, tc, beta = deblock.luma_tensors(params, lay, d)
+        G = (H, W)[d] // 4
+        deblock.luma_pass_plain(
+            want_l, xs, mask[:, :G], tc[:, :G], beta[:, :G], 8, (False,) * 5,
+            d)
+        edges, apply, ctc = deblock.chroma_tensors(params, lay, d)
+        N = (H // 2, W // 2)[d]
+        for plane in want_c:
+            deblock.chroma_pass_plain(plane, edges, apply[:, :N],
+                                      ctc[:, :N], 8, d)
+    assert kernels.LAUNCHES["deblock_luma"] == 2
+    assert kernels.LAUNCHES["deblock_chroma"] == 2
+    assert (got_l.cpu().numpy() != luma).any()
+    assert (got_c[0].cpu().numpy() != chroma[0]).any()
+    np.testing.assert_array_equal(got_l.cpu().numpy(), want_l.cpu().numpy())
+    for g, w in zip(got_c, want_c):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def test_deblock_on_card_is_kernels_only_and_never_waits_for_the_host(cuda):
+    """With every plain version and numpy derivation made to raise, and
+    any synchronising call inside deblock_picture an error, the decode
+    still runs and equals its golden."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain deblock code ran on the card's path")
+
+    orig = picture_decoder.deblock_picture
+
+    def no_sync(filt, planes, device):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(filt, planes, device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    mp = pytest.MonkeyPatch()
+    for name in ("edge_params_plain", "luma_pass_plain", "chroma_pass_plain",
+                 "compute_edge_metadata", "luma_edge_tensors",
+                 "chroma_edge_tensors", "paint_cu_map_plain", "luma_tensors",
+                 "chroma_tensors"):
+        mp.setattr(deblock, name, refuse)
+    mp.setattr(picture_decoder, "deblock_picture", no_sync)
+    kernels.reset_launches()
+    try:
+        pics = decode_stream(read_data("sp_fast.xvc"), device=cuda)
+    finally:
+        mp.undo()
+    assert len(pics) == 6 and all(p.conforming for p in pics)
+    assert b"".join(p.bytes for p in pics) == read_data("sp_fast_dec.yuv")
+    for name in ("deblock_edges", "deblock_luma", "deblock_chroma"):
+        assert kernels.LAUNCHES[name] > 0
+
+
+def test_deblock_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    case = dcases.luma_case("regular", 8, 0)
+    plane, xs, mask, tc, beta = _to(cuda, *case)
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane, xs.cpu(), mask, tc, beta, 8, (False,) * 5)
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane.to(torch.int32), xs, mask, tc, beta, 8,
+                          (False,) * 5)
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane, xs, mask, tc, beta, 8, (False,) * 5, 1)
+    with pytest.raises(RuntimeError):
+        deblock.luma_pass(plane, xs, mask, tc, beta, 16, (False,) * 5)
 
 
 @pytest.mark.parametrize("name,count", [("ai64x48", 3), ("ai64x48b10", 2),
@@ -140,9 +303,9 @@ def test_decode_matches_golden_on_card(cuda, name, count):
     pics = decode_stream(read_data(name + ".xvc"), device=cuda)
     assert len(pics) == count and all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == read_data(name + "_dec.yuv")
-    assert kernels.LAUNCHES["itx"] > 0 and kernels.LAUNCHES["deblock_luma"] > 0
-    assert kernels.LAUNCHES["intra_luma"] > 0
-    assert kernels.LAUNCHES["intra_chroma"] > 0
+    for kernel in ("itx", "deblock_edges", "deblock_luma", "deblock_chroma",
+                   "intra_luma", "intra_chroma"):
+        assert kernels.LAUNCHES[kernel] > 0
 
 
 def test_720p_decode_matches_host_on_card(cuda):
@@ -154,8 +317,8 @@ def test_720p_decode_matches_host_on_card(cuda):
     assert all(p.conforming for p in pics)
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
     assert all(kernels.LAUNCHES[name] > 0
-               for name in ("mc", "itx", "deblock_luma", "intra_luma",
-                            "intra_chroma"))
+               for name in ("mc", "itx", "deblock_edges", "deblock_luma",
+                            "deblock_chroma", "intra_luma", "intra_chroma"))
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])

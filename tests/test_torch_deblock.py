@@ -5,16 +5,33 @@ on the CPU backend: bit-exact (tolerance 0), same numpy-seeded inputs.
   ``tpu/deblock_jax.make_luma_pass``, in both directions (the horizontal
   pass runs on the transposed plane), under each restriction flag, with
   an edge whose strip start is clamped;
-- the chroma pass vs ``make_chroma_pass``, both directions.
+- the chroma pass vs ``make_chroma_pass``, both directions;
+- both passes with ``direction=1`` on the plane as it lies vs the JAX
+  pass on the transposed plane, for every edge position, a pruned edge
+  list, a width with ``W % 8 == 4`` whose last strip start is clamped
+  and a height that is no multiple of 4
+  (``xvc_tpu_torch/gpu/deblock_cases.py``, which the card tests put
+  through the CUDA kernels);
+- the stage as a whole: ``deblock_picture`` on the CPU against the planes
+  the JAX package's host decoder holds before and after its deblocking
+  of the same picture, for every picture of sp_fast, ai64x48 and
+  ai64x48b10.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from xvc_tpu.codec import decoder as jdecoder
+from xvc_tpu.nal import split_nal_units
 from xvc_tpu.ops import deblock as dbk
 from xvc_tpu.tpu import deblock_jax as jdb
+from xvc_tpu_torch.codec import picture_decoder
+from xvc_tpu_torch.codec.decoder import decode_stream
 from xvc_tpu_torch.gpu import deblock
+from xvc_tpu_torch.gpu import deblock_cases as cases
+
+from .util import read_data
 
 
 def _blocky(rng, H, W, bd):
@@ -89,3 +106,140 @@ def test_chroma_pass_matches_jax(bd):
                             bd)
         assert (want != plane).any()
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _jax_luma(plane, xs, mask, tc, beta, bd, flags):
+    H, W = plane.shape
+    E = len(xs)
+    flat = np.concatenate([xs, mask.reshape(-1), tc.reshape(-1),
+                           beta.reshape(-1)])
+    eg = mask.size
+    return np.asarray(jdb.make_luma_pass(H, W, 4, bd, flags, E)(
+        jnp.asarray(plane), jnp.asarray(flat), 0, E, E + eg, E + 2 * eg))
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", cases.LUMA_KINDS)
+def test_luma_pass_edge_lists_match_jax(kind, bd, direction):
+    """``luma_pass_plain`` on the plane as it lies against the JAX pass
+    (on the transposed plane for direction 1).  The JAX pass takes whole
+    groups of four lines only, so for a ragged plane it is given the
+    4 * (lines // 4) lines that are filtered, and the rest must stay."""
+    changed = 0
+    for n, flags in enumerate(FLAGS):
+        plane, xs, mask, tc, beta = cases.luma_case(kind, bd, direction, n)
+        lines = plane.shape[direction]
+        assert (kind != "ragged") or lines % 4
+        assert (kind != "clamped") or plane.shape[1 - direction] % 8 == 4
+        assert (kind != "pruned") or (np.diff(xs) > 4).any()
+        assert (kind != "odd") or (plane.shape[0] % 2 and plane.shape[1] % 2)
+        src = plane.T if direction else plane
+        whole = lines // 4 * 4
+        want = src.copy()
+        want[:whole] = _jax_luma(np.ascontiguousarray(src[:whole]), xs, mask,
+                                 tc, beta, bd, flags)
+        want = want.T if direction else want
+        got = torch.from_numpy(plane.copy())
+        deblock.luma_pass(got, *[torch.from_numpy(a) for a in
+                                 (xs, mask, tc, beta)], bd, flags, direction)
+        np.testing.assert_array_equal(got.numpy(), want)
+        changed += int((want != plane).sum())
+    assert changed
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_chroma_pass_direction_matches_jax(bd, direction):
+    plane, edges, apply, tc = cases.chroma_case(bd, direction)
+    src = np.ascontiguousarray(plane.T if direction else plane)
+    E = len(edges)
+    flat = np.concatenate([edges, apply.reshape(-1), tc.reshape(-1)])
+    want = np.asarray(jdb.make_chroma_pass(src.shape[0], E, bd)(
+        jnp.asarray(src), jnp.asarray(flat), 0, E, E + apply.size))
+    want = want.T if direction else want
+    got = torch.from_numpy(plane.copy())
+    deblock.chroma_pass(got, *[torch.from_numpy(a) for a in
+                               (edges, apply, tc)], bd, direction)
+    assert (want != plane).any()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_luma_pass_refuses_tensors_that_disagree():
+    plane, xs, mask, tc, beta = [torch.from_numpy(a) for a in
+                                 cases.luma_case("regular", 8, 0)]
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane, xs, mask, tc, beta, 8, (False,) * 5, 1)
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane, xs[:-1], mask, tc, beta, 8, (False,) * 5)
+    with pytest.raises(ValueError):
+        deblock.luma_pass(plane, xs, mask, tc, beta, 8, (False,) * 4)
+    with pytest.raises(ValueError):
+        deblock.chroma_pass(plane, xs, mask, tc, 8)
+
+
+def _jax_host_deblock_planes(name):
+    """Decode ``name`` with the JAX package's host decoder; per picture
+    the visible planes before and after its deblocking."""
+    seen = []
+    orig = dbk.DeblockingFilter.deblock_picture
+
+    def hook(self):
+        comps = range(self.pic.max_num_components)
+        before = [self.rec.plane_view(c).copy() for c in comps]
+        orig(self)
+        seen.append((before, [self.rec.plane_view(c).copy() for c in comps]))
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(dbk.DeblockingFilter, "deblock_picture", hook)
+    # the per-CU host path: the whole-picture native decode deblocks
+    # inside its one C++ call
+    mp.setenv("XVC_PIC_NATIVE", "0")
+    mp.delenv("XVC_DSP", raising=False)
+    try:
+        dec = jdecoder.Decoder()
+        count = 0
+        for nal in split_nal_units(read_data(name + ".xvc")):
+            dec.decode_nal(nal)
+            while dec.get_decoded_picture() is not None:
+                count += 1
+        dec.flush()
+        while dec.get_decoded_picture() is not None:
+            count += 1
+    finally:
+        mp.undo()
+    assert count == len(seen)
+    return seen
+
+
+@pytest.mark.parametrize("name,count", [("sp_fast", 6), ("ai64x48", 3),
+                                        ("ai64x48b10", 2)])
+def test_deblock_picture_matches_jax_package_host_planes(name, count):
+    """The stage alone: same planes in, same planes out, picture by
+    picture."""
+    want = _jax_host_deblock_planes(name)
+    assert len(want) == count
+    got = []
+    orig = picture_decoder.deblock_picture
+
+    def hook(filt, planes, device):
+        before = [planes[c].numpy().copy() for c in sorted(planes)]
+        out = orig(filt, planes, device)
+        got.append((before, [planes[c].numpy().copy()
+                             for c in sorted(planes)]))
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(picture_decoder, "deblock_picture", hook)
+    try:
+        pics = decode_stream(read_data(name + ".xvc"), device="cpu")
+    finally:
+        mp.undo()
+    assert len(pics) == len(got) == count
+    changed = 0
+    for (gb, ga), (wb, wa) in zip(got, want):
+        for c in range(len(wb)):
+            np.testing.assert_array_equal(gb[c], wb[c])
+            np.testing.assert_array_equal(ga[c], wa[c])
+            changed += int((wa[c] != wb[c]).sum())
+    assert changed

@@ -109,9 +109,10 @@ _FLAT_SPANS = {"decode.parse", "decode.flat", "decode.deblock",
                "flat.build", "flat.upload", "flat.dispatch",
                "flat.intra_scan", "flat.chroma_scan", "deblock.meta",
                "deblock.upload", "deblock.download"}
-# spans the port adds: its host post step, its deblock passes, and the
-# frame-store write after deblock
-_PORT_SPANS = {"decode.post", "deblock.passes", "deblock.store"}
+# spans the port adds: its host post step, its deblock passes with the
+# edge decisions inside them, and the frame-store write after deblock
+_PORT_SPANS = {"decode.post", "deblock.passes", "deblock.edges",
+               "deblock.store"}
 
 
 def test_cpu_decode_reports_the_flat_path_spans():

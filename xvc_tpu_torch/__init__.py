@@ -8,8 +8,9 @@ own trimmed copies under the same names.
 
 - Decode: real xvc streams through the flat, record-driven
   reconstruction path (``codec.decoder.decode_stream``,
-  ``api.DecoderSession``).  Motion compensation, inverse transform and
-  luma deblock run as hand-written Hopper kernels (``kernels/csrc``).
+  ``api.DecoderSession``).  Motion compensation, inverse transform, the
+  intra scans and the deblock stage (edge decisions, luma walk, chroma
+  pass) run as hand-written Hopper kernels (``kernels/csrc``).
 - Encoder lookahead: whole-frame open-loop intra SATD cost maps
   (``gpu.lookahead.frame_intra_lookahead``), with the Hadamard SATD as a
   hand-written kernel.

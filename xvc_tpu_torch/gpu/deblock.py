@@ -1,19 +1,34 @@
-"""In-loop deblocking on the device: luma edge scan (kernel 3) and the
-chroma pass.
+"""In-loop deblocking on the device: edge decisions, luma edge walk and
+chroma pass, each a hand-written kernel with its plain version beside it.
 
-Port of ``xvc_tpu/tpu/deblock_jax.py``.  The boundary strengths and the
-per-edge tc/beta/chroma gating are state independent, so they are
-computed on the host with numpy (``compute_edge_metadata``,
-``luma_edge_tensors``, ``chroma_edge_tensors``, copied from the JAX
-module), fed by the CU maps of
-``ops.deblock.DeblockingFilter._build_cu_maps``.
+Port of ``xvc_tpu/tpu/deblock_jax.py``, redesigned for the card: the JAX
+package derives the boundary strengths and the per-edge tc/beta/chroma
+gating on the host with numpy and uploads them; here the host uploads
+only the per-CU attribute table (``ops.deblock.build_cu_attrs``) and the
+card derives the rest, so between the parse and the picture's download
+the stage never waits for the host.
 
-- ``luma_pass`` filters one direction in place.  On the card it launches
-  ``kernels/csrc/deblock.cu`` (one thread per 4-row group walking the
-  edges in order); on the CPU it runs ``luma_pass_plain``, the edge loop
-  of the JAX ``lax.scan`` with all row groups vectorized per step.
-- ``chroma_pass`` is one masked update per direction (plain PyTorch).
-- Horizontal edges run on a contiguous transpose of the plane.
+- ``edge_params`` paints the per-4x4 CU map and derives one packed int32
+  per (edge position, sub-block along the edge) for both directions
+  (``kernels/csrc/deblock_edges.cu``); ``edge_params_plain`` is the numpy
+  derivation of the JAX module (``compute_edge_metadata``,
+  ``luma_edge_tensors``, ``chroma_edge_tensors``) packed the same way.
+  ``EdgeLayout`` says where each direction's entries lie;
+  ``luma_tensors`` / ``chroma_tensors`` unpack them into the tensors the
+  JAX functions return.
+- ``luma_pass`` filters one direction in place with the JAX twin's
+  arguments (``xs, mask, tc, beta``); ``luma_filter`` does the same from
+  the packed entries.  On the card both launch ``luma_walk`` of
+  ``kernels/csrc/deblock.cu``, for either direction on the plane as it
+  lies; on the CPU they run ``luma_pass_plain``, the edge loop of the JAX
+  ``lax.scan`` with all row groups vectorized per step.
+- ``chroma_pass`` / ``chroma_filter`` likewise launch ``chroma_edges`` or
+  run ``chroma_pass_plain``, one masked update per direction.
+- ``deblock_picture`` drives a picture through them.
+
+Packed entries: luma ``beta << 16 | tc << 1 | mask``, chroma
+``tc << 1 | apply``; tc and beta are table values shifted by the bit
+depth, so they fit.
 """
 import numpy as np
 import torch
@@ -26,8 +41,25 @@ from . import dsp
 
 
 # ---------------------------------------------------------------------------
-# Host-side metadata (vectorized boundary-strength derivation)
+# Plain edge derivation (numpy, as the JAX module has it on the host)
 # ---------------------------------------------------------------------------
+
+def paint_cu_map_plain(attrs, n_cus, map_h, map_w):
+    """Per-4x4 map of CU indices from the rectangles in ``attrs[:, 0:4]``
+    (x, y, w, h); -1 where no CU lies.  The leaves of one tree do not
+    overlap, so the order of painting does not matter."""
+    cu_map = np.full((map_h, map_w), -1, np.int32)
+    a = attrs[:n_cus].astype(np.int64)
+    x0, y0 = a[:, 0] >> 2, a[:, 1] >> 2
+    w = np.maximum(np.minimum(map_w, (a[:, 0] + a[:, 2] + 3) >> 2) - x0, 0)
+    h = np.maximum(np.minimum(map_h, (a[:, 1] + a[:, 3] + 3) >> 2) - y0, 0)
+    cells = w * h
+    idx = np.repeat(np.arange(n_cus), cells)
+    c = np.arange(int(cells.sum())) - np.repeat(np.cumsum(cells) - cells,
+                                                cells)
+    cu_map[y0[idx] + c // w[idx], x0[idx] + c % w[idx]] = idx
+    return cu_map
+
 
 def _gather_mv(attrs, idx, lst, corner):
     """corner is an (ny, nx) array; returns (mvx, mvy) arrays."""
@@ -38,15 +70,17 @@ def _gather_mv(attrs, idx, lst, corner):
     return mvx, mvy
 
 
-def compute_edge_metadata(pic, cu_map, attrs, direction, subblock_size,
-                          beta_offset, tc_offset, restr):
+def compute_edge_metadata(width, height, pred_bi, cu_map, attrs, direction,
+                          subblock_size, restr_flags):
     """Vectorized _get_boundary_strength over the whole picture
     (ref: deblocking_filter.cc:154-241).  Returns dict with per-subblock
     (ny, nx) arrays: bs, qp_luma, qp_chroma (x = edge positions along
     the filter direction, y = along the edge).  For direction 1 the
     arrays are in transposed coordinates (x = vertical edge position in
-    the transposed plane)."""
-    W, H = pic.width, pic.height
+    the transposed plane).  ``restr_flags`` = (disable_deblock_boundary_
+    strength_zero, ..._one, disable_deblock_depending_on_qp)."""
+    bs_zero_off, bs_one_off, fixed_qp = restr_flags
+    W, H = width, height
     if direction == 1:
         W, H = H, W
     one_step = 16
@@ -76,10 +110,7 @@ def compute_edge_metadata(pic, cu_map, attrs, direction, subblock_size,
         corner_p = np.where((ycoord - a_p[..., 0]) < (a_p[..., 2] >> 1), 2, 3)
         corner_q = np.where((ycoord - a_q[..., 0]) < (a_q[..., 2] >> 1), 0, 1)
 
-    base = np.int32(1 if restr.disable_deblock_boundary_strength_zero else 0)
-    bs = np.full(iq.shape, base, np.int32)
-
-    pred_bi = pic.get_prediction_type() == k.PicturePredictionType.BI
+    base = np.int32(1 if bs_zero_off else 0)
     if pred_bi:
         rp0, rp1 = a_p[..., 8], a_p[..., 9]
         rq0, rq1 = a_q[..., 8], a_q[..., 9]
@@ -111,13 +142,13 @@ def compute_edge_metadata(pic, cu_map, attrs, direction, subblock_size,
     intra_m = (a_p[..., 4] != 0) | (a_q[..., 4] != 0)
     cbf_m = (a_p[..., 5] != 0) | (a_q[..., 5] != 0)
     bs = np.where(intra_m, 2, np.where(cbf_m, 1, bs_mv))
-    if restr.disable_deblock_boundary_strength_one:
+    if bs_one_off:
         bs = np.where(bs == 1, 2, bs)
     bs = np.where(skip, 0, bs)
 
     qp_l = (a_p[..., 6] + a_q[..., 6] + 1) >> 1
     qp_c = (a_p[..., 7] + a_q[..., 7] + 1) >> 1
-    if restr.disable_deblock_depending_on_qp:
+    if fixed_qp:
         qp_l = np.full_like(qp_l, 32)
         qp_c = np.full_like(qp_c, 31)
     return {"bs": bs, "qp_l": qp_l.astype(np.int32),
@@ -169,39 +200,238 @@ def chroma_edge_tensors(meta, direction, subblock_size, tc_offset,
 
 
 # ---------------------------------------------------------------------------
-# Device passes
+# The packed edge entries of one CU tree
 # ---------------------------------------------------------------------------
 
-def luma_pass(plane, xs, mask, tc, beta, bitdepth, flags):
-    """One luma filter direction over vertical edges, in place.
-    plane (H, W) int16; xs (E,) edge columns in scan order; mask, tc,
-    beta (E, H/4) int32.  flags = (disable_initial_decision,
-    disable_strong, disable_weak, disable_weak_sample_decision,
-    disable_two_samples_weak)."""
-    kernels.require(plane, torch.int16, 2, "plane")
-    kernels.require(xs, torch.int32, 1, "xs")
-    for t, name in ((mask, "mask"), (tc, "tc"), (beta, "beta")):
-        kernels.require(t, torch.int32, 2, name)
+class EdgeLayout:
+    """Where the entries of one CU tree's two directions lie in the int32
+    vector that ``edge_params`` returns.  For direction ``d`` (0 vertical
+    edges, 1 horizontal): ``nx[d]`` edge positions ``sbs * (e + 1)``,
+    ``ny[d]`` sub-blocks of ``sbs`` samples along an edge, luma entries
+    ``[nx][ny]`` at ``luma_off[d]`` (-1: none), every
+    ``chroma_stride[d]``-th position a chroma edge, ``nce[d]`` of them,
+    entries ``[nce][ny]`` at ``chroma_off[d]`` (-1: none)."""
+
+    def __init__(self, width, height, sbs, csx, csy, do_luma, do_chroma):
+        if sbs not in (4, 8):
+            raise ValueError("sub-block size %r" % (sbs,))
+        self.width, self.height, self.sbs = width, height, sbs
+        self.csx, self.csy = csx, csy
+        self.map_w, self.map_h = (width + 3) >> 2, (height + 3) >> 2
+        self.nx, self.ny, self.chroma_stride, self.nce = [], [], [], []
+        self.luma_off, self.chroma_off = [], []
+        total = 0
+        for d, (across, along) in enumerate(((width, height),
+                                             (height, width))):
+            nx, ny = (across - 1) // sbs, (along + sbs - 1) // sbs
+            es = csx if d == 0 else csy
+            stride = (dbk.CHROMA_FILTER_RESOLUTION << es) // sbs
+            nce = nx // stride if do_chroma and stride >= 1 else 0
+            self.nx.append(nx)
+            self.ny.append(ny)
+            self.chroma_stride.append(stride if nce else 0)
+            self.nce.append(nce)
+            self.luma_off.append(total if do_luma and nx else -1)
+            total += nx * ny if do_luma else 0
+            self.chroma_off.append(total if nce else -1)
+            total += nce * ny
+        self.total = total
+
+    def luma_shift(self):
+        """A line's luma entry is ``line >> luma_shift()``."""
+        return self.sbs.bit_length() - 1
+
+    def chroma_shift(self, d):
+        """A chroma sample's entry along an edge of direction ``d``."""
+        rs = self.csy if d == 0 else self.csx
+        return (self.sbs >> rs).bit_length() - 1
+
+
+def pack_luma(mask, tc, beta):
+    return (beta << 16) | (tc << 1) | (mask != 0).to(torch.int32)
+
+
+def pack_chroma(apply, tc):
+    return (tc << 1) | (apply != 0).to(torch.int32)
+
+
+def luma_tensors(params, lay, d):
+    """The luma entries of direction ``d`` as the JAX module's tensors:
+    ``xs`` (E,), ``mask``, ``tc``, ``beta`` (E, groups) int32, one column
+    per 4-line group as ``luma_edge_tensors`` expands them."""
+    nx, ny = lay.nx[d], lay.ny[d]
+    p = params[lay.luma_off[d]:lay.luma_off[d] + nx * ny].view(nx, ny)
+    p = p.repeat_interleave(lay.sbs // dbk.FILTER_GROUP_SIZE, dim=1)
+    xs = torch.arange(1, nx + 1, dtype=torch.int32,
+                      device=params.device) * lay.sbs
+    return xs, p & 1, (p >> 1) & 0x7fff, (p >> 16) & 0xffff
+
+
+def chroma_tensors(params, lay, d):
+    """The chroma entries of direction ``d`` as ``chroma_edge_tensors``
+    returns them: ``edges`` (E,), ``apply``, ``tc`` (E, samples along the
+    edge) int32."""
+    nce, ny = lay.nce[d], lay.ny[d]
+    p = params[lay.chroma_off[d]:lay.chroma_off[d] + nce * ny].view(nce, ny)
+    p = p.repeat_interleave(1 << lay.chroma_shift(d), dim=1)
+    edges = torch.arange(1, nce + 1, dtype=torch.int32,
+                         device=params.device) * dbk.CHROMA_FILTER_RESOLUTION
+    return edges, p & 1, p >> 1
+
+
+def edge_params(attrs, n_cus, lay, beta_offset, tc_offset, bitdepth,
+                pred_bi, restr_flags):
+    """The CU map and the packed edge entries of one CU tree, both
+    directions.  attrs (rows, 27) int32, of which the first ``n_cus`` are
+    CUs to paint (``ops.deblock.build_cu_attrs``); ``restr_flags`` as in
+    ``compute_edge_metadata``.  Returns (cu_map (map_h, map_w) int32,
+    params (lay.total,) int32) on the device of ``attrs``."""
+    kernels.require(attrs, torch.int32, 2, "attrs")
+    if attrs.shape[1] != 27 or not 0 <= n_cus <= attrs.shape[0] or \
+            attrs.shape[0] < 1:
+        raise ValueError("attrs %r with %d CUs" % (tuple(attrs.shape), n_cus))
+    args = (attrs, n_cus, lay, beta_offset, tc_offset, bitdepth, pred_bi,
+            restr_flags)
+    if not kernels.on_cuda(attrs):
+        return edge_params_plain(*args)
+    from ..kernels import build
+    cu_map = torch.empty((lay.map_h, lay.map_w), dtype=torch.int32,
+                         device=attrs.device)
+    params = torch.empty(lay.total, dtype=torch.int32, device=attrs.device)
+    cfg = [lay.width, lay.height, n_cus, attrs.shape[0], lay.sbs,
+           beta_offset, tc_offset, bitdepth - 8, int(bool(pred_bi))]
+    cfg += [int(bool(f)) for f in restr_flags]
+    for d in (0, 1):
+        cfg += [lay.nx[d], lay.ny[d], lay.chroma_stride[d], lay.luma_off[d],
+                lay.chroma_off[d]]
+    cfg = np.asarray(cfg, np.int32)
+    rc = build.lib().xvc_deblock_edges(
+        build.ptr(cu_map), build.ptr(attrs), build.ptr(params),
+        cfg.ctypes.data, build.stream_of(attrs))
+    build.check(rc, "deblock_edges")
+    kernels.LAUNCHES["deblock_edges"] += 1
+    return cu_map, params
+
+
+def edge_params_plain(attrs, n_cus, lay, beta_offset, tc_offset, bitdepth,
+                      pred_bi, restr_flags):
+    """Plain version of ``edge_params``: the numpy derivation behind
+    tensor arguments, packed into the same layout."""
+    a = attrs.cpu().numpy()
+    cu_map = paint_cu_map_plain(a, n_cus, lay.map_h, lay.map_w)
+    out = np.zeros(lay.total, np.int32)
+    T = torch.from_numpy
+    for d in (0, 1):
+        if not lay.nx[d]:
+            continue
+        meta = compute_edge_metadata(lay.width, lay.height, pred_bi, cu_map,
+                                     a, d, lay.sbs, restr_flags)
+        ny = lay.ny[d]
+        if lay.luma_off[d] >= 0:
+            mask, tc, beta = luma_edge_tensors(meta, lay.sbs, beta_offset,
+                                               tc_offset, bitdepth)
+            rep = lay.sbs // dbk.FILTER_GROUP_SIZE
+            packed = pack_luma(*(T(np.ascontiguousarray(t[:, ::rep]).astype(
+                np.int32)) for t in (mask, tc, beta)))
+            out[lay.luma_off[d]:lay.luma_off[d] + lay.nx[d] * ny] = \
+                packed.numpy().reshape(-1)
+        if lay.chroma_off[d] >= 0:
+            _, apply, tc = chroma_edge_tensors(meta, d, lay.sbs, tc_offset,
+                                               bitdepth, lay.csx, lay.csy)
+            ssb = 1 << lay.chroma_shift(d)
+            packed = pack_chroma(*(T(np.ascontiguousarray(
+                t[:, ::ssb]).astype(np.int32)) for t in (apply, tc)))
+            out[lay.chroma_off[d]:lay.chroma_off[d] + lay.nce[d] * ny] = \
+                packed.numpy().reshape(-1)
+    return T(cu_map).to(attrs.device), T(out).to(attrs.device)
+
+
+# ---------------------------------------------------------------------------
+# Luma
+# ---------------------------------------------------------------------------
+
+def _flag_ints(flags):
+    if len(flags) != 5:
+        raise ValueError("five luma restriction flags, got %r" % (flags,))
+    return [1 if f else 0 for f in flags]
+
+
+def _launch_luma(plane, direction, xs, edge_step, params, E, nsub, shift,
+                 bitdepth, flags):
+    """Launch ``luma_walk`` unless there is nothing to filter."""
     H, W = plane.shape
-    E, G = mask.shape
-    if xs.shape[0] != E or tc.shape != (E, G) or beta.shape != (E, G) or \
-            G != H // dbk.FILTER_GROUP_SIZE:
-        raise ValueError("luma edge tensors disagree with the plane")
-    if not kernels.on_cuda(plane, xs, mask, tc, beta):
-        luma_pass_plain(plane, xs, mask, tc, beta, bitdepth, flags)
+    across, L = (H, W) if direction == 0 else (W, H)
+    if E == 0 or across < dbk.FILTER_GROUP_SIZE:
         return
+    if L < 8:
+        raise ValueError("a luma strip is 8 samples, the plane has %d" % L)
     from ..kernels import build
     rc = build.lib().xvc_deblock_luma(
-        build.ptr(plane), H, W, build.ptr(xs), build.ptr(mask),
-        build.ptr(tc), build.ptr(beta), E, G, bitdepth,
-        *[1 if f else 0 for f in flags], build.stream_of(plane))
+        build.ptr(plane), H, W, direction,
+        None if xs is None else build.ptr(xs), edge_step, build.ptr(params),
+        E, nsub, shift, bitdepth, *_flag_ints(flags), build.stream_of(plane))
     build.check(rc, "deblock_luma")
     kernels.LAUNCHES["deblock_luma"] += 1
 
 
-def luma_pass_plain(plane, xs, mask, tc, beta, bitdepth, flags):
+def luma_pass(plane, xs, mask, tc, beta, bitdepth, flags, direction=0):
+    """One luma filter direction, in place.  plane (H, W) int16.
+    Direction 0 filters across columns: xs (E,) edge columns in scan
+    order; mask, tc, beta (E, H/4) int32, one column per 4-row group, tc
+    and beta as the tables give them (0 <= tc < 2^15, 0 <= beta < 2^16).
+    Direction 1 filters across rows of the plane as it lies: xs are edge
+    rows and the tensors are (E, W/4), one column per 4-column group;
+    the result is that of direction 0 on the transposed plane.
+    flags = (disable_initial_decision, disable_strong, disable_weak,
+    disable_weak_sample_decision, disable_two_samples_weak)."""
+    kernels.require(plane, torch.int16, 2, "plane")
+    kernels.require(xs, torch.int32, 1, "xs")
+    for t, name in ((mask, "mask"), (tc, "tc"), (beta, "beta")):
+        kernels.require(t, torch.int32, 2, name)
+    if direction not in (0, 1):
+        raise ValueError("direction %r" % (direction,))
+    E, G = mask.shape
+    if xs.shape[0] != E or tc.shape != (E, G) or beta.shape != (E, G) or \
+            G != plane.shape[direction] // dbk.FILTER_GROUP_SIZE:
+        raise ValueError("luma edge tensors disagree with the plane")
+    if not kernels.on_cuda(plane, xs, mask, tc, beta):
+        luma_pass_plain(plane, xs, mask, tc, beta, bitdepth, flags, direction)
+        return
+    if G:
+        _launch_luma(plane, direction, xs, 0, pack_luma(mask, tc, beta), E,
+                     G, 2, bitdepth, flags)
+
+
+def luma_filter(plane, params, lay, direction, bitdepth, flags):
+    """``luma_pass`` from the packed entries of ``edge_params``: the edges
+    of ``direction`` at ``lay.sbs * (e + 1)``, every position walked, an
+    edge whose groups are all masked out skipped on the card."""
+    kernels.require(plane, torch.int16, 2, "plane")
+    kernels.require(params, torch.int32, 1, "params")
+    if tuple(plane.shape) != (lay.height, lay.width) or \
+            params.shape[0] != lay.total:
+        raise ValueError("plane or entries disagree with the layout")
+    if lay.luma_off[direction] < 0:
+        return
+    if not kernels.on_cuda(plane, params):
+        xs, mask, tc, beta = luma_tensors(params, lay, direction)
+        G = plane.shape[direction] // dbk.FILTER_GROUP_SIZE
+        live = mask.any(dim=1)  # inactive edges are no-op steps
+        luma_pass_plain(plane, xs[live], mask[live, :G], tc[live, :G],
+                        beta[live, :G], bitdepth, flags, direction)
+        return
+    nx, ny = lay.nx[direction], lay.ny[direction]
+    off = lay.luma_off[direction]
+    _launch_luma(plane, direction, None, lay.sbs, params[off:off + nx * ny],
+                 nx, ny, lay.luma_shift(), bitdepth, flags)
+
+
+def luma_pass_plain(plane, xs, mask, tc, beta, bitdepth, flags, direction=0):
     """Plain PyTorch version of ``luma_pass``: the scan body of
-    deblock_jax.make_luma_pass, one edge at a time."""
+    deblock_jax.make_luma_pass, one edge at a time; direction 1 runs it
+    on the transposed view of the plane."""
+    if direction == 1:
+        plane = plane.t()
     (dis_initial, dis_strong, dis_weak, dis_weak_sample,
      dis_two_samples) = flags
     H, W = plane.shape
@@ -284,9 +514,86 @@ def luma_pass_plain(plane, xs, mask, tc, beta, bitdepth, flags):
         strip.copy_(out.reshape(groups * 4, 8))
 
 
-def chroma_pass(plane, edges, apply, tc, bitdepth):
+# ---------------------------------------------------------------------------
+# Chroma
+# ---------------------------------------------------------------------------
+
+def _launch_chroma(planes, direction, edges, edge_step, params, E, nsub,
+                   shift, bitdepth):
+    """Launch ``chroma_edges`` on one plane or two of one shape."""
+    H, W = planes[0].shape
+    if E == 0 or H == 0 or W == 0:
+        return
+    from ..kernels import build
+    rc = build.lib().xvc_deblock_chroma(
+        build.ptr(planes[0]),
+        build.ptr(planes[1]) if len(planes) > 1 else None, H, W, direction,
+        None if edges is None else build.ptr(edges), edge_step,
+        build.ptr(params), E, nsub, shift, bitdepth,
+        build.stream_of(planes[0]))
+    build.check(rc, "deblock_chroma")
+    kernels.LAUNCHES["deblock_chroma"] += 1
+
+
+def chroma_pass(plane, edges, apply, tc, bitdepth, direction=0):
     """One chroma filter direction, one masked parallel update, in
-    place.  plane (H, W) int16; edges (E,); apply, tc (E, H) int32."""
+    place.  plane (H, W) int16.  Direction 0: edges (E,) columns, at
+    least 4 apart and in [2, W - 2]; apply, tc (E, H) int32 with
+    0 <= tc < 2^30.  Direction 1 filters across rows of the plane as it
+    lies: edges are rows and the tensors are (E, W)."""
+    kernels.require(plane, torch.int16, 2, "plane")
+    kernels.require(edges, torch.int32, 1, "edges")
+    kernels.require(apply, torch.int32, 2, "apply")
+    kernels.require(tc, torch.int32, 2, "tc")
+    if direction not in (0, 1):
+        raise ValueError("direction %r" % (direction,))
+    E, N = apply.shape
+    if edges.shape[0] != E or tc.shape != (E, N) or \
+            N != plane.shape[direction]:
+        raise ValueError("chroma edge tensors disagree with the plane")
+    if not kernels.on_cuda(plane, edges, apply, tc):
+        chroma_pass_plain(plane, edges, apply, tc, bitdepth, direction)
+        return
+    if N:
+        _launch_chroma([plane], direction, edges, 0, pack_chroma(apply, tc),
+                       E, N, 0, bitdepth)
+
+
+def chroma_filter(planes, params, lay, direction, bitdepth):
+    """``chroma_pass`` on the U and V planes from the packed entries of
+    ``edge_params`` (chroma edges at 8, 16, ...)."""
+    for plane in planes:
+        kernels.require(plane, torch.int16, 2, "plane")
+        if plane.shape != planes[0].shape:
+            raise ValueError("chroma planes of two shapes")
+    kernels.require(params, torch.int32, 1, "params")
+    if params.shape[0] != lay.total:
+        raise ValueError("entries disagree with the layout")
+    if lay.chroma_off[direction] < 0:
+        return
+    nce, ny = lay.nce[direction], lay.ny[direction]
+    shift = lay.chroma_shift(direction)
+    if planes[0].shape[direction] > ny << shift:
+        raise ValueError("chroma plane longer than its edges")
+    if not kernels.on_cuda(params, *planes):
+        edges, apply, tc = chroma_tensors(params, lay, direction)
+        N = planes[0].shape[direction]
+        if apply.any():
+            for plane in planes:
+                chroma_pass_plain(plane, edges, apply[:, :N], tc[:, :N],
+                                  bitdepth, direction)
+        return
+    off = lay.chroma_off[direction]
+    _launch_chroma(planes, direction, None, dbk.CHROMA_FILTER_RESOLUTION,
+                   params[off:off + nce * ny], nce, ny, shift, bitdepth)
+
+
+def chroma_pass_plain(plane, edges, apply, tc, bitdepth, direction=0):
+    """Plain PyTorch version of ``chroma_pass``
+    (deblock_jax.make_chroma_pass); direction 1 runs it on the
+    transposed view of the plane."""
+    if direction == 1:
+        plane = plane.t()
     max_val = (1 << bitdepth) - 1
     dev = plane.device
     idx = edges.long()[:, None] + torch.arange(-2, 2, device=dev)[None, :]
@@ -304,80 +611,69 @@ def chroma_pass(plane, edges, apply, tc, bitdepth):
     plane[rows, edges.long()[None, :]] = nq0.to(plane.dtype)
 
 
-def deblock_picture(filt, planes, device):
-    """Deblock a whole picture on ``device``.  ``filt`` is the host
-    ``DeblockingFilter`` (picture data, offsets, restrictions);
-    ``planes`` maps component -> visible (H, W) int16 device plane and is
-    updated.  Mirrors deblock_jax.deblock_picture_jax without the mesh:
-    all edge metadata is computed on the host and uploaded at once."""
+# ---------------------------------------------------------------------------
+# A picture
+# ---------------------------------------------------------------------------
+
+def picture_passes(filt):
+    """The CU trees a picture's deblocking reads, as (cu_tree, EdgeLayout)
+    in filter order, and its luma flags."""
     pic, rec, r = filt.pic, filt.rec, filt.restr
-    subblock_size = dbk.SUBBLOCK_SIZE if \
-        r.disable_ext_deblock_subblock_size_4 else dbk.SUBBLOCK_SIZE_EXT
+    sbs = dbk.SUBBLOCK_SIZE if r.disable_ext_deblock_subblock_size_4 \
+        else dbk.SUBBLOCK_SIZE_EXT
     chroma_ok = (pic.max_num_components > 1 and
                  not r.disable_deblock_chroma_filter)
+    csx, csy = (rec.shift_x[1], rec.shift_y[1]) if chroma_ok else (0, 0)
+    mk = lambda s, luma, chroma: EdgeLayout(pic.width, pic.height, s, csx,
+                                            csy, luma, chroma)
     if pic.has_secondary_cu_tree():
-        passes = [(k.CuTree.PRIMARY, subblock_size, True, False),
-                  (k.CuTree.SECONDARY, dbk.SUBBLOCK_SIZE, False, chroma_ok)]
+        passes = [(k.CuTree.PRIMARY, mk(sbs, True, False)),
+                  (k.CuTree.SECONDARY, mk(dbk.SUBBLOCK_SIZE, False,
+                                          chroma_ok))]
     else:
-        passes = [(k.CuTree.PRIMARY, subblock_size, True, chroma_ok)]
+        passes = [(k.CuTree.PRIMARY, mk(sbs, True, chroma_ok))]
     flags = (bool(r.disable_deblock_initial_sample_decision),
              bool(r.disable_deblock_strong_filter),
              bool(r.disable_deblock_weak_filter),
              bool(r.disable_deblock_weak_sample_decision),
              bool(r.disable_deblock_two_samples_weak_filter))
-    bd = pic.bitdepth
-    csx, csy = rec.shift_x[1], rec.shift_y[1]
+    return passes, flags
 
-    built = {}
-    work = []
+
+def deblock_picture(filt, planes, device):
+    """Deblock a whole picture on ``device``.  ``filt`` is the host
+    ``DeblockingFilter`` (picture data, offsets, restrictions);
+    ``planes`` maps component -> visible (H, W) int16 device plane,
+    filtered in place.  The host builds the per-CU attribute tables and
+    uploads them at once; the edge decisions and both filter directions
+    run on the device with nothing read back."""
+    pic, r = filt.pic, filt.restr
+    passes, flags = picture_passes(filt)
+    restr_flags = (r.disable_deblock_boundary_strength_zero,
+                   r.disable_deblock_boundary_strength_one,
+                   r.disable_deblock_depending_on_qp)
+    pred_bi = pic.get_prediction_type() == k.PicturePredictionType.BI
+    bd = pic.bitdepth
+
     batch = dsp.DevBatch()
     with span("deblock.meta"):
-        for direction in (0, 1):
-            for cu_tree, sbs, do_luma, do_chroma in passes:
-                if cu_tree not in built:
-                    built[cu_tree] = filt._build_cu_maps(cu_tree)
-                cu_map, attrs = built[cu_tree]
-                meta = compute_edge_metadata(
-                    pic, cu_map, attrs, direction, sbs, filt.beta_offset,
-                    filt.tc_offset, r)
-                if meta["xs"].size == 0:
-                    continue
-                if do_luma:
-                    mask, tc, beta = luma_edge_tensors(
-                        meta, sbs, filt.beta_offset, filt.tc_offset, bd)
-                    # fully inactive edges are no-op steps: prune them
-                    act = mask.any(axis=1)
-                    xs = meta["xs"].astype(np.int32)[act]
-                    if len(xs):
-                        work.append((direction, "luma", batch.add(xs),
-                                     batch.add(mask[act].astype(np.int32)),
-                                     batch.add(tc[act]), batch.add(beta[act])))
-                if do_chroma:
-                    ct = chroma_edge_tensors(meta, direction, sbs,
-                                             filt.tc_offset, bd, csx, csy)
-                    if ct is None:
-                        continue
-                    edges, apply, tc = ct
-                    if not apply.any():
-                        continue
-                    work.append((direction, "chroma", batch.add(edges),
-                                 batch.add(apply.astype(np.int32)),
-                                 batch.add(tc)))
+        tables = []
+        for cu_tree, lay in passes:
+            attrs, n_cus = filt.build_cu_attrs(cu_tree)
+            tables.append((batch.add(attrs), n_cus, lay))
     with span("deblock.upload"):
         batch.upload(device)
 
     with span("deblock.passes"):
-        for item in work:
-            direction, kind = item[0], item[1]
-            args = [batch.get(h) for h in item[2:]]
-            comps = (0,) if kind == "luma" else (1, 2)
-            for comp in comps:
-                pl = planes[comp].t().contiguous() if direction == 1 \
-                    else planes[comp]
-                if kind == "luma":
-                    luma_pass(pl, *args, bd, flags)
-                else:
-                    chroma_pass(pl, *args, bd)
-                if direction == 1:
-                    planes[comp] = pl.t().contiguous()
+        with span("deblock.edges"):
+            derived = [(lay, edge_params(
+                batch.get(handle), n_cus, lay, filt.beta_offset,
+                filt.tc_offset, bd, pred_bi, restr_flags)[1])
+                for handle, n_cus, lay in tables]
+        for direction in (0, 1):
+            for lay, params in derived:
+                luma_filter(planes[0], params, lay, direction, bd, flags)
+                if lay.chroma_off[direction] >= 0:
+                    chroma_filter([planes[1], planes[2]], params, lay,
+                                  direction, bd)
     return planes

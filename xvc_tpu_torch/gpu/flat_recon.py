@@ -12,7 +12,8 @@ device in this order:
   3. uni/bi combine + residual + clip (``combine``, plain PyTorch);
   4. the intra luma scan, then the chroma scan with LM
      (``gpu/intra_scan.py``, kernels 5 and 6: one launch each);
-  5. deblock (``gpu/deblock.py``, kernel 3 for luma);
+  5. deblock (``gpu/deblock.py``: edge decisions, luma walk and chroma
+     pass, three kernels);
   6. a frame-store write and one download.
 
 Reference pictures live in a per-device ``FrameStore`` (int16 (S, Hp,

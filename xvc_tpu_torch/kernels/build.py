@@ -34,8 +34,11 @@ SIGNATURES = {
                        _P, _I, _I, _I, _P, _I, _P],
     "xvc_itx_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
-    "xvc_deblock_luma": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
+    "xvc_deblock_edges": [_P, _P, _P, _P, _P],
+    "xvc_deblock_luma": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
+    "xvc_deblock_chroma": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
+                           _P],
     "xvc_satd": [_P, _P, _L, _I, _I, _I, _P, _P],
     "xvc_intra_luma_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
     "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

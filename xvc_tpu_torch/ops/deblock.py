@@ -5,10 +5,11 @@ Behavioral equivalent of the reference deblocking filter
 horizontal edges on a 4-pel (ext) or 8-pel grid, HEVC-style strong/weak
 luma filtering, chroma only at boundary strength 2.
 
-Copy of the tables and the CU-map construction of ``xvc_tpu/ops/deblock.py``.
-The filter itself runs on the device (``gpu/deblock.py``);
-``DeblockingFilter`` only carries the picture, the offsets and the
-restrictions to it and builds the per-4x4 CU maps from the parse
+Copy of the tables and the per-CU attribute records of
+``xvc_tpu/ops/deblock.py``.  The filter itself runs on the device
+(``gpu/deblock.py``), the edge decisions and the per-4x4 CU map
+included; ``DeblockingFilter`` only carries the picture, the offsets and
+the restrictions to it and builds the attribute table from the parse
 records.
 """
 import numpy as np
@@ -37,20 +38,21 @@ class DeblockingFilter:
         self.tc_offset = tc_offset
         self.restr = restrictions
 
-    def _build_cu_maps(self, cu_tree):
-        """Flat per-4x4 CU index map + per-CU attribute records (27
-        columns), vectorized from the native parse's flat CU records
-        (native/pic.py parse_picture)."""
+    def build_cu_attrs(self, cu_tree):
+        """Per-CU attribute records (27 int32 columns: x, y, w, h, intra,
+        cbf, qp luma, qp chroma, ref poc l0, l1, ref idx l0, then the
+        motion vectors [list][corner][xy]) of the leaves of ``cu_tree``,
+        vectorized from the native parse's flat CU records
+        (native/pic.py parse_picture), and the number of leaves.  A tree
+        without leaves gives one row of zeros and 0.  The per-4x4 CU map
+        is painted from columns 0-3 on the device (gpu/deblock.py)."""
         pic = self.pic
         rec = pic._parse_records
-        map_w = (pic.width + 3) >> 2
-        map_h = (pic.height + 3) >> 2
-        cu_map = np.full((map_h, map_w), -1, np.int32)
         leaf = (rec[:, 6] == 0) & (rec[:, 0] == int(cu_tree))
         lr = rec[leaf]
         n = lr.shape[0]
         if n == 0:
-            return cu_map, np.zeros((1, 27), np.int32)
+            return np.zeros((1, 27), np.int32), 0
         attrs = np.zeros((n, 27), np.int32)
         attrs[:, 0:4] = lr[:, 2:6]
         is_intra = lr[:, 11] == 0
@@ -73,10 +75,4 @@ class DeblockingFilter:
             attrs[:, 8 + lst] = np.where(is_intra, 0, poc)
         attrs[:, 10] = np.where(is_intra, 0, lr[:, 35])
         attrs[:, 11:27] = lr[:, 41:57]
-        xs0 = lr[:, 2] >> 2
-        ys0 = lr[:, 3] >> 2
-        xs1 = np.minimum(map_w, (lr[:, 2] + lr[:, 4] + 3) >> 2)
-        ys1 = np.minimum(map_h, (lr[:, 3] + lr[:, 5] + 3) >> 2)
-        for i in range(n):
-            cu_map[ys0[i]:ys1[i], xs0[i]:xs1[i]] = i
-        return cu_map, np.ascontiguousarray(attrs)
+        return attrs, n
