@@ -17,7 +17,11 @@ Phases:
      real inputs of pictures of hd720_ld, captured during a decode),
      bit-exact, each timed with CUDA events beside its plain version
      and beside its bound (the least time the card could take: bytes
-     over the HBM rate, or operations over the peak rate);
+     over the HBM rate, or operations over the peak rate); for the
+     scans also the schedule each case took (parallel inside the
+     dependency contract of gpu/scan_deps.py, ordered outside it), the
+     longest chain of that schedule and the time per step, at pictures
+     0 and 3 and, at picture 0, with 16, 24 and 32 warps;
   3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
      card; every picture must be checksum-conforming and equal the
@@ -81,10 +85,13 @@ LOOKAHEAD_KERNELS = ("satd",)
 # it is still a time the card cannot beat.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
-# One dependent global store -> barrier -> load round trip inside a block,
+# One dependent global store -> done bit -> load round trip inside a block,
 # assumed (not measured here) at two L2 accesses of about 270 cycles at
 # 1.7 GHz.  Used only for the scans' chain estimate, which is no bound.
 STORE_LOAD_ROUND_TRIP_S = 0.32e-6
+# the pictures of hd720_ld whose scan inputs phase 2 captures and times:
+# 0 (intra, 5,234 luma leaves) and 3 (inter, 14 intra luma leaves)
+SCAN_PICTURES = (0, 3)
 # One step of the luma deblock walk, arithmetic only: assumed (not
 # measured here) at about 170 cycles at 1.7 GHz (some 30 dependent integer
 # operations, two shuffle rounds, a ballot and a vote).  Used only for the
@@ -275,7 +282,7 @@ def satd_bound(diff, n):
     return bound(diff.nbytes + blocks * 4, blocks * per_block)
 
 
-def scan_bound(kind, meta):
+def scan_bound(kind, meta, steps):
     """What this picture's rows need.  Per active row: its w x h int32
     residual read and int16 samples written; the canvas samples its
     reference line is made of (the h + sbl rows of the left column inside
@@ -285,9 +292,9 @@ def scan_bound(kind, meta):
     rescale_luma reads; its metadata row.  An inactive row: its ACTIVE
     column alone.  About 12 operations per sample, 8 per entry of the
     2 (w + h) + 1 long reference line, 12 per LM grid sample.  Beside the
-    bound, and no bound itself, the chain estimate: the active rows of
-    the longest walk (luma: all; chroma: one plane's) times one dependent
-    store-to-load round trip."""
+    bound, and no bound itself, the chain estimate: ``steps``, the rows of
+    the longest chain of the schedule the kernel took (gpu/scan_deps.py),
+    times one dependent store-to-load round trip."""
     import numpy as np
     luma = kind == "luma"
     live = meta[:, 10 if luma else 12] != 0
@@ -303,15 +310,69 @@ def scan_bound(kind, meta):
     nbytes = samples * 6 + ref_read * 2 + \
         len(m) * meta.shape[1] * 4 + int((~live).sum()) * 4
     ops = samples * 12 + ref_line * 8
-    chain_rows = len(m)
     if not luma:
         lm = m[:, 6] != 0
         nbytes += int((lm * 2 * (h + has_a) * (2 * w + 3 * has_l)).sum()) * 2
         ops += int((lm * (h + 1) * (w + 1)).sum()) * 12
-        chain_rows = int(max((m[:, 0] <= 0).sum(), (m[:, 0] > 0).sum()))
     return dict(bound(nbytes, ops), rows=len(m), samples=samples,
-                ref_samples_read=ref_read,
-                chain_estimate_ms=chain_rows * STORE_LOAD_ROUND_TRIP_S * 1e3)
+                ref_samples_read=ref_read, chain_steps=steps,
+                chain_estimate_ms=steps * STORE_LOAD_ROUND_TRIP_S * 1e3)
+
+
+def scan_schedule(torch, scan, kind, meta, shape):
+    """The schedule the last launch of the ``kind`` scan took, held to
+    the dependency model (gpu/scan_deps.py): parallel inside its
+    contract, ordered outside it, every active row of each plane run,
+    tickets in wavefront order where the model gives that order.
+    Returns (schedule names, rows run, steps, ticket steps), the steps
+    the most over the planes: steps is the graph's longest path (ordered:
+    every row of the plane), ticket steps what the kernel's warps need
+    taking tickets in its order (scan_deps.ticket_steps)."""
+    from xvc_tpu_torch.gpu import scan_deps
+    torch.cuda.synchronize()
+    status = scan.last_status("intra_" + kind).cpu().numpy()
+    scheds = scan_deps.analyse(kind, meta, shape)
+    scheds = (scheds,) if kind == "luma" else scheds
+    names, steps, tsteps = [], 0, 0
+    for s, st in zip(scheds, status):
+        order = None
+        if s.in_contract:
+            order = scan_deps.wavefront_order(kind, meta, shape, s)
+        want = (scan.PARALLEL if s.in_contract else scan.ORDERED,
+                len(s.rows), int(order is not None))
+        if (st[0], st[1], st[4]) != want:
+            raise AssertionError("intra_%s took (schedule, rows, wavefront) "
+                                 "%r, the dependency model says %r"
+                                 % (kind, tuple(st[[0, 1, 4]]), want))
+        if not s.in_contract:
+            names.append("ordered")
+            steps = tsteps = max(steps, len(s.rows))
+            continue
+        names.append("wavefront" if order is not None else "parallel")
+        steps = max(steps, s.longest)
+        tsteps = max(tsteps, scan_deps.ticket_steps(
+            s, s.rows if order is None else order, int(st[3])))
+    return names, [int(st[1]) for st in status], steps, tsteps
+
+
+def time_scans(torch, scans):
+    """Milliseconds per launch of each scan kernel on the captured inputs
+    of each picture of ``scans`` (from ``capture_inputs``), every timed
+    launch on a copy of the canvas made before the first event."""
+    from xvc_tpu_torch.gpu import intra_scan as scan
+    out = {}
+    for pic, calls in sorted(scans.items()):
+        plane, resi, meta, bd = calls["luma"]
+        out["intra_luma", pic] = cuda_ms(
+            torch, lambda p: scan.intra_scan(p, resi, meta, bd),
+            fresh=plane.clone)
+        if "chroma" in calls:
+            planes, resi_c, luma, meta_c, bd_c = calls["chroma"]
+            out["intra_chroma", pic] = cuda_ms(
+                torch, lambda p: scan.intra_chroma_scan(p, resi_c, luma,
+                                                        meta_c, bd_c),
+                fresh=planes.clone)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -319,26 +380,34 @@ def scan_bound(kind, meta):
 # ---------------------------------------------------------------------------
 
 def capture_inputs(data):
-    """Decode ``data`` on the card and keep copies of what the first
-    picture's luma and chroma scans were given (before they wrote), of
+    """Decode ``data`` on the card and keep copies of what the luma and
+    chroma scans of SCAN_PICTURES were given (before they wrote), of
     what every ``edge_params`` call of the first two pictures was given,
     and of those pictures' planes before deblocking."""
     from xvc_tpu_torch.codec import picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
-    from xvc_tpu_torch.gpu import deblock
+    from xvc_tpu_torch.gpu import deblock, flat_recon
     from xvc_tpu_torch.gpu import intra_scan as scan
-    got = {"pictures": []}
+    got = {"pictures": [], "scans": {}}
+    flat = []  # one entry per picture the flat path reconstructs
     orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
     orig_e, orig_d = deblock.edge_params, picture_decoder.deblock_picture
+    orig_r = flat_recon.FlatReconstructor.run
+
+    def rec_r(self):
+        flat.append(None)
+        return orig_r(self)
 
     def rec_l(plane, resi, meta, bd):
-        got.setdefault("luma", (plane.clone(), resi.clone(), meta.clone(),
-                                bd))
+        if len(flat) - 1 in SCAN_PICTURES:
+            got["scans"].setdefault(len(flat) - 1, {})["luma"] = (
+                plane.clone(), resi.clone(), meta.clone(), bd)
         return orig_l(plane, resi, meta, bd)
 
     def rec_c(planes, resi, luma, meta, bd):
-        got.setdefault("chroma", (planes.clone(), resi.clone(),
-                                  luma.clone(), meta.clone(), bd))
+        if len(flat) - 1 in SCAN_PICTURES:
+            got["scans"].setdefault(len(flat) - 1, {})["chroma"] = (
+                planes.clone(), resi.clone(), luma.clone(), meta.clone(), bd)
         return orig_c(planes, resi, luma, meta, bd)
 
     def rec_e(attrs, *args):
@@ -359,20 +428,28 @@ def capture_inputs(data):
 
     scan.intra_scan, scan.intra_chroma_scan = rec_l, rec_c
     deblock.edge_params, picture_decoder.deblock_picture = rec_e, rec_d
+    flat_recon.FlatReconstructor.run = rec_r
     try:
         decode_stream(data)
     finally:
         scan.intra_scan, scan.intra_chroma_scan = orig_l, orig_c
         deblock.edge_params, picture_decoder.deblock_picture = orig_e, orig_d
+        flat_recon.FlatReconstructor.run = orig_r
     got["pictures"] = got["pictures"][:2]
+    if sorted(got["scans"]) != list(SCAN_PICTURES):
+        raise AssertionError("no scan inputs of pictures %r" % (
+            sorted(set(SCAN_PICTURES) - set(got["scans"])),))
     return got
 
 
 def phase_scan_kernels(torch, dev, res, real):
     """The two intra scan kernels against their plain versions: the
     synthetic families of xvc_tpu_torch/gpu/scan_cases.py, then the real
-    scan inputs of picture 0 of hd720_ld (``real``, from
-    ``capture_inputs``), timed at that shape."""
+    scan inputs of pictures 0 and 3 of hd720_ld (``real``, from
+    ``capture_inputs``).  Per case: the schedule the kernel took (held to
+    the dependency model), the longest chain of that schedule, the time
+    of a launch and the time per step; both kernels timed at pictures 0
+    and 3, and at picture 0 with each warp count the kernel takes."""
     from xvc_tpu_torch.gpu import scan_cases as cases
     from xvc_tpu_torch.gpu import intra_scan as scan
     T = lambda a: torch.from_numpy(a.copy()).to(dev)
@@ -386,65 +463,118 @@ def phase_scan_kernels(torch, dev, res, real):
         return fns[kind](plane.clone(), *args)
 
     def both(kind, plane, resi, luma, meta, bd, tag):
+        """Bit-exact and not a no-op; then the schedule, the steps, a
+        timed launch (on copies of the canvas) and the time per step."""
         got = run(kernel, kind, plane, resi, luma, meta, bd)
+        names, rows, steps, tsteps = scan_schedule(
+            torch, scan, kind, meta.cpu().numpy(), tuple(plane.shape))
         want = run(plain, kind, plane, resi, luma, meta, bd)
         torch.cuda.synchronize()
         e = max_err(torch, got, want)
         if e or torch.equal(got, plane):
             raise AssertionError("intra_%s mismatch or no-op: %r, err %d"
                                  % (kind, tag, e))
-        return e
+        args = (resi, meta, bd) if kind == "luma" else (resi, luma, meta, bd)
+        ms = cuda_ms(torch, lambda p: kernel[kind](p, *args), 3,
+                     fresh=plane.clone)
+        log("phase 2: intra_%s %s: %s, rows %s, longest path %d, ticket "
+            "steps %d, %.4f ms, %.3f us per step of the path, %.3f per "
+            "ticket step" % (kind, tag, "/".join(names), rows, steps,
+                             tsteps, ms, ms * 1e3 / max(steps, 1),
+                             ms * 1e3 / max(tsteps, 1)))
+        return e, names, (steps, tsteps)
 
     err = {"luma": 0, "chroma": 0}
     families = []
     for kind, dims in (("luma", cases.LUMA_DIMS),
                        ("chroma", cases.CHROMA_DIMS)):
         for bd in (8, 10):
-            families.append(cases.corner_case(kind, bd))
-            families += [cases.shape_case(kind, w, h, bd)
+            families.append(("corner", cases.corner_case(kind, bd)))
+            families += [("shape %dx%d" % (w, h),
+                          cases.shape_case(kind, w, h, bd))
                          for w in dims for h in dims]
-    families += [cases.lm_wrap_case(bd) for bd in (8, 10, 12)]
-    for n, c in enumerate(families):
+            families.append(("tiled", cases.tiled_case(kind, bd)))
+    families += [("lm_wrap", cases.lm_wrap_case(bd)) for bd in (8, 10, 12)]
+    for name, c in families:
         luma = None if c["luma"] is None else T(c["luma"])
-        err[c["kind"]] = max(err[c["kind"]], both(
-            c["kind"], T(c["plane"]), T(c["resi"]), luma, T(c["meta"]),
-            c["bd"], ("synthetic", n)))
+        e, names, _ = both(c["kind"], T(c["plane"]), T(c["resi"]), luma,
+                           T(c["meta"]), c["bd"],
+                           "%s %d-bit" % (name, c["bd"]))
+        err[c["kind"]] = max(err[c["kind"]], e)
+        if (name == "tiled") != (names == ["wavefront"] * len(names)) or \
+                (name != "tiled") != (names == ["ordered"] * len(names)):
+            raise AssertionError("intra_%s %s ran %s" % (c["kind"], name,
+                                                         names))
 
-    plane, resi, meta, bd = real["luma"]
-    planes_c, resi_c, luma_c, meta_c, bd_c = real["chroma"]
-    err["luma"] = max(err["luma"], both("luma", plane, resi, None, meta, bd,
-                                        "hd720_ld picture 0"))
-    err["chroma"] = max(err["chroma"], both(
-        "chroma", planes_c, resi_c, luma_c, meta_c, bd_c,
-        "hd720_ld picture 0"))
-    # timed in place on the picture-0 inputs (the work of a leaf does not
-    # depend on the sample values)
+    steps = {}
+    for pic in SCAN_PICTURES:
+        plane, resi, meta, bd = real["scans"][pic]["luma"]
+        planes_c, resi_c, luma_c, meta_c, bd_c = real["scans"][pic]["chroma"]
+        tag = "hd720_ld picture %d" % pic
+        e, names, steps["luma", pic] = both("luma", plane, resi, None, meta,
+                                            bd, tag)
+        err["luma"] = max(err["luma"], e)
+        e, cnames, steps["chroma", pic] = both(
+            "chroma", planes_c, resi_c, luma_c, meta_c, bd_c, tag)
+        err["chroma"] = max(err["chroma"], e)
+        if pic == 0 and names + cnames != ["wavefront"] * 3:
+            raise AssertionError("picture 0 ran %s / %s" % (names, cnames))
+    times = time_scans(torch, real["scans"])
+    warps_ms = {}
+    keep = scan.SCAN_WARPS
+    for warps in (16, 24, 32):
+        scan.SCAN_WARPS = warps
+        try:
+            t = time_scans(torch, {0: real["scans"][0]})
+        finally:
+            scan.SCAN_WARPS = keep
+        warps_ms[warps] = {n: t[n, 0] for n in ("intra_luma", "intra_chroma")}
+    plane, resi, meta, bd = real["scans"][0]["luma"]
+    planes_c, resi_c, luma_c, meta_c, bd_c = real["scans"][0]["chroma"]
     res["intra_luma"] = dict(
-        max_abs_err=err["luma"], **scan_bound("luma", meta.cpu().numpy()),
+        max_abs_err=err["luma"],
+        **scan_bound("luma", meta.cpu().numpy(), steps["luma", 0][0]),
         shape="hd720_ld picture 0: %d rows, canvas %dx%d" % (
             (len(meta),) + tuple(plane.shape)),
-        ms=cuda_ms(torch, lambda: scan.intra_scan(plane, resi, meta, bd)),
-        plain_ms=cuda_ms(torch, lambda: scan.intra_scan_plain(
-            plane, resi, meta, bd), 1))
+        ms=times["intra_luma", 0],
+        plain_ms=cuda_ms(torch, lambda p: scan.intra_scan_plain(
+            p, resi, meta, bd), 1, fresh=plane.clone))
     res["intra_chroma"] = dict(
         max_abs_err=err["chroma"],
-        **scan_bound("chroma", meta_c.cpu().numpy()),
+        **scan_bound("chroma", meta_c.cpu().numpy(), steps["chroma", 0][0]),
         shape="hd720_ld picture 0: %d rows, canvas 2x%dx%d" % (
             (len(meta_c),) + tuple(planes_c.shape[1:])),
-        ms=cuda_ms(torch, lambda: scan.intra_chroma_scan(
-            planes_c, resi_c, luma_c, meta_c, bd_c)),
-        plain_ms=cuda_ms(torch, lambda: scan.intra_chroma_scan_plain(
-            planes_c, resi_c, luma_c, meta_c, bd_c), 1))
+        ms=times["intra_chroma", 0],
+        plain_ms=cuda_ms(torch, lambda p: scan.intra_chroma_scan_plain(
+            p, resi_c, luma_c, meta_c, bd_c), 1, fresh=planes_c.clone))
+    for name in ("intra_luma", "intra_chroma"):
+        kind = name[6:]
+        res[name].update(
+            picture3_ms=times[name, 3], picture3_steps=steps[kind, 3][0],
+            ticket_steps=steps[kind, 0][1],
+            us_per_step=res[name]["ms"] * 1e3 / res[name]["chain_steps"],
+            us_per_ticket_step=res[name]["ms"] * 1e3 / steps[kind, 0][1],
+            warps_ms={w: t[name] for w, t in warps_ms.items()},
+            warps=scan.SCAN_WARPS)
     # the plain versions' cached device tables are no part of a decode
     scan._DEV.clear()
     for name in ("intra_luma", "intra_chroma"):
         r = res[name]
-        log("phase 2: %s bit-exact over %d synthetic cases and %s (%d "
-            "active rows, %d samples): kernel %.4f ms, plain %.4f ms, bound "
-            "%.6f ms (%s), chain estimate %.4f ms (no bound)" % (
-                name, sum(c["kind"] == name[6:] for c in families),
-                r["shape"], r["rows"], r["samples"], r["ms"], r["plain_ms"],
-                r["bound_ms"], r["bound_by"], r["chain_estimate_ms"]))
+        log("phase 2: %s bit-exact over %d synthetic cases and pictures %s "
+            "of hd720_ld; %s (%d active rows, %d samples): kernel %.4f ms "
+            "(%d warps; %s), %.3f us per step of %d (%.3f per ticket step "
+            "of %d), plain %.4f ms, bound "
+            "%.6f ms (%s), chain estimate %.4f ms (no bound); picture 3: "
+            "%.4f ms, %d steps" % (
+                name, sum(c["kind"] == name[6:] for _, c in families),
+                list(SCAN_PICTURES), r["shape"], r["rows"], r["samples"],
+                r["ms"], r["warps"], ", ".join(
+                    "%d warps %.4f ms" % (w, t)
+                    for w, t in sorted(r["warps_ms"].items())),
+                r["us_per_step"], r["chain_steps"], r["us_per_ticket_step"],
+                r["ticket_steps"], r["plain_ms"],
+                r["bound_ms"], r["bound_by"], r["chain_estimate_ms"],
+                r["picture3_ms"], r["picture3_steps"]))
 
 
 def phase_deblock_kernels(torch, dev, res, real, rng):
@@ -1023,6 +1153,12 @@ def main():
                                for n, r in res.items()},
                     "scan_ref_samples_read": {
                         n: res[n]["ref_samples_read"]
+                        for n in ("intra_luma", "intra_chroma")},
+                    "scans": {
+                        n: {k: res[n][k] for k in (
+                            "chain_steps", "us_per_step", "ticket_steps",
+                            "us_per_ticket_step", "picture3_ms",
+                            "picture3_steps", "warps", "warps_ms")}
                         for n in ("intra_luma", "intra_chroma")},
                     "chain_estimate_ms": {
                         n: res[n]["chain_estimate_ms"]

@@ -25,6 +25,7 @@ from xvc_tpu_torch.restrictions import Restrictions
 
 from xvc_tpu_torch.gpu import deblock_cases as dcases
 from xvc_tpu_torch.gpu import scan_cases as cases
+from xvc_tpu_torch.gpu import scan_deps
 from .util import data_path, read_data
 
 pytestmark = pytest.mark.cuda
@@ -371,50 +372,181 @@ def test_lookahead_on_card_matches_cpu(cuda, mode_step):
         np.testing.assert_array_equal(got[n], want[n])
 
 
+def _scan_status(kind, meta, shape, status):
+    """The kernel's status against the dependency model: parallel inside
+    the contract, ordered outside it, every active row of a plane run,
+    wavefront tickets where the model gives that order.  Returns the
+    schedule of each plane: "wavefront", "parallel" (tickets in decode
+    order) or "ordered"."""
+    scheds = scan_deps.analyse(kind, meta, shape)
+    scheds = (scheds,) if kind == "luma" else scheds
+    status = status.cpu().numpy()
+    assert status.shape == (len(scheds), scan.STATUS_WORDS)
+    for s, (sched, rows, flags, warps, wave) in zip(scheds, status):
+        assert sched == (scan.PARALLEL if s.in_contract else scan.ORDERED)
+        assert (flags == 0) == s.in_contract
+        assert rows == len(s.rows) and warps == scan.SCAN_WARPS
+        assert wave == (s.in_contract and scan_deps.wavefront_order(
+            kind, meta, shape, s) is not None)
+    return ["ordered" if st[0] == scan.ORDERED else
+            "wavefront" if st[4] else "parallel" for st in status]
+
+
+def _scan_kernel(kind, plane, resi, luma, meta, bd):
+    """One launch of the kernel on a copy of ``plane``."""
+    if kind == "luma":
+        return scan.intra_scan(plane.clone(), resi, meta, bd)
+    return scan.intra_chroma_scan(plane.clone(), resi, luma, meta, bd)
+
+
+def _scan_plain(kind, plane, resi, luma, meta, bd):
+    if kind == "luma":
+        return scan.intra_scan_plain(plane.clone(), resi, meta, bd)
+    return scan.intra_chroma_scan_plain(plane.clone(), resi, luma, meta, bd)
+
+
 def _scan_both(dev, case):
     """The case through the kernel and through the plain version, on the
-    card; asserts bit-exact and one launch."""
+    card; asserts bit-exact, one launch and the schedule the dependency
+    model gives.  Returns the schedules taken."""
     plane, resi, meta = _to(dev, case["plane"], case["resi"], case["meta"])
+    luma = None if case["luma"] is None else _to(dev, case["luma"])[0]
+    name = "intra_" + case["kind"]
     kernels.reset_launches()
-    if case["kind"] == "luma":
-        got = scan.intra_scan(plane.clone(), resi, meta, case["bd"])
-        want = scan.intra_scan_plain(plane.clone(), resi, meta, case["bd"])
-        assert kernels.LAUNCHES["intra_luma"] == 1
-    else:
-        luma, = _to(dev, case["luma"])
-        got = scan.intra_chroma_scan(plane.clone(), resi, luma, meta,
-                                     case["bd"])
-        want = scan.intra_chroma_scan_plain(plane.clone(), resi, luma, meta,
-                                            case["bd"])
-        assert kernels.LAUNCHES["intra_chroma"] == 1
+    got = _scan_kernel(case["kind"], plane, resi, luma, meta, case["bd"])
+    assert kernels.LAUNCHES[name] == 1
+    want = _scan_plain(case["kind"], plane, resi, luma, meta, case["bd"])
     torch.cuda.synchronize()
     assert not torch.equal(got, plane)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    return _scan_status(case["kind"], case["meta"], case["plane"].shape,
+                        scan.last_status(name))
 
 
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("h", cases.LUMA_DIMS)
 @pytest.mark.parametrize("w", cases.LUMA_DIMS)
 def test_intra_luma_kernel_every_shape_and_mode(cuda, w, h, bd):
-    _scan_both(cuda, cases.shape_case("luma", w, h, bd))
+    assert _scan_both(cuda, cases.shape_case("luma", w, h, bd)) == \
+        ["ordered"]
 
 
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("h", cases.CHROMA_DIMS)
 @pytest.mark.parametrize("w", cases.CHROMA_DIMS)
 def test_intra_chroma_kernel_every_shape_mode_and_lm(cuda, w, h, bd):
-    _scan_both(cuda, cases.shape_case("chroma", w, h, bd))
+    assert _scan_both(cuda, cases.shape_case("chroma", w, h, bd)) == \
+        ["ordered"] * 2
 
 
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("kind", ["luma", "chroma"])
 def test_intra_scan_kernels_corner_cases(cuda, kind, bd):
-    _scan_both(cuda, cases.corner_case(kind, bd))
+    took = _scan_both(cuda, cases.corner_case(kind, bd))
+    assert took == ["ordered"] * (1 if kind == "luma" else 2)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_intra_scan_kernels_tiled_ctus_run_parallel(cuda, kind, bd):
+    took = _scan_both(cuda, cases.tiled_case(kind, bd))
+    assert took == ["wavefront"] * (1 if kind == "luma" else 2)
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
 def test_intra_chroma_kernel_lm_sums_that_wrap(cuda, bd):
-    _scan_both(cuda, cases.lm_wrap_case(bd))
+    assert _scan_both(cuda, cases.lm_wrap_case(bd)) == ["ordered"] * 2
+
+
+class _Stop(Exception):
+    pass
+
+
+_HD = {}
+
+
+def _hd720_picture0(dev):
+    """What the luma and chroma scans of picture 0 of the 720p LD stream
+    are given in a decode on the card (copies, before they write): kind
+    -> (plane, resi, luma, meta, bd)."""
+    if not _HD:
+        orig_l = scan.intra_scan
+
+        def rec_l(plane, resi, meta, bd):
+            _HD["luma"] = (plane.clone(), resi.clone(), None, meta.clone(),
+                           bd)
+            return orig_l(plane, resi, meta, bd)
+
+        def rec_c(planes, resi, luma, meta, bd):
+            _HD["chroma"] = (planes.clone(), resi.clone(), luma.clone(),
+                             meta.clone(), bd)
+            raise _Stop
+
+        mp = pytest.MonkeyPatch()
+        mp.setattr(flat_recon.intra_scan, "intra_scan", rec_l)
+        mp.setattr(flat_recon.intra_scan, "intra_chroma_scan", rec_c)
+        try:
+            decode_stream(read_data("bench/hd720_ld.xvc"), device=dev)
+        except _Stop:
+            pass
+        finally:
+            mp.undo()
+    return _HD
+
+
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_intra_scan_kernels_on_hd720_picture0_run_parallel(cuda, kind):
+    plane, resi, luma, meta, bd = _hd720_picture0(cuda)[kind]
+    got = _scan_kernel(kind, plane, resi, luma, meta, bd)
+    want = _scan_plain(kind, plane, resi, luma, meta, bd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, plane)
+    took = _scan_status(kind, meta.cpu().numpy(), tuple(plane.shape),
+                        scan.last_status("intra_" + kind))
+    assert took == ["wavefront"] * (1 if kind == "luma" else 2)
+
+
+@pytest.mark.parametrize("warps", [16, 24, 32])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_intra_scan_kernels_repeat_identically(cuda, kind, warps):
+    """20 launches back to back on picture 0's inputs, each on a fresh
+    copy of the canvas, give identical planes (a race between the warps
+    would show as a difference), equal to the plain version; at every
+    warp count the kernel takes."""
+    plane, resi, luma, meta, bd = _hd720_picture0(cuda)[kind]
+    want = _scan_plain(kind, plane, resi, luma, meta, bd)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(scan, "SCAN_WARPS", warps)
+    try:
+        outs = [_scan_kernel(kind, plane, resi, luma, meta, bd)
+                for _ in range(20)]
+        status = scan.last_status("intra_" + kind).clone()
+    finally:
+        mp.undo()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert (status[:, 0] == scan.PARALLEL).all()
+    assert (status[:, 3] == warps).all() and (status[:, 4] == 1).all()
+
+
+def test_intra_scan_wrappers_never_wait_for_the_card(cuda):
+    """The wrappers read nothing back: they run under
+    set_sync_debug_mode("error")."""
+    inputs = _hd720_picture0(cuda)
+    kernels.reset_launches()
+    outs = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kind in ("luma", "chroma"):
+            outs[kind] = _scan_kernel(kind, *inputs[kind])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["intra_luma"] == 1
+    assert kernels.LAUNCHES["intra_chroma"] == 1
+    for kind in ("luma", "chroma"):
+        assert torch.equal(outs[kind], _scan_plain(kind, *inputs[kind]))
 
 
 @pytest.mark.parametrize("name", ["ai64x48", "ai64x48b10", "sp_fast"])

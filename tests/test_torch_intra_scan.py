@@ -14,8 +14,9 @@ the JAX package's lax.scan versions on the CPU backend: bit-exact
 - the numpy-made families of xvc_tpu_torch/gpu/scan_cases.py, which the card
   tests put through the CUDA kernels: every block shape over all 67
   modes (chroma: plus LM with each has_l / has_a pair) at 8 and 10 bit
-  with an inactive row in the middle, clamped windows, and LM sums that
-  wrap int32.
+  with an inactive row in the middle, clamped windows, LM sums that
+  wrap int32, and CTUs tiled in z-order with holes, as the codec lays
+  them out.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -188,6 +189,12 @@ def test_chroma_scan_every_shape_mode_and_lm(w, h, bd):
 @pytest.mark.parametrize("kind", ["luma", "chroma"])
 def test_scan_corner_cases(kind, bd):
     _check_case(cases.corner_case(kind, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_scan_tiled_ctus(kind, bd):
+    _check_case(cases.tiled_case(kind, bd))
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])

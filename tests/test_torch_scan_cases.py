@@ -1,13 +1,16 @@
 """The synthetic scan inputs of xvc_tpu_torch/gpu/scan_cases.py hold what
 they claim: every mode and LM pair per shape with an inactive row in the
 middle, leaves at the far corner of the smallest canvas, LM sums that
-wrap int32."""
+wrap int32, and CTUs tiled in z-order as the codec lays them out (inside
+the scans' dependency contract, with holes, every mode and LM)."""
 import numpy as np
 import pytest
 
+from xvc_tpu_torch.gpu import scan_deps
 from xvc_tpu_torch.gpu.scan_cases import (CHROMA_DIMS, CHROMA_LAY, LUMA_DIMS,
-                                          LUMA_LAY, corner_case,
-                                          lm_wrap_case, shape_case)
+                                          LUMA_LAY, TILED_CTUS, corner_case,
+                                          lm_wrap_case, shape_case,
+                                          tiled_case)
 
 
 # ---------------------------------------------------------------------------
@@ -73,3 +76,42 @@ def test_lm_wrap_case_has_every_pair_on_square_and_flat_blocks():
         assert {(int(r[lay["has_l"]]), int(r[lay["has_a"]]))
                 for r in rows} == {(0, 0), (0, 1), (1, 0), (1, 1)}
     assert case["plane"].min() < -30000 and case["plane"].max() > 30000
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind,lay", [("luma", LUMA_LAY),
+                                      ("chroma", CHROMA_LAY)])
+def test_tiled_case_is_a_picture_in_contract_with_holes(kind, lay, bd):
+    case = tiled_case(kind, bd)
+    meta = case["meta"]
+    U, ctu = (4, 64) if kind == "luma" else (2, 32)
+    H, W = case["picture"]
+    assert (H, W) == (TILED_CTUS[1] * ctu, TILED_CTUS[0] * ctu)
+    assert (meta[:, lay["active"]] == 1).all()
+    # inside the contract, with leaves that wait for others
+    scheds = scan_deps.analyse(kind, meta, case["plane"].shape)
+    for s in (scheds,) if kind == "luma" else scheds:
+        assert s.in_contract, s.breach
+        assert 1 < s.longest < len(s.rows) and s.widest > 1
+    # every mode (chroma: among the rows that are not LM)
+    plain = meta if kind == "luma" else meta[meta[:, lay["is_lm"]] == 0]
+    assert set(plain[:, lay["mode"]]) == set(range(67))
+    # holes: picture units that no row writes
+    covered = np.zeros((H // U, W // U), bool)
+    for r in meta:
+        x, y = r[lay["px"]] // U, r[lay["py"]] // U
+        covered[y:y + r[lay["h"]] // U, x:x + r[lay["w"]] // U] = True
+    assert 0.05 < 1 - covered.mean() < 0.5
+    # mixed shapes; flags as the codec sets them; below-left and
+    # above-right runs up to w / h
+    assert len({(int(r[lay["w"]]), int(r[lay["h"]])) for r in meta}) >= 6
+    assert (meta[:, lay["has_l"]] == (meta[:, lay["px"]] > 0)).all()
+    assert (meta[:, lay["has_a"]] == (meta[:, lay["py"]] > 0)).all()
+    assert (meta[:, lay["sbl"]] <= meta[:, lay["w"]]).all()
+    assert (meta[:, lay["sar"]] <= meta[:, lay["h"]]).all()
+    assert (meta[:, lay["sbl"]] > 0).any() and (meta[:, lay["sar"]] > 0).any()
+    if kind == "chroma":
+        assert (meta[0::2, lay["plane"]] == 0).all() and \
+            (meta[1::2, lay["plane"]] == 1).all()
+        assert (meta[0::2, 1:] == meta[1::2, 1:]).all()
+        assert (meta[:, lay["is_lm"]] != 0).any()

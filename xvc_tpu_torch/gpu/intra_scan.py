@@ -15,10 +15,16 @@ tensors on the card they launch ``kernels/csrc/intra_scan.cu``
 launch per picture and scan, the metadata read on the card from the
 picture's one upload, the LM parameters derived on the card.  What
 bounds a scan on this card is neither bytes nor arithmetic but the
-leaf-to-leaf dependency chain (a leaf's reference line is what earlier
-leaves wrote), so the design is one persistent block per plane that
-walks the rows in order and needs no atomics or fences; a failed launch
-raises.  For tensors on the CPU they run the plain versions.
+chain of leaves whose reference lines read what other leaves wrote, so
+the kernel runs the leaves of a plane on the warps of one block, each
+warp waiting only for the leaves that wrote what it reads (the
+dependency model is ``gpu/scan_deps.py``); metadata outside the
+contract that makes this exact runs in decode order on one warp.  The
+wrapper allocates the kernel's scratch (the owner map of the canvas's
+units, the ticket order, and status words per plane: the schedule taken
+and the rows run, which ``last_status`` reads for tests; the decode never
+reads it back); a failed launch raises.  For tensors on the CPU they run
+the plain versions.
 
 ``intra_scan_plain`` and ``intra_chroma_scan_plain`` are the plain
 versions the kernels are held against: a host loop over the leaves in
@@ -64,7 +70,43 @@ CMETA_COLS = 13
 
 __all__ = ["intra_scan", "intra_chroma_scan", "intra_scan_plain",
            "intra_chroma_scan_plain", "PAD_TL", "PAD_BR", "META_COLS",
-           "CMETA_COLS"]
+           "CMETA_COLS", "last_status", "PARALLEL", "ORDERED"]
+
+# The scan kernels' block: warps (16, 24 or 32; 16 measured fastest or
+# within a few per cent, PERF.md) and the status words they
+# write per plane: schedule (PARALLEL / ORDERED), rows run, breach flags
+# (1: a unit written by two rows, 2: a row reads a unit a later row
+# writes, 4: more rows than the done bits hold), warps, and 1 where the
+# tickets went in wavefront order (0: decode order).
+SCAN_WARPS = 16
+PARALLEL, ORDERED = 1, 2
+STATUS_WORDS = 5
+# the scratch of the last launch of each kernel (``last_status`` reads its
+# status words)
+LAST_SCRATCH = {"intra_luma": None, "intra_chroma": None}
+# True: every launch also records, per row, the SM clock when a warp has
+# the row, when its wait ends, when the strips of its reference line are
+# in, when the line is built, when its samples are stored and when its
+# done bit is set, and the warp (LAST_TRACE, int64 (planes, N + 1, 8);
+# row N: the clock at the start and at the end of phase 1).  Off on the
+# decode path.
+TRACE = False
+LAST_TRACE = {"intra_luma": None, "intra_chroma": None}
+
+
+def last_status(name):
+    """The status words of the last launch of kernel ``name``
+    ("intra_luma" / "intra_chroma"), (planes, STATUS_WORDS) int32 on the
+    card: read them after a synchronise."""
+    scratch = LAST_SCRATCH[name]
+    planes = 1 if name == "intra_luma" else 2
+    return scratch[:planes * STATUS_WORDS].view(planes, STATUS_WORDS)
+
+
+def _trace(name, device, nplanes, N):
+    LAST_TRACE[name] = torch.empty((nplanes, N + 1, 8), dtype=torch.int64,
+                                   device=device)
+    return LAST_TRACE[name].data_ptr()
 
 HOR, VER, DIAG = 18, 50, 34
 _ANGLE = np.asarray(ip.ANGLE_TABLE_EXT, np.int64)
@@ -413,12 +455,35 @@ def intra_scan(plane, resi, meta, bitdepth):
         return plane
     from ..kernels import build
     Hp, Wp = plane.shape
+    stream = build.stream_of(plane)
+    scratch = _scratch(plane.device, stream, 1, Hp, Wp, len(meta), 4)
     rc = build.lib().xvc_intra_luma_scan(
         build.ptr(plane), build.ptr(resi), build.ptr(meta), len(meta), Hp,
-        Wp, bitdepth, build.stream_of(plane))
+        Wp, bitdepth, build.ptr(scratch), SCAN_WARPS,
+        _trace("intra_luma", plane.device, 1, len(meta)) if TRACE else None,
+        stream)
     build.check(rc, "intra_luma")
     kernels.LAUNCHES["intra_luma"] += 1
+    LAST_SCRATCH["intra_luma"] = scratch
     return plane
+
+
+_SCRATCH = {}
+
+
+def _scratch(device, stream, nplanes, Hp, Wp, N, unit):
+    """The kernel's int32 scratch: STATUS_WORDS per plane, then per plane
+    the owner map of the canvas's unit x unit cells, N ticket entries and
+    N row ranks.  The kernel fills all of it, so one tensor per device,
+    stream and size serves every launch: the stream puts each launch
+    after the one before."""
+    size = nplanes * (STATUS_WORDS + -(-Hp // unit) * -(-Wp // unit) + 2 * N)
+    key = (device, stream.value, size)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = torch.empty(size, dtype=torch.int32,
+                                              device=device)
+    return scratch
 
 
 def _active_rows(meta, active_col):
@@ -598,12 +663,17 @@ def intra_chroma_scan(planes, resi, luma, meta, bitdepth):
     from ..kernels import build
     _, Hp, Wp = planes.shape
     HpL, WpL = luma.shape
+    stream = build.stream_of(planes)
+    scratch = _scratch(planes.device, stream, 2, Hp, Wp, len(meta), 2)
     rc = build.lib().xvc_intra_chroma_scan(
         build.ptr(planes), build.ptr(resi), build.ptr(luma),
         build.ptr(meta), len(meta), Hp, Wp, HpL, WpL, bitdepth,
-        build.stream_of(planes))
+        build.ptr(scratch), SCAN_WARPS,
+        _trace("intra_chroma", planes.device, 2, len(meta))
+        if TRACE else None, stream)
     build.check(rc, "intra_chroma")
     kernels.LAUNCHES["intra_chroma"] += 1
+    LAST_SCRATCH["intra_chroma"] = scratch
     return planes
 
 

@@ -6,7 +6,12 @@ families to what they claim.
 
 A case is a dict: kind ("luma" / "chroma"), bd, plane (int16 canvas, for
 chroma (2, Hp, Wp)), resi (int32, same shape), meta (int32 rows in scan
-order), luma (the int16 luma canvas LM reads; chroma only).
+order), luma (the int16 luma canvas LM reads; chroma only); a tiled case
+also names its picture's (H, W).  shape_case, corner_case and
+lm_wrap_case place leaves that overlap or read later rows, outside the
+contract under which the kernels run leaves in parallel
+(gpu/scan_deps.py); tiled_case lays a picture out as the codec does,
+inside it.
 """
 import numpy as np
 
@@ -113,6 +118,93 @@ def corner_case(kind, bd, seed=0):
         case["luma"] = rng.randint(0, 1 << bd, (136, 144)).astype(np.int16)
     lay = LUMA_LAY if kind == "luma" else CHROMA_LAY
     case["meta"] = _rows(lay, rows)
+    return case
+
+
+TILED_CTUS = (4, 2)   # CTU columns, CTU rows
+
+
+def _tiled_leaves(rng, ctu, min_dim):
+    """Leaves (x, y, w, h) that tile TILED_CTUS CTUs of ctu x ctu in
+    decode (z-)order: quad splits, then binary splits, of mixed depth."""
+    leaves = []
+
+    def split(x, y, w, h, depth):
+        r = rng.rand()
+        if w == h and w >= 2 * min_dim and r < 0.9 - 0.2 * depth:
+            s = w // 2
+            for dy, dx in ((0, 0), (0, s), (s, 0), (s, s)):
+                split(x + dx, y + dy, s, s, depth + 1)
+        elif r < 0.95 - 0.2 * depth and max(w, h) >= 2 * min_dim:
+            if w >= h and w >= 2 * min_dim:
+                split(x, y, w // 2, h, depth + 1)
+                split(x + w // 2, y, w // 2, h, depth + 1)
+            else:
+                split(x, y, w, h // 2, depth + 1)
+                split(x, y + h // 2, w, h // 2, depth + 1)
+        else:
+            leaves.append((x, y, w, h))
+
+    for cy in range(TILED_CTUS[1]):
+        for cx in range(TILED_CTUS[0]):
+            split(cx * ctu, cy * ctu, ctu, ctu, 0)
+    return leaves
+
+
+def tiled_case(kind, bd, seed=0):
+    """A picture as the codec lays it out: leaves of mixed shapes tile
+    4 x 2 CTUs (64x64 luma, 32x32 chroma) in z-order; about a fifth of
+    them are holes (inter blocks: no row writes them, their samples are
+    on the canvas before the scan).  has_l / has_a are the picture
+    edges, as the codec sets them, and sbl / sar count the below-left /
+    above-right samples decoded before the leaf (inside the picture, at
+    most w / h), so every read lands on an earlier row or a hole.  Every
+    mode appears; chroma has LM rows and one row per plane for each
+    leaf, U then V."""
+    luma = kind == "luma"
+    rng = np.random.RandomState(31337 + 7 * bd + seed + (0 if luma else 1))
+    dims = LUMA_DIMS if luma else CHROMA_DIMS
+    U, ctu = (4, 64) if luma else (2, 32)
+    W, H = TILED_CTUS[0] * ctu, TILED_CTUS[1] * ctu
+    decoded = np.zeros((H // U, W // U), bool)
+    leaves = _tiled_leaves(rng, ctu, dims[0])
+    modes = []
+    rows = []
+    for x, y, w, h in leaves:
+        intra = rng.rand() >= 0.2
+        if intra:
+            sbl = 0
+            if x > 0:
+                col = decoded[(y + h) // U:, x // U - 1][:w // U]
+                sbl = int(np.cumprod(col).sum()) * U
+            sar = 0
+            if y > 0:
+                row = decoded[y // U - 1, (x + w) // U:][:h // U]
+                sar = int(np.cumprod(row).sum()) * U
+            has_l, has_a = int(x > 0), int(y > 0)
+            row = dict(px=x, py=y, w=w, h=h, mode=0, has_l=has_l,
+                       has_a=has_a, has_al=has_l & has_a, sbl=sbl, sar=sar,
+                       active=1)
+            if luma:
+                rows.append(row)
+                modes.append(row)
+            else:
+                is_lm = int(rng.rand() < 0.2)
+                pair = [dict(row, plane=p, is_lm=is_lm) for p in (0, 1)]
+                rows += pair
+                if not is_lm:
+                    modes.append(pair)
+        decoded[y // U:(y + h) // U, x // U:(x + w) // U] = True
+    order = np.concatenate([rng.permutation(67)
+                            for _ in range(-(-len(modes) // 67))])
+    for mode, target in zip(order, modes):
+        for row in (target if isinstance(target, list) else [target]):
+            row["mode"] = int(mode)
+    hp = -(-(H + 8 + 200) // 128) * 128
+    wp = -(-(W + 8 + 200) // 128) * 128
+    case = _canvases(rng, kind, bd, hp, wp)
+    case["meta"] = _rows(LUMA_LAY if luma else CHROMA_LAY, rows)
+    case["picture"] = (H, W)
     return case
 
 
