@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
 
 Phases:
   0  device: nvidia-smi name and power limit, torch device name;
@@ -19,9 +19,13 @@ Phases:
      and beside its bound (the least time the card could take: bytes
      over the HBM rate, or operations over the peak rate); for the
      scans also the schedule each case took (parallel inside the
-     dependency contract of gpu/scan_deps.py, ordered outside it), the
-     longest chain of that schedule and the time per step, at pictures
-     0 and 3 and, at picture 0, with 16, 24 and 32 warps;
+     dependency contract of gpu/scan_deps.py, with its tickets in
+     wavefront order or, on the interleaved tiled case, in decode
+     order; ordered outside it), the longest chain of that schedule and
+     the time per step, at pictures 0 and 3 and on the interleaved
+     tiled case; with --parent TREE also the scan kernels of the
+     checkout TREE (a parent commit, say) on the same inputs, in a child
+     process;
   3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
      card; every picture must be checksum-conforming and equal the
@@ -356,12 +360,13 @@ def scan_schedule(torch, scan, kind, meta, shape):
 
 
 def time_scans(torch, scans):
-    """Milliseconds per launch of each scan kernel on the captured inputs
-    of each picture of ``scans`` (from ``capture_inputs``), every timed
-    launch on a copy of the canvas made before the first event."""
+    """Milliseconds per launch of each scan kernel on the inputs of each
+    entry of ``scans`` (picture -> kind -> arguments, as
+    ``capture_inputs`` keeps them), every timed launch on a copy of the
+    canvas made before the first event."""
     from xvc_tpu_torch.gpu import intra_scan as scan
     out = {}
-    for pic, calls in sorted(scans.items()):
+    for pic, calls in scans.items():
         plane, resi, meta, bd = calls["luma"]
         out["intra_luma", pic] = cuda_ms(
             torch, lambda p: scan.intra_scan(p, resi, meta, bd),
@@ -373,6 +378,43 @@ def time_scans(torch, scans):
                                                         meta_c, bd_c),
                 fresh=planes.clone)
     return out
+
+
+# Run in a child process: time_scans of this file with the package of the
+# checkout argv[1], on the inputs saved in argv[3].
+_TIME_TREE = """
+import importlib.util, json, os, sys
+import torch
+tree, smoke_py, inputs = sys.argv[1:4]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("smoke", smoke_py)
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+import xvc_tpu_torch
+if not os.path.abspath(xvc_tpu_torch.__file__).startswith(tree + os.sep):
+    raise AssertionError("imported " + xvc_tpu_torch.__file__)
+times = smoke.time_scans(torch, torch.load(inputs))
+print(json.dumps([[n, p, ms] for (n, p), ms in times.items()]))
+"""
+
+
+def time_scans_of(torch, tree, scans):
+    """time_scans with the scan kernels of the checkout ``tree``, in a
+    child process, on the same inputs (saved under build/)."""
+    path = os.path.join(ROOT, "build", "scan_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(scans, path)
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _TIME_TREE, tree, os.path.abspath(__file__),
+             path], capture_output=True, text=True, timeout=600)
+    finally:
+        os.remove(path)
+    if out.returncode:
+        raise RuntimeError("timing the scans of %s failed:\n%s"
+                           % (tree, out.stderr[-4000:]))
+    times = json.loads(out.stdout.strip().splitlines()[-1])
+    return {(n, p): ms for n, p, ms in times}
 
 
 # ---------------------------------------------------------------------------
@@ -442,14 +484,15 @@ def capture_inputs(data):
     return got
 
 
-def phase_scan_kernels(torch, dev, res, real):
+def phase_scan_kernels(torch, dev, res, real, parent):
     """The two intra scan kernels against their plain versions: the
     synthetic families of xvc_tpu_torch/gpu/scan_cases.py, then the real
     scan inputs of pictures 0 and 3 of hd720_ld (``real``, from
     ``capture_inputs``).  Per case: the schedule the kernel took (held to
     the dependency model), the longest chain of that schedule, the time
     of a launch and the time per step; both kernels timed at pictures 0
-    and 3, and at picture 0 with each warp count the kernel takes."""
+    and 3 and on the interleaved tiled case (10 bit), and, where
+    ``parent`` names a checkout, its kernels on the same inputs."""
     from xvc_tpu_torch.gpu import scan_cases as cases
     from xvc_tpu_torch.gpu import intra_scan as scan
     T = lambda a: torch.from_numpy(a.copy()).to(dev)
@@ -494,6 +537,8 @@ def phase_scan_kernels(torch, dev, res, real):
                           cases.shape_case(kind, w, h, bd))
                          for w in dims for h in dims]
             families.append(("tiled", cases.tiled_case(kind, bd)))
+            families.append(("tiled interleaved",
+                             cases.tiled_case(kind, bd, interleave=True)))
     families += [("lm_wrap", cases.lm_wrap_case(bd)) for bd in (8, 10, 12)]
     for name, c in families:
         luma = None if c["luma"] is None else T(c["luma"])
@@ -501,8 +546,8 @@ def phase_scan_kernels(torch, dev, res, real):
                            T(c["meta"]), c["bd"],
                            "%s %d-bit" % (name, c["bd"]))
         err[c["kind"]] = max(err[c["kind"]], e)
-        if (name == "tiled") != (names == ["wavefront"] * len(names)) or \
-                (name != "tiled") != (names == ["ordered"] * len(names)):
+        want = {"tiled": "wavefront", "tiled interleaved": "parallel"}
+        if names != [want.get(name, "ordered")] * len(names):
             raise AssertionError("intra_%s %s ran %s" % (c["kind"], name,
                                                          names))
 
@@ -519,16 +564,21 @@ def phase_scan_kernels(torch, dev, res, real):
         err["chroma"] = max(err["chroma"], e)
         if pic == 0 and names + cnames != ["wavefront"] * 3:
             raise AssertionError("picture 0 ran %s / %s" % (names, cnames))
-    times = time_scans(torch, real["scans"])
-    warps_ms = {}
-    keep = scan.SCAN_WARPS
-    for warps in (16, 24, 32):
-        scan.SCAN_WARPS = warps
-        try:
-            t = time_scans(torch, {0: real["scans"][0]})
-        finally:
-            scan.SCAN_WARPS = keep
-        warps_ms[warps] = {n: t[n, 0] for n in ("intra_luma", "intra_chroma")}
+    timed = dict(real["scans"])
+    lc, cc = (cases.tiled_case(kind, 10, interleave=True)
+              for kind in ("luma", "chroma"))
+    timed["interleaved"] = dict(
+        luma=(T(lc["plane"]), T(lc["resi"]), T(lc["meta"]), lc["bd"]),
+        chroma=(T(cc["plane"]), T(cc["resi"]), T(cc["luma"]), T(cc["meta"]),
+                cc["bd"]))
+    times = time_scans(torch, timed)
+    parent_ms = None
+    if parent is not None:
+        parent_ms = time_scans_of(torch, parent, timed)
+        for key in sorted(times, key=str):
+            log("phase 2: %s %s: %.4f ms, %s's %.4f ms (%.2fx)" % (
+                key + (times[key], parent, parent_ms[key],
+                       parent_ms[key] / times[key])))
     plane, resi, meta, bd = real["scans"][0]["luma"]
     planes_c, resi_c, luma_c, meta_c, bd_c = real["scans"][0]["chroma"]
     res["intra_luma"] = dict(
@@ -551,30 +601,28 @@ def phase_scan_kernels(torch, dev, res, real):
         kind = name[6:]
         res[name].update(
             picture3_ms=times[name, 3], picture3_steps=steps[kind, 3][0],
+            interleaved_ms=times[name, "interleaved"],
             ticket_steps=steps[kind, 0][1],
             us_per_step=res[name]["ms"] * 1e3 / res[name]["chain_steps"],
             us_per_ticket_step=res[name]["ms"] * 1e3 / steps[kind, 0][1],
-            warps_ms={w: t[name] for w, t in warps_ms.items()},
-            warps=scan.SCAN_WARPS)
+            parent_ms=None if parent_ms is None else {
+                str(p): parent_ms[name, p] for p in timed})
     # the plain versions' cached device tables are no part of a decode
     scan._DEV.clear()
     for name in ("intra_luma", "intra_chroma"):
         r = res[name]
         log("phase 2: %s bit-exact over %d synthetic cases and pictures %s "
-            "of hd720_ld; %s (%d active rows, %d samples): kernel %.4f ms "
-            "(%d warps; %s), %.3f us per step of %d (%.3f per ticket step "
-            "of %d), plain %.4f ms, bound "
-            "%.6f ms (%s), chain estimate %.4f ms (no bound); picture 3: "
-            "%.4f ms, %d steps" % (
+            "of hd720_ld; %s (%d active rows, %d samples): kernel %.4f ms, "
+            "%.3f us per step of %d (%.3f per ticket step of %d), plain "
+            "%.4f ms, bound %.6f ms (%s), chain estimate %.4f ms (no "
+            "bound); picture 3: %.4f ms, %d steps; interleaved tiled case: "
+            "%.4f ms" % (
                 name, sum(c["kind"] == name[6:] for _, c in families),
                 list(SCAN_PICTURES), r["shape"], r["rows"], r["samples"],
-                r["ms"], r["warps"], ", ".join(
-                    "%d warps %.4f ms" % (w, t)
-                    for w, t in sorted(r["warps_ms"].items())),
-                r["us_per_step"], r["chain_steps"], r["us_per_ticket_step"],
-                r["ticket_steps"], r["plain_ms"],
+                r["ms"], r["us_per_step"], r["chain_steps"],
+                r["us_per_ticket_step"], r["ticket_steps"], r["plain_ms"],
                 r["bound_ms"], r["bound_by"], r["chain_estimate_ms"],
-                r["picture3_ms"], r["picture3_steps"]))
+                r["picture3_ms"], r["picture3_steps"], r["interleaved_ms"]))
 
 
 def phase_deblock_kernels(torch, dev, res, real, rng):
@@ -799,8 +847,9 @@ def phase_deblock_kernels(torch, dev, res, real, rng):
             cplain[1]))
 
 
-def phase_kernels(torch, dev):
-    """Each kernel against its plain version on the same CUDA inputs."""
+def phase_kernels(torch, dev, parent):
+    """Each kernel against its plain version on the same CUDA inputs
+    (``parent``: a checkout whose scan kernels phase 2 times beside)."""
     import numpy as np
     from xvc_tpu_torch import constants as k
     from xvc_tpu_torch.codec.yuv import YuvPicture
@@ -926,7 +975,7 @@ def phase_kernels(torch, dev):
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         real = capture_inputs(f.read())
     phase_deblock_kernels(torch, dev, res, real, rng)
-    phase_scan_kernels(torch, dev, res, real)
+    phase_scan_kernels(torch, dev, res, real, parent)
     return res
 
 
@@ -1100,6 +1149,11 @@ def phase_lookahead(torch, dev, pic):
 
 
 def main():
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--parent"):
+        print("usage: chip_smoke.py [--parent TREE]", file=sys.stderr)
+        return 2
+    parent = os.path.abspath(args[1]) if args else None
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1135,7 +1189,7 @@ def main():
                 "Compiling entry function" in line:
             log("  ptxas: " + line.strip())
 
-    res = phase_kernels(torch, dev)
+    res = phase_kernels(torch, dev, parent)
     dec, pic0 = phase_decode(torch, dev)
     stages = phase_stage_profile(torch)
     phase_goldens(dev)
@@ -1158,7 +1212,8 @@ def main():
                         n: {k: res[n][k] for k in (
                             "chain_steps", "us_per_step", "ticket_steps",
                             "us_per_ticket_step", "picture3_ms",
-                            "picture3_steps", "warps", "warps_ms")}
+                            "picture3_steps", "interleaved_ms",
+                            "parent_ms")}
                         for n in ("intra_luma", "intra_chroma")},
                     "chain_estimate_ms": {
                         n: res[n]["chain_estimate_ms"]

@@ -385,7 +385,7 @@ def _scan_status(kind, meta, shape, status):
     for s, (sched, rows, flags, warps, wave) in zip(scheds, status):
         assert sched == (scan.PARALLEL if s.in_contract else scan.ORDERED)
         assert (flags == 0) == s.in_contract
-        assert rows == len(s.rows) and warps == scan.SCAN_WARPS
+        assert rows == len(s.rows) and warps == 16
         assert wave == (s.in_contract and scan_deps.wavefront_order(
             kind, meta, shape, s) is not None)
     return ["ordered" if st[0] == scan.ORDERED else
@@ -453,6 +453,16 @@ def test_intra_scan_kernels_tiled_ctus_run_parallel(cuda, kind, bd):
     assert took == ["wavefront"] * (1 if kind == "luma" else 2)
 
 
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_intra_scan_kernels_interleaved_tiles_take_decode_order(cuda, kind,
+                                                               bd):
+    """Inside the contract, but two CTUs' rows in turn: parallel, with the
+    tickets in decode order."""
+    took = _scan_both(cuda, cases.tiled_case(kind, bd, interleave=True))
+    assert took == ["parallel"] * (1 if kind == "luma" else 2)
+
+
 @pytest.mark.parametrize("bd", [8, 10, 12])
 def test_intra_chroma_kernel_lm_sums_that_wrap(cuda, bd):
     assert _scan_both(cuda, cases.lm_wrap_case(bd)) == ["ordered"] * 2
@@ -506,27 +516,31 @@ def test_intra_scan_kernels_on_hd720_picture0_run_parallel(cuda, kind):
     assert took == ["wavefront"] * (1 if kind == "luma" else 2)
 
 
-@pytest.mark.parametrize("warps", [16, 24, 32])
+@pytest.mark.parametrize("inputs", ["hd720 picture 0", "interleaved"])
 @pytest.mark.parametrize("kind", ["luma", "chroma"])
-def test_intra_scan_kernels_repeat_identically(cuda, kind, warps):
-    """20 launches back to back on picture 0's inputs, each on a fresh
-    copy of the canvas, give identical planes (a race between the warps
-    would show as a difference), equal to the plain version; at every
-    warp count the kernel takes."""
-    plane, resi, luma, meta, bd = _hd720_picture0(cuda)[kind]
+def test_intra_scan_kernels_repeat_identically(cuda, kind, inputs):
+    """20 launches back to back, each on a fresh copy of the canvas, give
+    identical planes (a race between the warps would show as a
+    difference), equal to the plain version: on picture 0's inputs
+    (wavefront tickets) and on the interleaved tiled case (tickets in
+    decode order)."""
+    if inputs == "interleaved":
+        case = cases.tiled_case(kind, 10, interleave=True)
+        plane, resi, meta = _to(cuda, case["plane"], case["resi"],
+                                case["meta"])
+        luma = None if case["luma"] is None else _to(cuda, case["luma"])[0]
+        bd = case["bd"]
+    else:
+        plane, resi, luma, meta, bd = _hd720_picture0(cuda)[kind]
     want = _scan_plain(kind, plane, resi, luma, meta, bd)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(scan, "SCAN_WARPS", warps)
-    try:
-        outs = [_scan_kernel(kind, plane, resi, luma, meta, bd)
-                for _ in range(20)]
-        status = scan.last_status("intra_" + kind).clone()
-    finally:
-        mp.undo()
+    outs = [_scan_kernel(kind, plane, resi, luma, meta, bd)
+            for _ in range(20)]
+    status = scan.last_status("intra_" + kind).clone()
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
+    assert not torch.equal(want, plane)
     assert (status[:, 0] == scan.PARALLEL).all()
-    assert (status[:, 3] == warps).all() and (status[:, 4] == 1).all()
+    assert (status[:, 4] == (inputs != "interleaved")).all()
 
 
 def test_intra_scan_wrappers_never_wait_for_the_card(cuda):
@@ -552,21 +566,29 @@ def test_intra_scan_wrappers_never_wait_for_the_card(cuda):
 @pytest.mark.parametrize("name", ["ai64x48", "ai64x48b10", "sp_fast"])
 def test_intra_scan_kernels_on_captured_inputs(cuda, name):
     """Every scan call of a decode on the card: the kernel's output
-    against the plain version on copies of the same inputs."""
+    against the plain version on copies of the same inputs, and the
+    schedule it took against the dependency model (never ordered: the
+    codec's tables lie inside the contract)."""
     seen = []
     orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
+
+    def took(kind, plane, meta):
+        return _scan_status(kind, meta.cpu().numpy(), tuple(plane.shape),
+                            scan.last_status("intra_" + kind))
 
     def rec_l(plane, resi, meta, bd):
         want = scan.intra_scan_plain(plane.clone(), resi, meta, bd)
         got = orig_l(plane, resi, meta, bd)
-        seen.append(("luma", torch.equal(got, want)))
+        seen.append(("luma", torch.equal(got, want),
+                     took("luma", plane, meta)))
         return got
 
     def rec_c(planes, resi, luma, meta, bd):
         want = scan.intra_chroma_scan_plain(planes.clone(), resi, luma, meta,
                                             bd)
         got = orig_c(planes, resi, luma, meta, bd)
-        seen.append(("chroma", torch.equal(got, want)))
+        seen.append(("chroma", torch.equal(got, want),
+                     took("chroma", planes, meta)))
         return got
 
     mp = pytest.MonkeyPatch()
@@ -577,8 +599,9 @@ def test_intra_scan_kernels_on_captured_inputs(cuda, name):
     finally:
         mp.undo()
     assert pics and all(p.conforming for p in pics)
-    assert {kind for kind, _ in seen} == {"luma", "chroma"}
-    assert all(ok for _, ok in seen)
+    assert {kind for kind, _, _ in seen} == {"luma", "chroma"}
+    assert all(ok for _, ok, _ in seen)
+    assert all("ordered" not in names for _, _, names in seen)
 
 
 def test_decode_on_card_never_takes_the_plain_scans(cuda):

@@ -16,7 +16,7 @@ the JAX package's lax.scan versions on the CPU backend: bit-exact
   modes (chroma: plus LM with each has_l / has_a pair) at 8 and 10 bit
   with an inactive row in the middle, clamped windows, LM sums that
   wrap int32, and CTUs tiled in z-order with holes, as the codec lays
-  them out.
+  them out, also with the leaves of two CTUs taken in turn.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -195,6 +195,12 @@ def test_scan_corner_cases(kind, bd):
 @pytest.mark.parametrize("kind", ["luma", "chroma"])
 def test_scan_tiled_ctus(kind, bd):
     _check_case(cases.tiled_case(kind, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_scan_tiled_ctus_interleaved(kind, bd):
+    _check_case(cases.tiled_case(kind, bd, interleave=True))
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])

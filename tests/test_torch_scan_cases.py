@@ -2,7 +2,9 @@
 they claim: every mode and LM pair per shape with an inactive row in the
 middle, leaves at the far corner of the smallest canvas, LM sums that
 wrap int32, and CTUs tiled in z-order as the codec lays them out (inside
-the scans' dependency contract, with holes, every mode and LM)."""
+the scans' dependency contract, with holes, every mode and LM), also with
+the leaves of two CTUs taken in turn (still inside the contract, but not
+in the kernels' wavefront ticket order)."""
 import numpy as np
 import pytest
 
@@ -115,3 +117,34 @@ def test_tiled_case_is_a_picture_in_contract_with_holes(kind, lay, bd):
             (meta[1::2, lay["plane"]] == 1).all()
         assert (meta[0::2, 1:] == meta[1::2, 1:]).all()
         assert (meta[:, lay["is_lm"]] != 0).any()
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind,lay", [("luma", LUMA_LAY),
+                                      ("chroma", CHROMA_LAY)])
+def test_interleaved_tiled_case_keeps_the_contract_not_the_tiles(kind, lay,
+                                                                 bd):
+    """The tiled case's rows in another order: the leaves of CTUs 3 and 4
+    (the last of the first CTU row, the first of the second) in turn;
+    inside the contract, but no wavefront ticket order."""
+    case, base = tiled_case(kind, bd, interleave=True), tiled_case(kind, bd)
+    meta = case["meta"]
+    assert not np.array_equal(meta, base["meta"])
+    assert sorted(map(tuple, meta)) == sorted(map(tuple, base["meta"]))
+    for k in ("plane", "resi"):
+        np.testing.assert_array_equal(case[k], base[k])
+    U, ctu = (4, 64) if kind == "luma" else (2, 32)
+    ctus = (meta[:, lay["py"]] // ctu) * TILED_CTUS[0] + \
+        meta[:, lay["px"]] // ctu
+    runs = [c for k, c in enumerate(ctus) if k == 0 or c != ctus[k - 1]]
+    assert runs.count(3) > 1 and runs.count(4) > 1
+    assert sorted(set(runs)) == list(range(TILED_CTUS[0] * TILED_CTUS[1]))
+    scheds = scan_deps.analyse(kind, meta, case["plane"].shape)
+    for s in (scheds,) if kind == "luma" else scheds:
+        assert s.in_contract, s.breach
+        assert 1 < s.longest < len(s.rows)
+        assert scan_deps.wavefront_order(kind, meta, case["plane"].shape,
+                                         s) is None
+    if kind == "chroma":
+        assert (meta[0::2, lay["plane"]] == 0).all() and \
+            (meta[1::2, lay["plane"]] == 1).all()

@@ -8,7 +8,7 @@ and the schedule it allows, against the JAX package on the CPU backend.
 - running the plain versions one row at a time in another order the
   graph allows (level by level, reversed within a level) gives the JAX
   scans' result bit for bit (tolerance 0), on the golden metadata and the
-  tiled family; on picture 0 of the 720p stream, the rows of its first
+  tiled family (also with two CTUs' leaves in turn); on picture 0 of the 720p stream, the rows of its first
   two CTU rows against the plain version in decode order;
 - the synthetic families whose leaves overlap or read later rows are
   found out of contract.
@@ -203,26 +203,37 @@ def test_graph_order_matches_jax_on_tiled_case(kind, bd, how):
                        T(case["luma"]), case["meta"], bd, how)
 
 
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_graph_order_matches_jax_on_interleaved_tiled_case(kind, bd):
+    """Level by level on the table whose tickets go in decode order."""
+    case = cases.tiled_case(kind, bd, interleave=True)
+    T = lambda a: None if a is None else torch.from_numpy(a.copy())
+    _check_graph_order(kind, T(case["plane"]), T(case["resi"]),
+                       T(case["luma"]), case["meta"], bd, "levels")
+
+
 def test_hd720_picture0_wavefront_tickets():
     """The kernel's wavefront ticket order applies to picture 0's luma
-    and both chroma planes, is a topological order, and lets 32 warps
-    that take tickets in it finish in 858 (luma) / 160 (chroma) steps
-    against the longest paths of 724 / 144; in decode order they need
-    3,279 / 619."""
+    and both chroma planes, is a topological order, and lets the
+    kernel's 16 warps that take tickets in it finish in 1,005 (luma) /
+    164 (chroma) steps against the longest paths of 724 / 144 (32 warps:
+    858 / 160); in decode order they need 3,435 / 795 (32: 3,279 /
+    619)."""
     hd = _hd720_picture0()
     lmeta, cmeta = hd["meta"]
     shape = tuple(hd["luma"][0].shape)
     s = scan_deps.analyse("luma", lmeta, shape)
     order = scan_deps.wavefront_order("luma", lmeta, shape, s)
     assert order is not None and _is_topological(s, order)
-    assert [scan_deps.ticket_steps(s, o, 32) for o in (order, s.rows)] == \
-        [858, 3279]
+    assert [scan_deps.ticket_steps(s, o, w) for w in (16, 32)
+            for o in (order, s.rows)] == [1005, 3435, 858, 3279]
     for c in scan_deps.analyse("chroma", cmeta, hd["chroma_shape"]):
         order = scan_deps.wavefront_order("chroma", cmeta,
                                           hd["chroma_shape"], c)
         assert order is not None and _is_topological(c, order)
-        assert [scan_deps.ticket_steps(c, o, 32) for o in (order, c.rows)] \
-            == [160, 619]
+        assert [scan_deps.ticket_steps(c, o, w) for w in (16, 32)
+                for o in (order, c.rows)] == [164, 795, 160, 619]
     # with as many warps as rows, any topological order reaches the
     # longest path
     assert scan_deps.ticket_steps(s, s.rows, len(s.rows)) == 724

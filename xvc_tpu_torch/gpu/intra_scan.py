@@ -72,26 +72,16 @@ __all__ = ["intra_scan", "intra_chroma_scan", "intra_scan_plain",
            "intra_chroma_scan_plain", "PAD_TL", "PAD_BR", "META_COLS",
            "CMETA_COLS", "last_status", "PARALLEL", "ORDERED"]
 
-# The scan kernels' block: warps (16, 24 or 32; 16 measured fastest or
-# within a few per cent, PERF.md) and the status words they
-# write per plane: schedule (PARALLEL / ORDERED), rows run, breach flags
-# (1: a unit written by two rows, 2: a row reads a unit a later row
-# writes, 4: more rows than the done bits hold), warps, and 1 where the
-# tickets went in wavefront order (0: decode order).
-SCAN_WARPS = 16
+# The status words the scan kernels write per plane: schedule (PARALLEL /
+# ORDERED), rows run, breach flags (1: a unit written by two rows, 2: a
+# row reads a unit a later row writes, 4: more rows than the done bits
+# hold), the warps of the block, and 1 where the tickets went in
+# wavefront order (0: decode order).
 PARALLEL, ORDERED = 1, 2
 STATUS_WORDS = 5
 # the scratch of the last launch of each kernel (``last_status`` reads its
 # status words)
 LAST_SCRATCH = {"intra_luma": None, "intra_chroma": None}
-# True: every launch also records, per row, the SM clock when a warp has
-# the row, when its wait ends, when the strips of its reference line are
-# in, when the line is built, when its samples are stored and when its
-# done bit is set, and the warp (LAST_TRACE, int64 (planes, N + 1, 8);
-# row N: the clock at the start and at the end of phase 1).  Off on the
-# decode path.
-TRACE = False
-LAST_TRACE = {"intra_luma": None, "intra_chroma": None}
 
 
 def last_status(name):
@@ -102,11 +92,6 @@ def last_status(name):
     planes = 1 if name == "intra_luma" else 2
     return scratch[:planes * STATUS_WORDS].view(planes, STATUS_WORDS)
 
-
-def _trace(name, device, nplanes, N):
-    LAST_TRACE[name] = torch.empty((nplanes, N + 1, 8), dtype=torch.int64,
-                                   device=device)
-    return LAST_TRACE[name].data_ptr()
 
 HOR, VER, DIAG = 18, 50, 34
 _ANGLE = np.asarray(ip.ANGLE_TABLE_EXT, np.int64)
@@ -459,9 +444,7 @@ def intra_scan(plane, resi, meta, bitdepth):
     scratch = _scratch(plane.device, stream, 1, Hp, Wp, len(meta), 4)
     rc = build.lib().xvc_intra_luma_scan(
         build.ptr(plane), build.ptr(resi), build.ptr(meta), len(meta), Hp,
-        Wp, bitdepth, build.ptr(scratch), SCAN_WARPS,
-        _trace("intra_luma", plane.device, 1, len(meta)) if TRACE else None,
-        stream)
+        Wp, bitdepth, build.ptr(scratch), stream)
     build.check(rc, "intra_luma")
     kernels.LAUNCHES["intra_luma"] += 1
     LAST_SCRATCH["intra_luma"] = scratch
@@ -668,9 +651,7 @@ def intra_chroma_scan(planes, resi, luma, meta, bitdepth):
     rc = build.lib().xvc_intra_chroma_scan(
         build.ptr(planes), build.ptr(resi), build.ptr(luma),
         build.ptr(meta), len(meta), Hp, Wp, HpL, WpL, bitdepth,
-        build.ptr(scratch), SCAN_WARPS,
-        _trace("intra_chroma", planes.device, 2, len(meta))
-        if TRACE else None, stream)
+        build.ptr(scratch), stream)
     build.check(rc, "intra_chroma")
     kernels.LAUNCHES["intra_chroma"] += 1
     LAST_SCRATCH["intra_chroma"] = scratch

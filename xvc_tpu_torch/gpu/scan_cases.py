@@ -11,8 +11,11 @@ also names its picture's (H, W).  shape_case, corner_case and
 lm_wrap_case place leaves that overlap or read later rows, outside the
 contract under which the kernels run leaves in parallel
 (gpu/scan_deps.py); tiled_case lays a picture out as the codec does,
-inside it.
+inside it (with ``interleave``, in an order that keeps the contract but
+not the CTUs' rows together).
 """
+import itertools
+
 import numpy as np
 
 # metadata columns by name (gpu/intra_scan.py's layout)
@@ -151,7 +154,18 @@ def _tiled_leaves(rng, ctu, min_dim):
     return leaves
 
 
-def tiled_case(kind, bd, seed=0):
+def _alternate(groups, a, b):
+    """``groups`` ((CTU, rows) in decode order) with the leaves of CTUs
+    ``a`` and ``b``, which follow each other, taken in turn."""
+    first = next(k for k, (c, _) in enumerate(groups) if c == a)
+    mixed = [g for pair in itertools.zip_longest(
+        [g for g in groups if g[0] == a], [g for g in groups if g[0] == b])
+        for g in pair if g is not None]
+    rest = [g for g in groups if g[0] not in (a, b)]
+    return rest[:first] + mixed + rest[first:]
+
+
+def tiled_case(kind, bd, seed=0, interleave=False):
     """A picture as the codec lays it out: leaves of mixed shapes tile
     4 x 2 CTUs (64x64 luma, 32x32 chroma) in z-order; about a fifth of
     them are holes (inter blocks: no row writes them, their samples are
@@ -160,7 +174,14 @@ def tiled_case(kind, bd, seed=0):
     above-right samples decoded before the leaf (inside the picture, at
     most w / h), so every read lands on an earlier row or a hole.  Every
     mode appears; chroma has LM rows and one row per plane for each
-    leaf, U then V."""
+    leaf, U then V.
+
+    ``interleave``: the leaves of the last CTU of the first CTU row and
+    of the first CTU of the second are taken in turn.  Each of the two
+    reads only CTUs before both, so the table stays inside the contract,
+    but their rows are no longer consecutive: the kernels then hand out
+    their tickets in decode order (``scan_deps.wavefront_order`` gives
+    None)."""
     luma = kind == "luma"
     rng = np.random.RandomState(31337 + 7 * bd + seed + (0 if luma else 1))
     dims = LUMA_DIMS if luma else CHROMA_DIMS
@@ -169,7 +190,7 @@ def tiled_case(kind, bd, seed=0):
     decoded = np.zeros((H // U, W // U), bool)
     leaves = _tiled_leaves(rng, ctu, dims[0])
     modes = []
-    rows = []
+    groups = []  # (CTU, the leaf's rows)
     for x, y, w, h in leaves:
         intra = rng.rand() >= 0.2
         if intra:
@@ -186,20 +207,23 @@ def tiled_case(kind, bd, seed=0):
                        has_a=has_a, has_al=has_l & has_a, sbl=sbl, sar=sar,
                        active=1)
             if luma:
-                rows.append(row)
+                group = [row]
                 modes.append(row)
             else:
                 is_lm = int(rng.rand() < 0.2)
-                pair = [dict(row, plane=p, is_lm=is_lm) for p in (0, 1)]
-                rows += pair
+                group = [dict(row, plane=p, is_lm=is_lm) for p in (0, 1)]
                 if not is_lm:
-                    modes.append(pair)
+                    modes.append(group)
+            groups.append(((y // ctu) * TILED_CTUS[0] + x // ctu, group))
         decoded[y // U:(y + h) // U, x // U:(x + w) // U] = True
     order = np.concatenate([rng.permutation(67)
                             for _ in range(-(-len(modes) // 67))])
     for mode, target in zip(order, modes):
         for row in (target if isinstance(target, list) else [target]):
             row["mode"] = int(mode)
+    if interleave:
+        groups = _alternate(groups, TILED_CTUS[0] - 1, TILED_CTUS[0])
+    rows = [row for _, group in groups for row in group]
     hp = -(-(H + 8 + 200) // 128) * 128
     wp = -(-(W + 8 + 200) // 128) * 128
     case = _canvases(rng, kind, bd, hp, wp)
