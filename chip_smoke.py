@@ -10,7 +10,9 @@ Phases:
   1  build: compile the CUDA kernels from xvc_tpu_torch/kernels/csrc
      (one nvcc per source, all at once) and, beside them, the native
      parse library from xvc_tpu_torch/native/csrc (g++);
-  2  kernels: MC, ITX, the deblock edge decisions, luma walk and chroma
+  2  kernels: MC and ITX (the group kernels, and the picture kernels
+     that derive every job of a picture from its record table), the
+     deblock edge decisions, luma walk and chroma
      pass, SATD and the intra luma and chroma scans on the card against
      their plain PyTorch versions on the same inputs (numpy seed,
      main-path shapes; for the scans and the deblock kernels also the
@@ -25,15 +27,23 @@ Phases:
      the time per step, at pictures 0 and 3 and on the interleaved
      tiled case; with --parent TREE also the scan kernels of the
      checkout TREE (a parent commit, say) on the same inputs, in a child
-     process;
+     process; the picture kernels on the record tables of every picture
+     of hd720_ld and of one picture of each other bench stream (parsed on
+     the CPU, the frame store from a seed), on synthetic tables
+     (xvc_tpu_torch/gpu/flat_cases.py) and with damaged rows appended,
+     each timed per picture of hd720_ld beside its bound;
   3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
      card; every picture must be checksum-conforming and equal the
-     recorded host decode (tests/data/bench/hd720_ld_dec.sha256), and
-     the launch count of every kernel of that path must be above 0;
-     then the stage profile of one more decode with synchronising spans
-     (xvc_tpu_torch.profiling) and the device's busy share of a decode
-     (torch.profiler, busy time and decode time from the same run);
+     recorded host decode (tests/data/bench/hd720_ld_dec.sha256), the
+     launch count of every kernel of that path must be above 0 and that
+     of the group ITX / MC kernels 0; then the other bench streams
+     (cif_ai, fhd1080_ra, qhd1440_ra10 at 10 bit, uhd2160_ra10 at 10
+     bit) the same way, with the scans' status words of every launch;
+     then for hd720_ld and fhd1080_ra the stage profile of one more
+     decode with synchronising spans (xvc_tpu_torch.profiling) and the
+     device's busy share of a decode (torch.profiler, busy time and
+     decode time from the same run);
   4  goldens: sp_fast, ai64x48 and ai64x48b10 against tests/data;
   5  lookahead path: the luma plane of picture 0 of phase 3 (1280x720,
      8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
@@ -65,6 +75,10 @@ KERNELS = {
            "xvc_tpu/tpu/pallas_mc.py:43"),
     "itx": ("xvc_tpu_torch/kernels/csrc/itx.cu",
             "xvc_tpu/tpu/flat_recon.py:336"),
+    "mc_picture": ("xvc_tpu_torch/kernels/csrc/mc.cu",
+                   "xvc_tpu/tpu/pallas_mc.py:43"),
+    "itx_picture": ("xvc_tpu_torch/kernels/csrc/itx.cu",
+                    "xvc_tpu/tpu/flat_recon.py:336"),
     "deblock_edges": ("xvc_tpu_torch/kernels/csrc/deblock_edges.cu",
                       "xvc_tpu/tpu/deblock_jax.py:44"),
     "deblock_luma": ("xvc_tpu_torch/kernels/csrc/deblock.cu",
@@ -78,9 +92,22 @@ KERNELS = {
     "intra_chroma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
                      "xvc_tpu/tpu/intra_scan.py:296"),
 }
-# the kernels each path must launch
-DECODE_KERNELS = ("mc", "itx", "deblock_edges", "deblock_luma",
-                  "deblock_chroma", "intra_luma", "intra_chroma")
+# the kernels each path must launch, and those the decode must not (the
+# group kernels, whose jobs the picture kernels derive on the card)
+DECODE_KERNELS = ("mc_picture", "itx_picture", "deblock_edges",
+                  "deblock_luma", "deblock_chroma", "intra_luma",
+                  "intra_chroma")
+OFF_DECODE_KERNELS = ("mc", "itx")
+# the bench streams phase 3 decodes, with their pictures: hd720_ld is the
+# main path
+BENCH = (("hd720_ld", 8), ("cif_ai", 16), ("fhd1080_ra", 8),
+         ("qhd1440_ra10", 5), ("uhd2160_ra10", 3))
+PROFILED = ("hd720_ld", "fhd1080_ra")
+# phase 2: the pictures whose record tables the picture kernels are held
+# and timed on (decode-order indices); every picture of hd720_ld
+PICTURE_CASES = (("hd720_ld", tuple(range(8))), ("cif_ai", (0,)),
+                 ("fhd1080_ra", (3,)), ("qhd1440_ra10", (1,)),
+                 ("uhd2160_ra10", (1,)))
 LOOKAHEAD_KERNELS = ("satd",)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
@@ -135,6 +162,27 @@ def cuda_ms(torch, fn, iters=20, fresh=None):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, name, iters=20):
+    """Mean device time per call of fn of the kernels whose name holds
+    ``name``, from torch.profiler over ``iters`` calls (after one warm-up
+    call); None where the profiler records no device time for them.
+    Unlike cuda_ms it does not see the host's launch path."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total",
+                                                  0)
+    return us / 1e3 / iters if us else None
 
 
 def max_err(torch, a, b):
@@ -245,6 +293,96 @@ def itx_bound(coeff, scale, params, w, h):
     ops = valid * (4 * w * h + 2 * in1 * h * cols + 2 * cols * h * w +
                    8 * h * w)
     return bound(nbytes, ops)
+
+
+def itx_picture_bound(pic):
+    """What the picture's coded blocks need: the record table read once,
+    the qp-scale table and the bases of the sides it uses, per block its
+    w x h int32 coefficients and its int32 residual samples inside the
+    plane; 4 operations per coefficient to dequantize, 2 per multiply-add
+    of the two passes (zero-out: at most 32 input rows / columns) and 8
+    per output sample, 6 per sample of a transform-skip block."""
+    import numpy as np
+    import torch
+    from xvc_tpu_torch import constants as k
+    from xvc_tpu_torch.gpu import itx
+    fmt = k.ChromaFormat.MONOCHROME if pic["mono"] else k.ChromaFormat.YUV420
+    qps = itx.qp_scale_table(fmt, pic["bitdepth"], *pic["qp_key"])
+    dims = [(pic["height"], pic["width"])] + \
+        ([] if pic["mono"] else [(pic["Hc"], pic["Wc"])])
+    nbytes = pic["records"].nbytes + qps.nbytes
+    ops = blocks = 0
+    sides = set()
+    for job in itx.itx_jobs(torch.from_numpy(pic["records"]),
+                            len(pic["coeff"]), torch.from_numpy(qps),
+                            pic["bitdepth"], pic["no_dst"], pic["sx"],
+                            pic["sy"], dims):
+        H, W = dims[min(job["comp"], 1)]
+        x, y, w, h, var = (job[n].numpy().astype(np.int64)
+                           for n in ("x", "y", "w", "h", "var"))
+        inside = np.minimum(w, W - x) * np.minimum(h, H - y)
+        in1, cols = np.minimum(h, 32), np.minimum(w, 32)
+        mat = var != 3
+        nbytes += int((w * h).sum()) * 4 + int(inside.sum()) * 4
+        ops += int((mat * (4 * w * h + 2 * in1 * h * cols +
+                           2 * cols * h * w + 8 * h * w)).sum())
+        ops += int((~mat * 6 * w * h).sum())
+        blocks += len(w)
+        sides |= set(w[mat].tolist()) | set(h[mat].tolist())
+    # five families of min(side, 32) x side int32 per side used
+    nbytes += sum(5 * min(n, 32) * n * 4 for n in sides)
+    return dict(nbytes=nbytes, ops=ops, blocks=blocks)
+
+
+def mc_picture_bound(pic):
+    """What the picture's MC jobs need: the record table and the
+    reference table read once; the reference samples of the union of the
+    jobs' windows (affine subblocks one by one), each (h + taps - 1) x (w
+    + taps - 1) int16 where the kernel places it, read once; per job its w
+    x h int16 samples inside the plane and, for the second prediction of a
+    bi leaf, as many mask samples; 2 operations per filter tap (the
+    horizontal pass over the extended rows when both phases are set), 4
+    per sample."""
+    import numpy as np
+    import torch
+    from xvc_tpu_torch.gpu import flat_cases, mc
+    dims = [(pic["height"], pic["width"])] + \
+        ([] if pic["mono"] else [(pic["Hc"], pic["Wc"])])
+    refs = flat_cases.ref_table(pic)
+    rows = mc.mc_jobs(torch.from_numpy(pic["records"]),
+                      torch.from_numpy(refs), flat_cases.STORE_SLOTS, dims,
+                      flat_cases.mc_flags(pic)).numpy()
+    luma, short, fx, fy, chan, cy, cx, w, h = (rows[i] for i in (
+        0, 1, 5, 6, 7, 8, 9, 10, 11))
+    taps = np.where(luma == 1, 8, 4)
+    H = np.where(luma == 1, dims[0][0], dims[-1][0])
+    W = np.where(luma == 1, dims[0][1], dims[-1][1])
+    inside = np.clip(np.minimum(w, W - cx), 0, None) * \
+        np.clip(np.minimum(h, H - cy), 0, None)
+    second = (short == 1) & (chan >= np.where(luma == 1, 1, 2))
+    # the windows' union, per stack, as the kernel clamps them
+    stacks = {1: np.zeros((flat_cases.STORE_SLOTS,) + pic["luma_store"],
+                          bool)}
+    if not pic["mono"]:
+        stacks[0] = np.zeros((2 * flat_cases.STORE_SLOTS,) +
+                             pic["chroma_store"], bool)
+    bucket = lambda n: 8 if n <= 8 else (16 if n <= 16 else
+                                         (32 if n <= 32 else 64))
+    for j in range(rows.shape[1]):
+        plane = stacks[int(luma[j])]
+        R, Hp, Wp = plane.shape
+        t = int(taps[j])
+        r = min(max(int(rows[2, j]), 0), R - 1)
+        y0 = min(max(int(rows[3, j]), 0), Hp - bucket(h[j]) - t + 1)
+        x0 = min(max(int(rows[4, j]), 0), Wp - bucket(w[j]) - t + 1)
+        plane[r, y0:y0 + h[j] + t - 1, x0:x0 + w[j] + t - 1] = True
+    win = sum(int(p.sum()) for p in stacks.values()) * 2
+    nbytes = pic["records"].nbytes + refs.nbytes + win + \
+        int((inside * (1 + second)).sum()) * 2
+    hor = np.where(fx != 0, np.where(fy != 0, h + taps - 1, h) * w, 0)
+    ver = np.where(fy != 0, h * w, 0)
+    ops = int(((hor + ver) * 2 * taps).sum()) + int((w * h).sum()) * 4
+    return dict(nbytes=nbytes, ops=ops, jobs=rows.shape[1])
 
 
 def luma_deblock_bound(plane, mask, entry_bytes):
@@ -847,6 +985,130 @@ def phase_deblock_kernels(torch, dev, res, real, rng):
             cplain[1]))
 
 
+def phase_picture_kernels(torch, dev, res):
+    """The picture kernels (itx_picture, mc_picture) against their plain
+    versions: on the record tables of PICTURE_CASES (parsed on the CPU by
+    flat_cases.parse_pictures; the frame store of MC from a seed), on the
+    synthetic tables of flat_cases and with damaged rows appended (which
+    must change nothing); each kernel timed on every picture of hd720_ld
+    (MC: its inter pictures) beside its bound and its plain version."""
+    import numpy as np
+    from xvc_tpu_torch import kernels
+    from xvc_tpu_torch.gpu import flat_cases, itx, mc
+
+    def both(pic, records=None, seed=11):
+        """Kernel and plain planes of both kernels, launches checked."""
+        outs = []
+        for itx_fn, mc_fn in ((itx.itx_picture, mc.mc_picture),
+                              (itx.itx_picture_plain, mc.mc_picture_plain)):
+            kernels.reset_launches()
+            a = flat_cases.itx_args(pic, dev, records)
+            itx_fn(*a)
+            b = flat_cases.mc_args(pic, dev, seed, records)
+            mc_fn(*b)
+            torch.cuda.synchronize()
+            outs.append(([t for t in a[:2] if t is not None],
+                         [t for t in b[:4] if t is not None]))
+            if itx_fn is itx.itx_picture and (
+                    kernels.LAUNCHES["itx_picture"] != 1 or
+                    kernels.LAUNCHES["mc_picture"] != 1):
+                raise AssertionError("picture kernels launched %r" % (
+                    dict(kernels.LAUNCHES),))
+        errs = [max(max_err(torch, g, w) for g, w in zip(outs[0][i],
+                                                         outs[1][i]))
+                for i in (0, 1)]
+        return errs, outs[0]
+
+    err = {"itx_picture": 0, "mc_picture": 0}
+    cases = 0
+    real = {}
+    for name, pictures in PICTURE_CASES:
+        with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
+            got = flat_cases.parse_pictures(f.read(), set(pictures))
+        for n in pictures:
+            real[name, n] = got[n]
+            (e_itx, e_mc), _ = both(got[n])
+            err["itx_picture"] = max(err["itx_picture"], e_itx)
+            err["mc_picture"] = max(err["mc_picture"], e_mc)
+            cases += 1
+    synthetic = [dict(seed=2), dict(seed=8, mono=True),
+                 dict(seed=8, dual=True, bitdepth=10),
+                 dict(seed=8, no_dst=True, hp_tx=False),
+                 dict(seed=8, bitdepth=10, hp_mv=False, chroma_subpel=False,
+                      nrefs=(3, 1))] + [dict(seed=s) for s in range(20, 30)]
+    for kw in synthetic:
+        (e_itx, e_mc), _ = both(flat_cases.synthetic_picture(**kw))
+        err["itx_picture"] = max(err["itx_picture"], e_itx)
+        err["mc_picture"] = max(err["mc_picture"], e_mc)
+        cases += 1
+    # damaged rows: dropped, and the card reports no fault
+    for pic in (flat_cases.synthetic_picture(5), real["hd720_ld", 3]):
+        bad = np.concatenate([flat_cases.damaged_rows(pic, "itx"),
+                              flat_cases.damaged_rows(pic, "mc")])
+        _, clean = both(pic)
+        errs, dirty = both(pic, np.concatenate([pic["records"], bad]))
+        for i in (0, 1):
+            for g, w in zip(dirty[i], clean[i]):
+                if max_err(torch, g, w):
+                    raise AssertionError("a damaged row changed the planes")
+        err["itx_picture"] = max(err["itx_picture"], errs[0])
+        err["mc_picture"] = max(err["mc_picture"], errs[1])
+        cases += 1
+    for kernel, e in err.items():
+        if e:
+            raise AssertionError("%s differs from its plain version by %d"
+                                 % (kernel, e))
+
+    # timed on every picture of the main path (MC: the inter ones)
+    per = {"itx_picture": [], "mc_picture": []}
+    for (name, n), pic in sorted(real.items()):
+        a = flat_cases.itx_args(pic, dev)
+        ib = itx_picture_bound(pic)
+        row = dict(stream=name, picture=n, blocks=ib["blocks"],
+                   bytes=ib["nbytes"], operations=ib["ops"],
+                   bound_ms=bound(ib["nbytes"], ib["ops"])["bound_ms"],
+                   ms=cuda_ms(torch, lambda: itx.itx_picture(*a)),
+                   device_ms=device_ms(torch, lambda: itx.itx_picture(*a),
+                                       "itx_picture_kernel"),
+                   plain_ms=cuda_ms(torch, lambda: itx.itx_picture_plain(*a),
+                                    2) if name == "hd720_ld" else None)
+        per["itx_picture"].append(row)
+        if not pic["inter"]:
+            continue
+        b = flat_cases.mc_args(pic, dev, 11)
+        mb = mc_picture_bound(pic)
+        per["mc_picture"].append(dict(
+            stream=name, picture=n, jobs=mb["jobs"], bytes=mb["nbytes"],
+            operations=mb["ops"],
+            bound_ms=bound(mb["nbytes"], mb["ops"])["bound_ms"],
+            ms=cuda_ms(torch, lambda: mc.mc_picture(*b)),
+            device_ms=device_ms(torch, lambda: mc.mc_picture(*b),
+                                "mc_picture_kernel"),
+            plain_ms=cuda_ms(torch, lambda: mc.mc_picture_plain(*b), 2)
+            if name == "hd720_ld" else None))
+    for kernel, rows in per.items():
+        main = [r for r in rows if r["stream"] == "hd720_ld"]
+        mean = lambda key: None if None in [r[key] for r in main] else \
+            sum(r[key] for r in main) / len(main)
+        res[kernel] = dict(
+            max_abs_err=err[kernel],
+            **bound(mean("bytes"), mean("operations")),
+            shape="hd720_ld, the mean launch over its %d %spictures" % (
+                len(main), "inter " if kernel == "mc_picture" else ""),
+            ms=mean("ms"), device_ms=mean("device_ms"),
+            plain_ms=mean("plain_ms"), per_picture=rows)
+        r = res[kernel]
+        log("phase 2: %s bit-exact over %d record tables (real, synthetic, "
+            "damaged); %s: kernel %.4f ms (device time alone %s ms), plain "
+            "%.4f ms, bound %.6f ms (%s); per picture (stream, picture, ms, "
+            "device ms, bound ms): %s" % (
+                kernel, cases, r["shape"], r["ms"], r["device_ms"],
+                r["plain_ms"], r["bound_ms"], r["bound_by"],
+                [(x["stream"], x["picture"], round(x["ms"], 4),
+                  x["device_ms"] and round(x["device_ms"], 4),
+                  round(x["bound_ms"], 6)) for x in rows]))
+
+
 def phase_kernels(torch, dev, parent):
     """Each kernel against its plain version on the same CUDA inputs
     (``parent``: a checkout whose scan kernels phase 2 times beside)."""
@@ -976,17 +1238,62 @@ def phase_kernels(torch, dev, parent):
         real = capture_inputs(f.read())
     phase_deblock_kernels(torch, dev, res, real, rng)
     phase_scan_kernels(torch, dev, res, real, parent)
+    phase_picture_kernels(torch, dev, res)
     return res
 
 
-def phase_decode(torch, dev):
+def scan_statuses(torch, data, dev):
+    """Decode ``data`` once with every scan launch's status words read
+    back right after it (a synchronise each): per kernel, how many
+    plane launches took each schedule (wavefront / decode-order tickets
+    / ordered) and the largest breach flags seen."""
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import intra_scan as scan
+    seen = {"intra_luma": [], "intra_chroma": []}
+    orig = scan.intra_scan, scan.intra_chroma_scan
+
+    def read(name):
+        torch.cuda.synchronize()
+        seen[name] += scan.last_status(name).cpu().tolist()
+
+    def luma(*a):
+        orig[0](*a)
+        read("intra_luma")
+
+    def chroma(*a):
+        orig[1](*a)
+        read("intra_chroma")
+
+    scan.intra_scan, scan.intra_chroma_scan = luma, chroma
+    try:
+        decode_stream(data, device=dev)
+    finally:
+        scan.intra_scan, scan.intra_chroma_scan = orig
+    out = {}
+    for name, words in seen.items():
+        kinds = {}
+        for sched, rows, breach, warps, wave in words:
+            kind = "ordered" if sched == scan.ORDERED else (
+                "wavefront" if wave else "decode-order tickets")
+            kinds[kind] = kinds.get(kind, 0) + 1
+        out[name] = dict(planes=kinds,
+                         breach=max([w[2] for w in words], default=0),
+                         rows=sum(w[1] for w in words))
+    return out
+
+
+def decode_bench(torch, dev, name, count):
+    """One bench stream on the card: a decode reading the scans' status
+    words, then a timed decode with the launch counts set to 0 just before
+    it and read just after; every picture conforming and equal to the
+    recorded host decode."""
     from xvc_tpu_torch import kernels
     from xvc_tpu_torch.codec.decoder import decode_stream
-    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+    with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
         data = f.read()
-    with open(os.path.join(DATA, "bench", "hd720_ld_dec.sha256")) as f:
+    with open(os.path.join(DATA, "bench", name + "_dec.sha256")) as f:
         want = [line.split()[0] for line in f if line.strip()]
-    decode_stream(data)  # warm-up (first-use costs); the card by default
+    statuses = scan_statuses(torch, data, dev)  # also the warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # frame stores and the like
@@ -996,28 +1303,57 @@ def phase_decode(torch, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    if len(pics) != 8 or len(want) != 8:
-        raise AssertionError("device decode returned %d pictures"
-                             % len(pics))
+    if len(pics) != count or len(want) != count:
+        raise AssertionError("%s: %d pictures decoded, %d recorded, %d "
+                             "expected" % (name, len(pics), len(want), count))
     for pic, sha in zip(pics, want):
         if not pic.conforming:
-            raise AssertionError("poc %d not conforming" % pic.poc)
+            raise AssertionError("%s poc %d not conforming" % (name, pic.poc))
         if hashlib.sha256(pic.bytes).hexdigest() != sha:
-            raise AssertionError("poc %d differs from the recorded host "
-                                 "decode" % pic.poc)
-    for name in DECODE_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError("kernel %s was not launched" % name)
-    out = dict(pictures=len(pics), seconds=dt, ms_per_picture=dt * 1e3 / 8,
-               mpix_per_s=1280 * 720 * 8 / dt / 1e6,
+            raise AssertionError("%s poc %d differs from the recorded host "
+                                 "decode" % (name, pic.poc))
+    for kernel in OFF_DECODE_KERNELS:
+        if launches[kernel]:
+            raise AssertionError("%s: the group kernel %s ran on the decode "
+                                 "path" % (name, kernel))
+    if launches["itx_picture"] != count:
+        raise AssertionError("%s: itx_picture launched %d times for %d "
+                             "pictures" % (name, launches["itx_picture"],
+                                           count))
+    w, h = pics[0].width, pics[0].height
+    out = dict(pictures=count, width=w, height=h, bitdepth=pics[0].bitdepth,
+               seconds=dt, ms_per_picture=dt * 1e3 / count,
+               mpix_per_s=w * h * count / dt / 1e6,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
-               memory_allocated_before=resident, launches=launches)
-    log("phase 3: hd720_ld 8/8 conforming, equal to the recorded host "
-        "decode; %.2f ms/picture, %.3f Mpix/s, peak %d bytes (%d resident "
-        "before the decode), launches %s"
-        % (out["ms_per_picture"], out["mpix_per_s"],
-           out["max_memory_allocated"], resident, launches))
-    return out, pics[0]
+               memory_allocated_before=resident, launches=launches,
+               scan_status=statuses)
+    log("phase 3: %s (%dx%d, %d bit) %d/%d conforming, equal to the "
+        "recorded host decode; %.2f ms/picture, %.3f Mpix/s, peak %d bytes "
+        "(%d resident before the decode), launches %s; scans: %s" % (
+            name, w, h, out["bitdepth"], count, count, out["ms_per_picture"],
+            out["mpix_per_s"], out["max_memory_allocated"], resident,
+            launches, statuses))
+    return out, pics
+
+
+def phase_decode(torch, dev):
+    """The bench streams; hd720_ld first, the main path, whose launches
+    must cover every kernel of DECODE_KERNELS."""
+    out = {}
+    for name, count in BENCH:
+        out[name], pics = decode_bench(torch, dev, name, count)
+        if name == "hd720_ld":
+            pic0 = pics[0]
+            for kernel in DECODE_KERNELS:
+                if out[name]["launches"][kernel] <= 0:
+                    raise AssertionError("kernel %s was not launched"
+                                         % kernel)
+            if out[name]["launches"]["mc_picture"] != count - 1:
+                raise AssertionError("mc_picture launched %d times for %d "
+                                     "inter pictures" % (
+                                         out[name]["launches"]["mc_picture"],
+                                         count - 1))
+    return out, pic0
 
 
 def device_busy(torch, data):
@@ -1045,12 +1381,12 @@ def device_busy(torch, data):
     return (seconds, busy_us / 1e6, ops) if ops else (seconds, None, None)
 
 
-def phase_stage_profile(torch):
-    """Where a decode's time goes: one decode with synchronising spans,
-    and one under torch.profiler for the device's busy and idle share of
-    that same decode."""
+def phase_stage_profile(torch, name):
+    """Where a decode of the bench stream ``name`` goes: one decode with
+    synchronising spans, and one under torch.profiler for the device's
+    busy and idle share of that same decode."""
     from xvc_tpu_torch import profiling
-    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+    with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
         data = f.read()
     report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
     traced_s, busy_s, ops = device_busy(torch, data)
@@ -1059,10 +1395,11 @@ def phase_stage_profile(torch):
                device_operations=ops,
                device_idle_share=None if busy_s is None
                else 1.0 - busy_s / traced_s)
-    log("phase 3: stage profile: %.3f s with synchronising spans; under "
+    log("phase 3: %s stage profile: %.3f s with synchronising spans; under "
         "torch.profiler %.3f s, device busy %s s in %s operations (idle "
         "share %s); spans (s): %s" % (
-            profiled_s, traced_s, busy_s, ops, out["device_idle_share"],
+            name, profiled_s, traced_s, busy_s, ops,
+            out["device_idle_share"],
             {n: v["seconds"] for n, v in report.items()}))
     return out
 
@@ -1191,7 +1528,7 @@ def main():
 
     res = phase_kernels(torch, dev, parent)
     dec, pic0 = phase_decode(torch, dev)
-    stages = phase_stage_profile(torch)
+    stages = {name: phase_stage_profile(torch, name) for name in PROFILED}
     phase_goldens(dev)
     look = phase_lookahead(torch, dev, pic0)
     for module in ("jax", "xvc_tpu"):
@@ -1200,6 +1537,10 @@ def main():
 
     log(json.dumps({"build_seconds": build_s,
                     "native_build_seconds": native_s, "decode": dec,
+                    "picture_kernels": {
+                        n: dict(per_picture=res[n]["per_picture"],
+                                mean_device_ms=res[n]["device_ms"])
+                        for n in ("itx_picture", "mc_picture")},
                     "lookahead": look, "satd_fused_ms": res["satd"]["fused_ms"],
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
@@ -1227,11 +1568,13 @@ def main():
                     "deblock_luma_every_position_on_ms":
                         res["deblock_luma"]["every_position_on_ms"]}))
     log(json.dumps({"stage_profile": stages}))
-    launches = {n: dec["launches"][n] for n in DECODE_KERNELS}
+    launches = {n: dec["hd720_ld"]["launches"][n]
+                for n in DECODE_KERNELS + OFF_DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
     # library_ms: no single PyTorch call computes any of these integer
     # functions on CUDA (gather + wrapped int16 filters, int32 transform
-    # with per-block bases, table-driven edge decisions over a painted
+    # with per-block bases, the jobs of a picture derived from its parse
+    # records, table-driven edge decisions over a painted
     # map, the sequential edge walk, the gated two-sample chroma update,
     # Hadamard + |.| sum, the sequential intra scans)
     log(json.dumps({"kernels": [

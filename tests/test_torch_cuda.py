@@ -5,9 +5,11 @@ fixture decides); on the card they run with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.  They import no
 JAX (the machine with the card has none): each kernel is held against
 its plain PyTorch version on the same CUDA inputs, bit-exact, the
-device decode against the goldens and the recorded host decode
-(tests/data/bench/hd720_ld_dec.sha256), and the lookahead on the card
-against the same call on the CPU device.
+device decode against the goldens and the recorded host decodes
+(tests/data/bench/<stream>_dec.sha256 of the five bench streams), damaged
+streams against the same session on the CPU device (no sticky CUDA
+error), and the lookahead on the card against the same call on the CPU
+device.
 """
 import hashlib
 
@@ -24,6 +26,7 @@ from xvc_tpu_torch.ops import deblock as dbk
 from xvc_tpu_torch.restrictions import Restrictions
 
 from xvc_tpu_torch.gpu import deblock_cases as dcases
+from xvc_tpu_torch.gpu import flat_cases
 from xvc_tpu_torch.gpu import scan_cases as cases
 from xvc_tpu_torch.gpu import scan_deps
 from .util import data_path, read_data
@@ -304,9 +307,10 @@ def test_decode_matches_golden_on_card(cuda, name, count):
     pics = decode_stream(read_data(name + ".xvc"), device=cuda)
     assert len(pics) == count and all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == read_data(name + "_dec.yuv")
-    for kernel in ("itx", "deblock_edges", "deblock_luma", "deblock_chroma",
-                   "intra_luma", "intra_chroma"):
+    for kernel in ("itx_picture", "deblock_edges", "deblock_luma",
+                   "deblock_chroma", "intra_luma", "intra_chroma"):
         assert kernels.LAUNCHES[kernel] > 0
+    assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
 
 
 def test_720p_decode_matches_host_on_card(cuda):
@@ -318,8 +322,13 @@ def test_720p_decode_matches_host_on_card(cuda):
     assert all(p.conforming for p in pics)
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
     assert all(kernels.LAUNCHES[name] > 0
-               for name in ("mc", "itx", "deblock_edges", "deblock_luma",
+               for name in ("deblock_edges", "deblock_luma",
                             "deblock_chroma", "intra_luma", "intra_chroma"))
+    # one ITX launch a picture, one MC launch an inter picture, and
+    # neither group kernel
+    assert kernels.LAUNCHES["itx_picture"] == 8
+    assert kernels.LAUNCHES["mc_picture"] == 7
+    assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
@@ -636,3 +645,210 @@ def test_intra_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         scan.intra_scan(plane.t(), resi.t(), meta, 8)
     with pytest.raises(RuntimeError):
         scan.intra_scan(plane, resi, meta, 15)
+
+
+# ---------------------------------------------------------------------------
+# The picture kernels: ITX and MC of a whole picture from its records
+# ---------------------------------------------------------------------------
+
+REAL_PICTURES = [("hd720_ld", 0), ("hd720_ld", 3), ("cif_ai", 0),
+                 ("fhd1080_ra", 3), ("qhd1440_ra10", 1),
+                 ("uhd2160_ra10", 1)]
+SYNTHETIC = {"420": dict(seed=2), "mono": dict(seed=8, mono=True),
+             "dual tree 10 bit": dict(seed=8, dual=True, bitdepth=10),
+             "no dst, low precision": dict(seed=8, no_dst=True,
+                                           hp_tx=False),
+             "10 bit, low-precision MVs, no chroma sub-pel": dict(
+                 seed=8, bitdepth=10, hp_mv=False, chroma_subpel=False,
+                 nrefs=(3, 1))}
+_REAL = {}
+
+
+def _real_picture(name, n):
+    if (name, n) not in _REAL:
+        _REAL[name, n] = flat_cases.parse_pictures(
+            read_data("bench/%s.xvc" % name), {n})[n]
+    return _REAL[name, n]
+
+
+def _picture_kernel_both(dev, pic, kind, records=None):
+    """(kernel planes, plain planes) of itx_picture ("itx") or mc_picture
+    ("mc") on the picture's records, or on ``records``."""
+    outs = []
+    for kernel in (True, False):
+        if kind == "itx":
+            a = flat_cases.itx_args(pic, dev, records)
+            (itx.itx_picture if kernel else itx.itx_picture_plain)(*a)
+            planes = a[:2]
+        else:
+            a = flat_cases.mc_args(pic, dev, 11, records)
+            (mc.mc_picture if kernel else mc.mc_picture_plain)(*a)
+            planes = a[:4]
+        torch.cuda.synchronize()
+        outs.append([t.cpu().numpy() for t in planes if t is not None])
+    return outs
+
+
+def _picture_kernels_both(dev, pic, records=None):
+    """(kernel planes, plain planes) of itx_picture then mc_picture."""
+    itx_got, itx_want = _picture_kernel_both(dev, pic, "itx", records)
+    mc_got, mc_want = _picture_kernel_both(dev, pic, "mc", records)
+    return itx_got + mc_got, itx_want + mc_want
+
+
+def _assert_planes(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name,n", REAL_PICTURES)
+def test_picture_kernels_match_plain_on_real_records(cuda, name, n):
+    pic = _real_picture(name, n)
+    kernels.reset_launches()
+    got, want = _picture_kernels_both(cuda, pic)
+    _assert_planes(got, want)
+    # one launch each (an intra picture's MC items all exit)
+    assert kernels.LAUNCHES["itx_picture"] == kernels.LAUNCHES[
+        "mc_picture"] == 1
+    assert np.any(got[0])
+    assert np.any(got[2]) == pic["inter"]
+
+
+@pytest.mark.parametrize("case", sorted(SYNTHETIC))
+def test_picture_kernels_match_plain_on_synthetic_records(cuda, case):
+    pic = flat_cases.synthetic_picture(**SYNTHETIC[case])
+    got, want = _picture_kernels_both(cuda, pic)
+    _assert_planes(got, want)
+    nitx = 1 if pic["mono"] else 2
+    assert all(np.any(g) for g in got[:nitx])
+    assert all(np.any(g) == pic["inter"] for g in got[nitx:])
+
+
+@pytest.mark.parametrize("source", ["synthetic", "hd720_ld picture 3"])
+def test_picture_kernels_drop_damaged_rows_without_a_fault(cuda, source):
+    """Rows that break every guard (origins outside the plane, sides that
+    are no power of two or too large, coefficients past the arena, a qp
+    outside the table, reference indices outside 0..4 or past their list)
+    write nothing, and the card reports no fault."""
+    pic = flat_cases.synthetic_picture(5) if source == "synthetic" else \
+        _real_picture("hd720_ld", 3)
+    for kind in ("itx", "mc"):
+        bad = flat_cases.damaged_rows(pic, kind)
+        clean, _ = _picture_kernel_both(cuda, pic, kind)
+        got, want = _picture_kernel_both(
+            cuda, pic, kind, np.concatenate([pic["records"], bad]))
+        _assert_planes(got, want)
+        _assert_planes(got, clean)
+        only, _ = _picture_kernel_both(cuda, pic, kind, bad)
+        assert not any(np.any(g) for g in only), kind
+    torch.cuda.synchronize()
+
+
+def test_picture_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    pic = flat_cases.synthetic_picture(2)
+    a = list(flat_cases.itx_args(pic, cuda))
+    with pytest.raises(ValueError):
+        itx.itx_picture(a[0], a[1], a[2].cpu(), *a[3:])
+    with pytest.raises(ValueError):
+        itx.itx_picture(a[0], a[1], a[2][:, :70].contiguous(), *a[3:])
+    b = list(flat_cases.mc_args(pic, cuda, 0))
+    with pytest.raises(ValueError):
+        mc.mc_picture(*b[:5], b[5].cpu(), *b[6:])
+    with pytest.raises(ValueError):
+        small = b[6][:, :64, :64].contiguous()
+        mc.mc_picture(*b[:6], small, b[7], b[8])
+    # rows that are no multiple of 8 samples: no 16-byte staging
+    with pytest.raises(ValueError):
+        mc.mc_picture(*b[:6], b[6][:, :, :-4].contiguous(), b[7], b[8])
+    pred, mask = b[0], b[1]
+    params = torch.zeros((10, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mc.mc_scatter(pred, mask, b[6][:, :, :-4].contiguous(), params, 8, 8,
+                      True, 8, True, False)
+
+
+@pytest.mark.parametrize("name,count,inter", [
+    ("cif_ai", 16, 0), ("hd720_ld", 8, 7), ("fhd1080_ra", 8, 7),
+    ("qhd1440_ra10", 5, 4), ("uhd2160_ra10", 3, 2)])
+def test_bench_stream_decodes_on_card(cuda, name, count, inter):
+    with open(data_path("bench/%s_dec.sha256" % name)) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    kernels.reset_launches()
+    pics = decode_stream(read_data("bench/%s.xvc" % name), device=cuda)
+    assert len(pics) == len(want) == count
+    assert all(p.conforming for p in pics)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert kernels.LAUNCHES["itx_picture"] == count
+    assert kernels.LAUNCHES["mc_picture"] == inter
+    assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
+
+
+def test_decode_on_card_never_takes_the_plain_picture_code(cuda):
+    """The plain versions and their job derivations are off the card's
+    decode path: with each of them made to raise, the decode still
+    runs."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain ITX / MC code ran on the card's path")
+
+    mp = pytest.MonkeyPatch()
+    for module, names in ((itx, ("itx_picture_plain", "itx_jobs",
+                                 "itx_scatter_plain")),
+                          (mc, ("mc_picture_plain", "mc_jobs",
+                                "mc_scatter_plain"))):
+        for name in names:
+            mp.setattr(module, name, refuse)
+    try:
+        pics = decode_stream(read_data("sp_fast.xvc"), device=cuda)
+    finally:
+        mp.undo()
+    assert b"".join(p.bytes for p in pics) == read_data("sp_fast_dec.yuv")
+
+
+def _damaged(nals, idx, mode, seed):
+    """The damage of tests/test_torch_fuzz.py (which imports the JAX
+    package, absent on the card's machine)."""
+    import random
+    rng = random.Random(seed)
+    out = list(nals)
+    b = bytearray(nals[idx])
+    if mode == "truncate":
+        b = b[:max(1, len(b) // 2)]
+    elif mode == "corrupt":
+        for _ in range(8):
+            b[rng.randrange(len(b))] ^= rng.randrange(1, 256)
+    else:
+        b = bytearray(rng.randbytes(len(b)))
+    out[idx] = bytes(b)
+    return out
+
+
+def _session_result(session, nals):
+    flags = []
+    for nal in nals:
+        session.decode_nal(nal)
+        while (pic := session.get_picture()) is not None:
+            flags.append((pic.conforming, pic.bytes))
+    session.flush()
+    while (pic := session.get_picture()) is not None:
+        flags.append((pic.conforming, pic.bytes))
+    return flags, session.check_conformance()[1]
+
+
+@pytest.mark.parametrize("mode", ["truncate", "corrupt", "garbage"])
+@pytest.mark.parametrize("stream", ["ai64x48", "ai64x48b10", "sp_fast"])
+def test_damaged_nals_on_card(cuda, stream, mode):
+    """The damage of tests/test_torch_fuzz.py on the card: the session on
+    the card gives the CPU device's pictures, bytes, conformance flags
+    and corrupt count, and the card reports no fault."""
+    from xvc_tpu_torch.api import DecoderSession
+    from xvc_tpu_torch.nal import split_nal_units
+    nals = list(split_nal_units(read_data(stream + ".xvc")))
+    for idx in sorted({0, 1, 2, len(nals) // 2, len(nals) - 1}):
+        for seed in (0, 1):
+            bad = _damaged(nals, idx, mode, seed)
+            got = _session_result(DecoderSession(device=cuda), bad)
+            torch.cuda.synchronize()
+            assert got == _session_result(DecoderSession(device="cpu"), bad)
+    pics = decode_stream(read_data(stream + ".xvc"), device=cuda)
+    assert all(p.conforming for p in pics)

@@ -5,9 +5,10 @@ never jax and nothing of xvc_tpu.
   ``xvc_tpu``, every module of the package imports, and ai64x48 decodes on
   the CPU device to its golden; a source scan finds no import of either
   in the package or in chip_smoke.py.
-- tests/data/bench/hd720_ld_dec.sha256, the reference chip_smoke.py
-  compares the card's 720p pictures with, equals the JAX package's host
-  decode of that stream (drained with the blocking pull).
+- tests/data/bench/<stream>_dec.sha256 of the five bench streams, the
+  references chip_smoke.py compares the card's pictures with, equal the
+  JAX package's host decode of each stream (drained with the blocking
+  pull).
 - An entry point called with no device asks for the card and raises
   where there is none, instead of decoding on the CPU.
 """
@@ -85,21 +86,27 @@ def test_no_source_imports_jax_or_xvc_tpu():
     assert not bad, bad
 
 
-def test_hd720_sha256_file_matches_the_jax_package_host_decode():
+BENCH_PICTURES = {"cif_ai": 16, "hd720_ld": 8, "fhd1080_ra": 8,
+                  "qhd1440_ra10": 5, "uhd2160_ra10": 3}
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_PICTURES))
+def test_bench_sha256_file_matches_the_jax_package_host_decode(name):
+    """The hash lists chip_smoke.py holds the card's decodes to."""
     from xvc_tpu.codec.decoder import Decoder
     from xvc_tpu.nal import split_nal_units
     dec = Decoder()
     pics = []
-    for nal in split_nal_units(read_data("bench/hd720_ld.xvc")):
+    for nal in split_nal_units(read_data("bench/%s.xvc" % name)):
         dec.decode_nal(nal)
         while (pic := dec.get_decoded_picture()) is not None:
             pics.append(pic)
     dec.flush()
     while (pic := dec.get_decoded_picture()) is not None:
         pics.append(pic)
-    with open(data_path("bench/hd720_ld_dec.sha256")) as f:
+    with open(data_path("bench/%s_dec.sha256" % name)) as f:
         want = [line.split()[0] for line in f if line.strip()]
-    assert len(pics) == len(want) == 8
+    assert len(pics) == len(want) == BENCH_PICTURES[name]
     assert all(p.conforming for p in pics)
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
 

@@ -18,8 +18,14 @@ from ..engine import resolve_device
 from ..nal import split_nal_units
 from ..segment import DecoderState
 from .cu import ReferencePictureLists
-from .picture_decoder import PictureDecoder, decode_header
+from .picture_decoder import PictureDecoder, decode_header, \
+    describes_picture
 from .ref_lists import ReferenceListSorter
+
+
+class DamagedHeaderError(ValueError):
+    """The pictures after a segment header that cannot describe a picture
+    left no free picture decoder: a parse error of a corrupt stream."""
 
 
 @dataclass
@@ -80,7 +86,9 @@ class Decoder:
     # reference decoder returns error codes / flags conformance instead
     # of aborting (ref: decoder.cc:480-495).  RuntimeError
     # (NotImplementedError, CUDA and kernel faults) and MemoryError are
-    # not parse errors here: they propagate.
+    # not parse errors here: they propagate.  A segment header that cannot
+    # describe a picture is one (its pictures are non-conforming, and
+    # running out of picture decoders after it raises DamagedHeaderError).
     _PARSE_ERRORS = (ValueError, KeyError, IndexError, OverflowError,
                      ZeroDivisionError)
 
@@ -347,6 +355,9 @@ class Decoder:
             if best is None or pic.pic_data.poc < best.pic_data.poc:
                 best = pic
         if best is None:
+            if not describes_picture(sh):
+                raise DamagedHeaderError("no free picture decoder after a "
+                                         "damaged segment header")
             raise RuntimeError("no free picture decoder")
         if (sh.internal_width != best.pic_data.width or
                 sh.internal_height != best.pic_data.height or

@@ -7,7 +7,9 @@ and output are copies of ``xvc_tpu/codec/picture_decoder.py``;
 ``decode`` is the flat branch of that module's ``_decode_impl`` alone: native parse ->
 ``FlatReconstructor`` -> device deblock.  A picture the flat path cannot
 decode raises ``NotImplementedError`` naming the reason; there is no
-host CU path to fall back to.
+host CU path to fall back to.  A segment header that cannot describe a
+picture (damaged: chroma format UNDEFINED, a zero dimension) is no such
+reason: its pictures decode as non-conforming, as in the reference.
 """
 from dataclasses import dataclass
 
@@ -24,6 +26,17 @@ from . import checksum as cksum
 from . import output
 from .cu import PictureData
 from .yuv import YuvPicture
+
+
+_PICTURE_FORMATS = (k.ChromaFormat.MONOCHROME, k.ChromaFormat.YUV420,
+                    k.ChromaFormat.YUV422, k.ChromaFormat.YUV444)
+
+
+def describes_picture(segment):
+    """False for a segment header that cannot describe a picture (a
+    damaged one: chroma format UNDEFINED or a zero dimension)."""
+    return (segment.chroma_format in _PICTURE_FORMATS and
+            segment.internal_width > 0 and segment.internal_height > 0)
 
 
 @dataclass
@@ -189,6 +202,11 @@ class PictureDecoder:
         success."""
         pd = self.pic_data
         restr = segment.restrictions
+        if not describes_picture(segment):
+            # damaged segment header: nothing to reconstruct, the picture
+            # is corrupt (the reference's parse fails the same way)
+            self.output_pic_bytes = b""
+            return False
         if segment.tile_rows >= 2:
             raise NotImplementedError("tile_rows >= 2 (CTU-tile-row "
                                       "extension) is not on the flat path")

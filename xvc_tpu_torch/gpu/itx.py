@@ -1,7 +1,15 @@
 """Dequant + inverse transform + scatter (kernel 2).
 
-Port of ``xvc_tpu/tpu/flat_recon.py`` ``make_itx_scatter_gen`` and
-``make_itx_scatter`` (with ``_fam_stacks``).  ``itx_scatter_gen`` runs
+``itx_picture`` is the decode path's: every coded block of a picture in
+one launch, each derived on the card from the parse's record table and
+coefficient arena (the work of ``xvc_tpu/tpu/flat_recon.py``
+``_build_itx_groups``, which here is done by no host code), with
+``itx_picture_plain`` beside it.
+
+The group entry points port ``xvc_tpu/tpu/flat_recon.py``
+``make_itx_scatter_gen`` and ``make_itx_scatter`` (with
+``_fam_stacks``); both kernels share one per-block device function.
+``itx_scatter_gen`` runs
 blocks of one shape whose vertical and horizontal transform families
 are per-block data (params rows ``[pidx, cy, cx, fam_v, fam_h]``);
 ``itx_scatter`` runs one fixed variant (``gen`` with fixed families,
@@ -18,8 +26,12 @@ import torch
 
 from .. import constants as k
 from ..ops import transform as tx
+from ..ops.quant import Qp
 from .. import kernels
 from . import dsp
+from .records import (C_CBF0, C_COEFF0, C_H, C_PRED, C_QP, C_SPLIT,
+                      C_TSKIP0, C_TT00, C_TT01, C_TT10, C_TT11, C_W, C_X,
+                      C_Y, MIN_COLS)
 
 _MODE = {"gen": 0, "dst4": 0, "dc": 2, "skip": 3}
 
@@ -168,3 +180,190 @@ def itx_scatter_plain(resi, coeff, scale, params, width, height, bitdepth,
             ((xx >= 0) & (xx < W))[:, None, :])
     b, i, j = keep.nonzero(as_tuple=True)
     resi[pidx[b], yy[b, i], xx[b, j]] = out[b, i, j]
+
+
+# ---------------------------------------------------------------------------
+# The whole picture in one launch
+# ---------------------------------------------------------------------------
+
+QP_MIN = k.MIN_ALLOWED_QP                        # column 0 of qp_scales
+QP_COUNT = k.MAX_ALLOWED_QP - k.MIN_ALLOWED_QP + 1
+_SIZES = (2, 4, 8, 16, 32, 64)                  # block sides, log2 1..6
+_NFAM = 5
+
+
+@functools.lru_cache(maxsize=None)
+def qp_scale_table(chroma_format, bitdepth, offset_table, offset_u,
+                   offset_v):
+    """(3, QP_COUNT) int32: ``Qp.get_inv_scale(comp)`` of every raw qp
+    ``QP_MIN + i`` of a segment (what the JAX package's per-leaf
+    ``_qp_scales`` gives, made once per segment)."""
+    out = np.zeros((3, QP_COUNT), np.int32)
+    for i in range(QP_COUNT):
+        qp = Qp(QP_MIN + i, chroma_format, bitdepth, 0.0, offset_table,
+                offset_u, offset_v)
+        out[:, i] = [qp.get_inv_scale(c) for c in range(3)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def picture_bases_np(high_precision):
+    """The inverse bases of every block side 2..64 and all five
+    families, and the DST-4 matrix, in one int32 array, with an index:
+    row ``(log2(side) - 1) * 5 + family`` of ``info`` holds [offset,
+    shift] of that min(side, 32) x side matrix (``_fam_stacks``), the
+    last row those of DST-4 (shift 7)."""
+    mats, info = [], []
+    off = 0
+    for size in _SIZES:
+        M, S = _fam_stacks(size, high_precision)
+        for f in range(_NFAM):
+            mats.append(M[f].reshape(-1))
+            info.append((off, int(S[f])))
+            off += M[f].size
+    mats.append(tx._DST4.astype(np.int32).reshape(-1))
+    info.append((off, 7))
+    return (np.ascontiguousarray(np.concatenate(mats), np.int32),
+            np.asarray(info, np.int32))
+
+
+def _picture_bases(device, high_precision):
+    key = (str(device), "picture", bool(high_precision))
+    t = _DEV_BASES.get(key)
+    if t is None:
+        t = tuple(torch.as_tensor(a, device=device)
+                  for a in picture_bases_np(bool(high_precision)))
+        _DEV_BASES[key] = t
+    return t
+
+
+def log2_sides(v, lo, hi):
+    """log2 of each side that is a power of two in [lo, hi], else -1."""
+    out = torch.full_like(v, -1)
+    for s in range(lo.bit_length() - 1, hi.bit_length()):
+        out = torch.where(v == (1 << s), s, out)
+    return out
+
+
+def itx_jobs(records, ncoeff, qp_scales, bitdepth, no_dst, sx, sy, dims):
+    """The coded blocks of a picture, derived from its record table as
+    ``_build_itx_groups`` derives them, one dict of int64 tensors per
+    component: a leaf of either tree for each component with its CBF set
+    and a coefficient offset.  dims: [(H, W)] of the luma plane, then
+    of the chroma planes (absent for monochrome).  A record that fails a
+    guard (a side that is no power of two in 2..64, coefficients past the
+    arena, an origin outside the plane, a qp outside the table) drops its
+    block, as the kernel does."""
+    r = records.long()
+    leaf = r[:, C_SPLIT] == 0
+    DEFAULT = int(k.TransformType.DEFAULT)
+    jobs = []
+    for comp in range(1 if len(dims) == 1 else 3):
+        csx, csy = (0, 0) if comp == 0 else (sx, sy)
+        H, W = dims[min(comp, 1)]
+        x, y = r[:, C_X] >> csx, r[:, C_Y] >> csy
+        w, h = r[:, C_W] >> csx, r[:, C_H] >> csy
+        wl2, hl2 = log2_sides(w, 2, 64), log2_sides(h, 2, 64)
+        off = r[:, C_COEFF0 + comp]
+        qi = r[:, C_QP] - QP_MIN
+        keep = (leaf & (r[:, C_CBF0 + comp] != 0) & (off >= 0) &
+                (wl2 > 0) & (hl2 > 0) & (off + w * h <= ncoeff) &
+                (x >= 0) & (x < W) & (y >= 0) & (y < H) &
+                (qi >= 0) & (qi < QP_COUNT))
+        i = keep.nonzero()[:, 0]
+        t0 = r[i, C_TT00 if comp == 0 else C_TT10]
+        t1 = r[i, C_TT01 if comp == 0 else C_TT11]
+        w, h, wl2, hl2 = w[i], h[i], wl2[i], hl2[i]
+        scale = qp_scales[comp].long()[qi[i]]
+        scale = dsp._wrap32(torch.where((wl2 + hl2) % 2 != 0, scale * 181,
+                                        scale)).long()
+        tskip = r[i, C_TSKIP0 + comp] != 0
+        dst4 = ((comp == 0) & (r[i, C_PRED] == 0) & (t0 == DEFAULT) &
+                (t1 == DEFAULT) & (w == 4) & (h == 4) & (not no_dst))
+        # 0 gen (DC-only blocks too), 1 dst4, 3 skip: as in the JAX package
+        var = torch.where(tskip, 3, torch.where(dst4, 1, 0))
+        jobs.append(dict(comp=comp, x=x[i], y=y[i], w=w, h=h, var=var,
+                         scale=scale, off=off[i],
+                         fam1=t0.clamp(min=1) - 1, fam2=t1.clamp(min=1) - 1))
+    return jobs
+
+
+def _check_picture(resi_l, resi_c, records, coeff, qp_scales):
+    kernels.require(resi_l, torch.int32, 3, "resi_l")
+    if resi_c is not None:
+        kernels.require(resi_c, torch.int32, 3, "resi_c")
+        if resi_c.shape[0] != 2:
+            raise ValueError("resi_c must be (2, Hc, Wc), got %r"
+                             % (tuple(resi_c.shape),))
+    kernels.require(records, torch.int32, 2, "records")
+    kernels.require(coeff, torch.int32, 1, "coeff")
+    kernels.require(qp_scales, torch.int32, 2, "qp_scales")
+    if resi_l.shape[0] != 1 or records.shape[1] < MIN_COLS or \
+            tuple(qp_scales.shape) != (3, QP_COUNT):
+        raise ValueError("itx_picture: resi_l %r, records %r, qp_scales %r"
+                         % (tuple(resi_l.shape), tuple(records.shape),
+                            tuple(qp_scales.shape)))
+
+
+def itx_picture(resi_l, resi_c, records, coeff, qp_scales, bitdepth,
+                high_precision, no_dst, sx, sy):
+    """In place: dequantize, inverse-transform and store every coded
+    block of the picture whose parse gave ``records`` (int32 (N, >= 71))
+    and ``coeff`` (the int32 coefficient arena) into ``resi_l`` (1, H, W)
+    and ``resi_c`` (2, Hc, Wc; None for monochrome), int32.  qp_scales:
+    ``qp_scale_table`` of the segment, on the same device.  One launch of
+    ``xvc_itx_picture`` on the card; ``itx_picture_plain`` on the CPU."""
+    _check_picture(resi_l, resi_c, records, coeff, qp_scales)
+    tensors = [resi_l, records, coeff, qp_scales]
+    if resi_c is not None:
+        tensors.append(resi_c)
+    if not kernels.on_cuda(*tensors):
+        itx_picture_plain(resi_l, resi_c, records, coeff, qp_scales,
+                          bitdepth, high_precision, no_dst, sx, sy)
+        return
+    if records.shape[0] == 0:
+        return
+    from ..kernels import build
+    mats, info = _picture_bases(resi_l.device, high_precision)
+    _, H, W = resi_l.shape
+    Hc, Wc = resi_c.shape[1:] if resi_c is not None else (0, 0)
+    cfg = np.array([records.shape[0], records.shape[1], coeff.numel(),
+                    bitdepth, int(bool(no_dst)), sx, sy,
+                    1 if resi_c is None else 3, H, W, Hc, Wc, QP_MIN,
+                    QP_COUNT], np.int32)
+    rc = build.lib().xvc_itx_picture(
+        build.ptr(records), build.ptr(coeff), build.ptr(qp_scales),
+        build.ptr(mats), build.ptr(info), build.ptr(resi_l),
+        None if resi_c is None else build.ptr(resi_c), cfg.ctypes.data,
+        cfg.size, build.stream_of(resi_l))
+    build.check(rc, "itx_picture")
+    kernels.LAUNCHES["itx_picture"] += 1
+
+
+def itx_picture_plain(resi_l, resi_c, records, coeff, qp_scales, bitdepth,
+                      high_precision, no_dst, sx, sy):
+    """Plain PyTorch version of ``itx_picture``: the blocks of
+    ``itx_jobs``, grouped by (w, h, variant), through
+    ``itx_scatter_plain``."""
+    dims = [tuple(resi_l.shape[1:])]
+    if resi_c is not None:
+        dims.append(tuple(resi_c.shape[1:]))
+    names = {0: None, 1: "dst4", 3: "skip"}
+    for job in itx_jobs(records, coeff.numel(), qp_scales, bitdepth,
+                        no_dst, sx, sy, dims):
+        resi = resi_l if job["comp"] == 0 else resi_c
+        pidx = 0 if job["comp"] == 0 else job["comp"] - 1
+        keys = torch.stack([job["w"], job["h"], job["var"]], 1)
+        for w, h, var in sorted({tuple(v) for v in keys.tolist()}):
+            m = (keys == torch.tensor([w, h, var],
+                                      device=keys.device)).all(1)
+            offs = job["off"][m]
+            idx = offs[:, None] + torch.arange(w * h, device=offs.device)
+            cf = coeff.long()[idx].to(torch.int16).reshape(-1, h, w)
+            rows = [torch.full_like(offs, pidx), job["y"][m], job["x"][m]]
+            if var == 0:
+                rows += [job["fam1"][m], job["fam2"][m]]
+            params = torch.stack(rows).to(torch.int32)
+            itx_scatter_plain(resi, cf, job["scale"][m].to(torch.int32),
+                              params, w, h, bitdepth, high_precision,
+                              names[var])

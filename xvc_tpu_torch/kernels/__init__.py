@@ -8,7 +8,8 @@ can show that its main path went through the kernels.  ``deblock_edges``
 counts one call of ``xvc_deblock_edges``, which enqueues the map paint
 and the edge derivation back to back.
 """
-LAUNCHES = {"mc": 0, "itx": 0, "deblock_edges": 0, "deblock_luma": 0,
+LAUNCHES = {"mc": 0, "itx": 0, "mc_picture": 0, "itx_picture": 0,
+            "deblock_edges": 0, "deblock_luma": 0,
             "deblock_chroma": 0, "satd": 0, "intra_luma": 0,
             "intra_chroma": 0}
 

@@ -34,6 +34,8 @@ SIGNATURES = {
                        _P, _I, _I, _I, _P, _I, _P],
     "xvc_itx_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "xvc_itx_picture": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "xvc_mc_picture": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     "xvc_deblock_edges": [_P, _P, _P, _P, _P],
     "xvc_deblock_luma": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P],
