@@ -29,22 +29,31 @@ Phases:
      checkout TREE (a parent commit, say) on the same inputs, in a child
      process; the picture kernels on the record tables of every picture
      of hd720_ld and of one picture of each other bench stream (parsed on
-     the CPU, the frame store from a seed), on synthetic tables
+     the CPU, the frame store from a seed) and on every picture of the
+     goldens the flat path refuses (4:2:2 and 4:4:4, intra and inter, a
+     restricted toolset, LIC), on synthetic tables
      (xvc_tpu_torch/gpu/flat_cases.py) and with damaged rows appended,
-     each timed per picture of hd720_ld beside its bound;
-  3  decode path: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
-     pictures) with xvc_tpu_torch.codec.decoder.decode_stream on the
-     card; every picture must be checksum-conforming and equal the
-     recorded host decode (tests/data/bench/hd720_ld_dec.sha256), the
-     launch count of every kernel of that path must be above 0 and that
-     of the group ITX / MC kernels 0; then the other bench streams
-     (cif_ai, fhd1080_ra, qhd1440_ra10 at 10 bit, uhd2160_ra10 at 10
-     bit) the same way, with the scans' status words of every launch;
-     then for hd720_ld and fhd1080_ra the stage profile of one more
-     decode with synchronising spans (xvc_tpu_torch.profiling) and the
-     device's busy share of a decode (torch.profiler, busy time and
-     decode time from the same run);
-  4  goldens: sp_fast, ai64x48 and ai64x48b10 against tests/data;
+     each timed per picture of hd720_ld and of hd720_lic beside its
+     bound;
+  3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
+     pictures, the flat path) with xvc_tpu_torch.codec.decoder.
+     decode_stream on the card; every picture must be
+     checksum-conforming and equal the recorded host decode
+     (tests/data/bench/hd720_ld_dec.sha256), the launch count of every
+     kernel of that path must be above 0 and that of the group ITX / MC
+     kernels 0; then hd720_lic (1280x720, 8 pictures, LIC on in the 7
+     inter pictures: the replay path of gpu/recon.py, with its host tail)
+     and the other bench streams (cif_ai, fhd1080_ra, qhd1440_ra10 at
+     10 bit, uhd2160_ra10 at 10 bit) the same way, with the scans' status
+     words of every launch and the host tail's blocks per replayed
+     picture; then for hd720_ld, hd720_lic and fhd1080_ra the stage
+     profile of one more decode with synchronising spans
+     (xvc_tpu_torch.profiling) and the device's busy share of a decode
+     (torch.profiler, busy time and decode time from the same run);
+  4  goldens: every golden of tests/data with a _dec.yuv (33 streams,
+     each held to its golden and its picture count; 23 of them take the
+     replay path) and the 4:2:2 / 4:4:4 inter streams c422_ra64x48 and
+     c444_ra64x48 (held to their _dec.sha256);
   5  lookahead path: the luma plane of picture 0 of phase 3 (1280x720,
      8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
      the card, sizes 4/8/16/32, 67 modes; the maps must equal the same
@@ -99,15 +108,40 @@ DECODE_KERNELS = ("mc_picture", "itx_picture", "deblock_edges",
                   "intra_chroma")
 OFF_DECODE_KERNELS = ("mc", "itx")
 # the bench streams phase 3 decodes, with their pictures: hd720_ld is the
-# main path
-BENCH = (("hd720_ld", 8), ("cif_ai", 16), ("fhd1080_ra", 8),
-         ("qhd1440_ra10", 5), ("uhd2160_ra10", 3))
-PROFILED = ("hd720_ld", "fhd1080_ra")
+# flat path's main stream, hd720_lic (LIC on in every inter picture) the
+# replay path's (gpu/recon.py)
+BENCH = (("hd720_ld", 8), ("hd720_lic", 8), ("cif_ai", 16),
+         ("fhd1080_ra", 8), ("qhd1440_ra10", 5), ("uhd2160_ra10", 3))
+RECON_STREAM = "hd720_lic"
+PROFILED = ("hd720_ld", "hd720_lic", "fhd1080_ra")
 # phase 2: the pictures whose record tables the picture kernels are held
-# and timed on (decode-order indices); every picture of hd720_ld
-PICTURE_CASES = (("hd720_ld", tuple(range(8))), ("cif_ai", (0,)),
-                 ("fhd1080_ra", (3,)), ("qhd1440_ra10", (1,)),
-                 ("uhd2160_ra10", (1,)))
+# on (decode-order indices; paths under tests/data): every picture of
+# hd720_ld and hd720_lic (the two timed), one picture of each other bench
+# stream, and every picture of goldens the flat path refuses: 4:2:2 and
+# 4:4:4 (c4*_ra64x48 with inter pictures), a restricted toolset, LIC
+PICTURE_CASES = (("bench/hd720_ld", tuple(range(8))),
+                 ("bench/hd720_lic", tuple(range(8))),
+                 ("bench/cif_ai", (0,)), ("bench/fhd1080_ra", (3,)),
+                 ("bench/qhd1440_ra10", (1,)), ("bench/uhd2160_ra10", (1,)),
+                 ("cf_c422", (0, 1)), ("cf_c444", (0, 1)),
+                 ("c422_ra64x48", tuple(range(5))),
+                 ("c444_ra64x48", tuple(range(5))),
+                 ("rm1_64x48", (0, 1, 2)), ("ra64x48", tuple(range(10))))
+TIMED_STREAMS = ("bench/hd720_ld", "bench/hd720_lic")
+# phase 4: every golden of tests/data with a _dec.yuv, with its picture
+# count (the JAX package's host decode of each gives the same), and the
+# port's own 4:2:2 / 4:4:4 inter streams with their _dec.sha256 (the JAX
+# package's host decode)
+GOLDENS = {"ai16x16": 2, "ai352x288": 2, "ai44x36": 2, "ai64x48": 3,
+           "ai64x48b10": 2, "ai64x48q27": 2, "ai64x48q37": 2, "b12": 2,
+           "cf_c422": 2, "cf_c444": 2, "cf_mono": 2, "cg48x32": 6,
+           "enc_encap": 3, "ld64x48": 8, "ra128x96": 17, "ra64x48": 10,
+           "ra64x48b10": 9, "ra96x64pl": 9, "radbg": 10, "res16x24": 2,
+           "res20x36": 2, "res24x16": 2, "res44x20": 2, "rm1_64x48": 3,
+           "rm2_64x48": 3, "rm3_64x48": 3, "rm4_64x48": 3,
+           "scal16to24": 17, "sp_cksum0": 6, "sp_fast": 6,
+           "sp_leadpics": 6, "sp_placebo": 6, "sp_tunepsnr": 6}
+HASHED = (("c422_ra64x48", 5), ("c444_ra64x48", 5))
 LOOKAHEAD_KERNELS = ("satd",)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
@@ -306,8 +340,8 @@ def itx_picture_bound(pic):
     import torch
     from xvc_tpu_torch import constants as k
     from xvc_tpu_torch.gpu import itx
-    fmt = k.ChromaFormat.MONOCHROME if pic["mono"] else k.ChromaFormat.YUV420
-    qps = itx.qp_scale_table(fmt, pic["bitdepth"], *pic["qp_key"])
+    qps = itx.qp_scale_table(k.ChromaFormat(pic["chroma_format"]),
+                             pic["bitdepth"], *pic["qp_key"])
     dims = [(pic["height"], pic["width"])] + \
         ([] if pic["mono"] else [(pic["Hc"], pic["Wc"])])
     nbytes = pic["records"].nbytes + qps.nbytes
@@ -990,8 +1024,10 @@ def phase_picture_kernels(torch, dev, res):
     versions: on the record tables of PICTURE_CASES (parsed on the CPU by
     flat_cases.parse_pictures; the frame store of MC from a seed), on the
     synthetic tables of flat_cases and with damaged rows appended (which
-    must change nothing); each kernel timed on every picture of hd720_ld
-    (MC: its inter pictures) beside its bound and its plain version."""
+    must change nothing); each kernel timed on every picture of the
+    TIMED_STREAMS (MC: their inter pictures) beside its bound and its
+    plain version: hd720_ld's mean is the flat path's row of the kernels
+    line, hd720_lic's (``recon``) the replay path's."""
     import numpy as np
     from xvc_tpu_torch import kernels
     from xvc_tpu_torch.gpu import flat_cases, itx, mc
@@ -1023,7 +1059,7 @@ def phase_picture_kernels(torch, dev, res):
     cases = 0
     real = {}
     for name, pictures in PICTURE_CASES:
-        with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
+        with open(os.path.join(DATA, name + ".xvc"), "rb") as f:
             got = flat_cases.parse_pictures(f.read(), set(pictures))
         for n in pictures:
             real[name, n] = got[n]
@@ -1042,7 +1078,7 @@ def phase_picture_kernels(torch, dev, res):
         err["mc_picture"] = max(err["mc_picture"], e_mc)
         cases += 1
     # damaged rows: dropped, and the card reports no fault
-    for pic in (flat_cases.synthetic_picture(5), real["hd720_ld", 3]):
+    for pic in (flat_cases.synthetic_picture(5), real["bench/hd720_ld", 3]):
         bad = np.concatenate([flat_cases.damaged_rows(pic, "itx"),
                               flat_cases.damaged_rows(pic, "mc")])
         _, clean = both(pic)
@@ -1059,9 +1095,13 @@ def phase_picture_kernels(torch, dev, res):
             raise AssertionError("%s differs from its plain version by %d"
                                  % (kernel, e))
 
-    # timed on every picture of the main path (MC: the inter ones)
+    # timed on every picture of the main paths (MC: the inter ones)
     per = {"itx_picture": [], "mc_picture": []}
     for (name, n), pic in sorted(real.items()):
+        if not name.startswith("bench/"):
+            continue
+        timed = name in TIMED_STREAMS
+        name = name[len("bench/"):]
         a = flat_cases.itx_args(pic, dev)
         ib = itx_picture_bound(pic)
         row = dict(stream=name, picture=n, blocks=ib["blocks"],
@@ -1071,7 +1111,7 @@ def phase_picture_kernels(torch, dev, res):
                    device_ms=device_ms(torch, lambda: itx.itx_picture(*a),
                                        "itx_picture_kernel"),
                    plain_ms=cuda_ms(torch, lambda: itx.itx_picture_plain(*a),
-                                    2) if name == "hd720_ld" else None)
+                                    2) if timed else None)
         per["itx_picture"].append(row)
         if not pic["inter"]:
             continue
@@ -1085,19 +1125,30 @@ def phase_picture_kernels(torch, dev, res):
             device_ms=device_ms(torch, lambda: mc.mc_picture(*b),
                                 "mc_picture_kernel"),
             plain_ms=cuda_ms(torch, lambda: mc.mc_picture_plain(*b), 2)
-            if name == "hd720_ld" else None))
-    for kernel, rows in per.items():
-        main = [r for r in rows if r["stream"] == "hd720_ld"]
+            if timed else None))
+
+    def summary(kernel, stream):
+        main = [r for r in per[kernel] if r["stream"] == stream]
         mean = lambda key: None if None in [r[key] for r in main] else \
             sum(r[key] for r in main) / len(main)
-        res[kernel] = dict(
+        return dict(
             max_abs_err=err[kernel],
             **bound(mean("bytes"), mean("operations")),
-            shape="hd720_ld, the mean launch over its %d %spictures" % (
-                len(main), "inter " if kernel == "mc_picture" else ""),
+            shape="%s, the mean launch over its %d %spictures" % (
+                stream, len(main), "inter " if kernel == "mc_picture"
+                else ""),
             ms=mean("ms"), device_ms=mean("device_ms"),
-            plain_ms=mean("plain_ms"), per_picture=rows)
+            plain_ms=mean("plain_ms"))
+
+    for kernel, rows in per.items():
+        res[kernel] = dict(summary(kernel, "hd720_ld"), per_picture=rows,
+                           recon=summary(kernel, RECON_STREAM))
         r = res[kernel]
+        log("phase 2: %s on %s: kernel %.4f ms (device time alone %s ms), "
+            "plain %.4f ms, bound %.6f ms (%s)" % (
+                kernel, r["recon"]["shape"], r["recon"]["ms"],
+                r["recon"]["device_ms"], r["recon"]["plain_ms"],
+                r["recon"]["bound_ms"], r["recon"]["bound_by"]))
         log("phase 2: %s bit-exact over %d record tables (real, synthetic, "
             "damaged); %s: kernel %.4f ms (device time alone %s ms), plain "
             "%.4f ms, bound %.6f ms (%s); per picture (stream, picture, ms, "
@@ -1246,11 +1297,21 @@ def scan_statuses(torch, data, dev):
     """Decode ``data`` once with every scan launch's status words read
     back right after it (a synchronise each): per kernel, how many
     plane launches took each schedule (wavefront / decode-order tickets
-    / ordered) and the largest breach flags seen."""
+    / ordered) and the largest breach flags seen; and per picture of the
+    replay path (gpu/recon.py) the blocks of its host tail, in decode
+    order (key ``tail_blocks``)."""
     from xvc_tpu_torch.codec.decoder import decode_stream
     from xvc_tpu_torch.gpu import intra_scan as scan
+    from xvc_tpu_torch.gpu import recon
     seen = {"intra_luma": [], "intra_chroma": []}
     orig = scan.intra_scan, scan.intra_chroma_scan
+    tails = []
+    recon_run = recon.Reconstructor.run
+
+    def run(self):
+        out = recon_run(self)
+        tails.append((self.pd.poc, recon.LAST_TAIL_BLOCKS))
+        return out
 
     def read(name):
         torch.cuda.synchronize()
@@ -1265,10 +1326,12 @@ def scan_statuses(torch, data, dev):
         read("intra_chroma")
 
     scan.intra_scan, scan.intra_chroma_scan = luma, chroma
+    recon.Reconstructor.run = run
     try:
         decode_stream(data, device=dev)
     finally:
         scan.intra_scan, scan.intra_chroma_scan = orig
+        recon.Reconstructor.run = recon_run
     out = {}
     for name, words in seen.items():
         kinds = {}
@@ -1279,6 +1342,7 @@ def scan_statuses(torch, data, dev):
         out[name] = dict(planes=kinds,
                          breach=max([w[2] for w in words], default=0),
                          rows=sum(w[1] for w in words))
+    out["tail_blocks"] = tails
     return out
 
 
@@ -1337,13 +1401,21 @@ def decode_bench(torch, dev, name, count):
 
 
 def phase_decode(torch, dev):
-    """The bench streams; hd720_ld first, the main path, whose launches
-    must cover every kernel of DECODE_KERNELS."""
+    """The bench streams; hd720_ld first, the flat path's main stream,
+    then hd720_lic, the replay path's: the launches of each must cover
+    every kernel of DECODE_KERNELS, and hd720_lic's inter pictures must
+    all take the replay path's host tail."""
     out = {}
     for name, count in BENCH:
         out[name], pics = decode_bench(torch, dev, name, count)
         if name == "hd720_ld":
             pic0 = pics[0]
+        if name == RECON_STREAM:
+            tails = out[name]["scan_status"]["tail_blocks"]
+            if len(tails) != count - 1 or min(t for _, t in tails) <= 0:
+                raise AssertionError("%s: host tail blocks per replayed "
+                                     "picture %r" % (name, tails))
+        if name in ("hd720_ld", RECON_STREAM):
             for kernel in DECODE_KERNELS:
                 if out[name]["launches"][kernel] <= 0:
                     raise AssertionError("kernel %s was not launched"
@@ -1405,17 +1477,53 @@ def phase_stage_profile(torch, name):
 
 
 def phase_goldens(dev):
+    """Every golden on the card, held to its _dec.yuv and its picture
+    count, and the HASHED streams to their _dec.sha256; the flat and the
+    replay path both, with the launch counts of the replay path's
+    kernels over all of them."""
+    from xvc_tpu_torch import kernels
     from xvc_tpu_torch.codec.decoder import decode_stream
-    for name, count in (("sp_fast", 6), ("ai64x48", 3), ("ai64x48b10", 2)):
-        with open(os.path.join(DATA, name + ".xvc"), "rb") as f:
-            data = f.read()
-        with open(os.path.join(DATA, name + "_dec.yuv"), "rb") as f:
-            want = f.read()
-        pics = decode_stream(data, device=dev)
-        if len(pics) != count or not all(p.conforming for p in pics) or \
-                b"".join(p.bytes for p in pics) != want:
-            raise AssertionError("golden %s differs" % name)
-    log("phase 4: sp_fast, ai64x48, ai64x48b10 equal their goldens")
+    from xvc_tpu_torch.gpu import recon
+    replayed = [0]
+    recon_run = recon.Reconstructor.run
+
+    def run(self):
+        replayed[0] += 1
+        return recon_run(self)
+
+    recon.Reconstructor.run = run
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for name, count in sorted(GOLDENS.items()) + list(HASHED):
+            with open(os.path.join(DATA, name + ".xvc"), "rb") as f:
+                pics = decode_stream(f.read(), device=dev)
+            if name in GOLDENS:
+                with open(os.path.join(DATA, name + "_dec.yuv"), "rb") as f:
+                    same = b"".join(p.bytes for p in pics) == f.read()
+            else:
+                with open(os.path.join(DATA, name + "_dec.sha256")) as f:
+                    want = [line.split()[0] for line in f if line.strip()]
+                same = [hashlib.sha256(p.bytes).hexdigest()
+                        for p in pics] == want
+            if len(pics) != count or not same or \
+                    not all(p.conforming for p in pics):
+                raise AssertionError("golden %s differs (%d pictures, %d "
+                                     "expected)" % (name, len(pics), count))
+    finally:
+        recon.Reconstructor.run = recon_run
+    launches = dict(kernels.LAUNCHES)
+    for kernel in ("itx_picture", "mc_picture", "deblock_edges",
+                   "deblock_luma", "deblock_chroma"):
+        if launches[kernel] <= 0:
+            raise AssertionError("kernel %s was not launched" % kernel)
+    log("phase 4: %d goldens equal their _dec.yuv and %d streams their "
+        "_dec.sha256, every picture conforming, in %.2f s; %d pictures on "
+        "the replay path; launches %s" % (
+            len(GOLDENS), len(HASHED), time.perf_counter() - t0,
+            replayed[0], launches))
+    return dict(goldens=len(GOLDENS), hashed=len(HASHED),
+                replayed_pictures=replayed[0], launches=launches)
 
 
 def phase_lookahead(torch, dev, pic):
@@ -1529,7 +1637,7 @@ def main():
     res = phase_kernels(torch, dev, parent)
     dec, pic0 = phase_decode(torch, dev)
     stages = {name: phase_stage_profile(torch, name) for name in PROFILED}
-    phase_goldens(dev)
+    goldens = phase_goldens(dev)
     look = phase_lookahead(torch, dev, pic0)
     for module in ("jax", "xvc_tpu"):
         if module in sys.modules:
@@ -1539,8 +1647,10 @@ def main():
                     "native_build_seconds": native_s, "decode": dec,
                     "picture_kernels": {
                         n: dict(per_picture=res[n]["per_picture"],
-                                mean_device_ms=res[n]["device_ms"])
+                                mean_device_ms=res[n]["device_ms"],
+                                recon=res[n]["recon"])
                         for n in ("itx_picture", "mc_picture")},
+                    "goldens": goldens,
                     "lookahead": look, "satd_fused_ms": res["satd"]["fused_ms"],
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],

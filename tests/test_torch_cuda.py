@@ -5,8 +5,10 @@ fixture decides); on the card they run with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.  They import no
 JAX (the machine with the card has none): each kernel is held against
 its plain PyTorch version on the same CUDA inputs, bit-exact, the
-device decode against the goldens and the recorded host decodes
-(tests/data/bench/<stream>_dec.sha256 of the five bench streams), damaged
+device decode (both paths: the flat one and the replay one of
+gpu/recon.py) against every golden and the recorded host decodes
+(tests/data/bench/<stream>_dec.sha256 of the six bench streams,
+tests/data/c4*_ra64x48_dec.sha256), damaged
 streams against the same session on the CPU device (no sticky CUDA
 error), and the lookahead on the card against the same call on the CPU
 device.
@@ -298,6 +300,44 @@ def test_deblock_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         deblock.luma_pass(plane, xs, mask, tc, beta, 8, (False,) * 5, 1)
     with pytest.raises(RuntimeError):
         deblock.luma_pass(plane, xs, mask, tc, beta, 16, (False,) * 5)
+
+
+# every golden with a _dec.yuv and its picture count (the JAX package's
+# host decode gives the same counts)
+GOLDENS = {"ai16x16": 2, "ai352x288": 2, "ai44x36": 2, "ai64x48": 3,
+           "ai64x48b10": 2, "ai64x48q27": 2, "ai64x48q37": 2, "b12": 2,
+           "cf_c422": 2, "cf_c444": 2, "cf_mono": 2, "cg48x32": 6,
+           "enc_encap": 3, "ld64x48": 8, "ra128x96": 17, "ra64x48": 10,
+           "ra64x48b10": 9, "ra96x64pl": 9, "radbg": 10, "res16x24": 2,
+           "res20x36": 2, "res24x16": 2, "res44x20": 2, "rm1_64x48": 3,
+           "rm2_64x48": 3, "rm3_64x48": 3, "rm4_64x48": 3,
+           "scal16to24": 17, "sp_cksum0": 6, "sp_fast": 6,
+           "sp_leadpics": 6, "sp_placebo": 6, "sp_tunepsnr": 6}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_every_golden_decodes_on_card(cuda, name):
+    """Both device paths: the flat one and the replay one (gpu/recon.py:
+    LIC, 4:2:2 / 4:4:4, restricted toolsets), ITX, MC and deblock on the
+    card."""
+    kernels.reset_launches()
+    pics = decode_stream(read_data(name + ".xvc"), device=cuda)
+    assert len(pics) == GOLDENS[name] and all(p.conforming for p in pics)
+    assert b"".join(p.bytes for p in pics) == read_data(name + "_dec.yuv")
+    assert kernels.LAUNCHES["itx_picture"] == len(pics)
+    # radbg is coded with deblocking off
+    assert (kernels.LAUNCHES["deblock_luma"] > 0) == (name != "radbg")
+
+
+@pytest.mark.parametrize("name", ["c422_ra64x48", "c444_ra64x48"])
+def test_chroma_inter_streams_decode_on_card(cuda, name):
+    with open(data_path(name + "_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    kernels.reset_launches()
+    pics = decode_stream(read_data(name + ".xvc"), device=cuda)
+    assert len(pics) == len(want) == 5 and all(p.conforming for p in pics)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert kernels.LAUNCHES["mc_picture"] == 4
 
 
 @pytest.mark.parametrize("name,count", [("ai64x48", 3), ("ai64x48b10", 2),
@@ -651,9 +691,16 @@ def test_intra_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # The picture kernels: ITX and MC of a whole picture from its records
 # ---------------------------------------------------------------------------
 
-REAL_PICTURES = [("hd720_ld", 0), ("hd720_ld", 3), ("cif_ai", 0),
-                 ("fhd1080_ra", 3), ("qhd1440_ra10", 1),
-                 ("uhd2160_ra10", 1)]
+# (stream under tests/data, decode-order index): pictures of the flat
+# path, then of the replay path (LIC, 4:2:2 and 4:4:4 intra and inter, a
+# restricted toolset)
+REAL_PICTURES = [("bench/hd720_ld", 0), ("bench/hd720_ld", 3),
+                 ("bench/cif_ai", 0), ("bench/fhd1080_ra", 3),
+                 ("bench/qhd1440_ra10", 1), ("bench/uhd2160_ra10", 1),
+                 ("bench/hd720_lic", 1), ("bench/hd720_lic", 3),
+                 ("cf_c422", 0), ("cf_c444", 0), ("c422_ra64x48", 1),
+                 ("c422_ra64x48", 3), ("c444_ra64x48", 1),
+                 ("c444_ra64x48", 3), ("rm1_64x48", 2), ("ra64x48", 3)]
 SYNTHETIC = {"420": dict(seed=2), "mono": dict(seed=8, mono=True),
              "dual tree 10 bit": dict(seed=8, dual=True, bitdepth=10),
              "no dst, low precision": dict(seed=8, no_dst=True,
@@ -667,7 +714,7 @@ _REAL = {}
 def _real_picture(name, n):
     if (name, n) not in _REAL:
         _REAL[name, n] = flat_cases.parse_pictures(
-            read_data("bench/%s.xvc" % name), {n})[n]
+            read_data(name + ".xvc"), {n})[n]
     return _REAL[name, n]
 
 
@@ -732,7 +779,7 @@ def test_picture_kernels_drop_damaged_rows_without_a_fault(cuda, source):
     outside the table, reference indices outside 0..4 or past their list)
     write nothing, and the card reports no fault."""
     pic = flat_cases.synthetic_picture(5) if source == "synthetic" else \
-        _real_picture("hd720_ld", 3)
+        _real_picture("bench/hd720_ld", 3)
     for kind in ("itx", "mc"):
         bad = flat_cases.damaged_rows(pic, kind)
         clean, _ = _picture_kernel_both(cuda, pic, kind)
@@ -769,8 +816,8 @@ def test_picture_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("name,count,inter", [
-    ("cif_ai", 16, 0), ("hd720_ld", 8, 7), ("fhd1080_ra", 8, 7),
-    ("qhd1440_ra10", 5, 4), ("uhd2160_ra10", 3, 2)])
+    ("cif_ai", 16, 0), ("hd720_ld", 8, 7), ("hd720_lic", 8, 7),
+    ("fhd1080_ra", 8, 7), ("qhd1440_ra10", 5, 4), ("uhd2160_ra10", 3, 2)])
 def test_bench_stream_decodes_on_card(cuda, name, count, inter):
     with open(data_path("bench/%s_dec.sha256" % name)) as f:
         want = [line.split()[0] for line in f if line.strip()]
@@ -784,9 +831,11 @@ def test_bench_stream_decodes_on_card(cuda, name, count, inter):
     assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
 
 
-def test_decode_on_card_never_takes_the_plain_picture_code(cuda):
+@pytest.mark.parametrize("name", ["sp_fast", "ld64x48", "cf_c444"])
+def test_decode_on_card_never_takes_the_plain_picture_code(cuda, name):
     """The plain versions and their job derivations are off the card's
-    decode path: with each of them made to raise, the decode still
+    decode paths (the flat one, sp_fast; the replay one, ld64x48 with
+    LIC, cf_c444): with each of them made to raise, the decode still
     runs."""
     def refuse(*args, **kwargs):
         raise AssertionError("plain ITX / MC code ran on the card's path")
@@ -796,13 +845,13 @@ def test_decode_on_card_never_takes_the_plain_picture_code(cuda):
                                  "itx_scatter_plain")),
                           (mc, ("mc_picture_plain", "mc_jobs",
                                 "mc_scatter_plain"))):
-        for name in names:
-            mp.setattr(module, name, refuse)
+        for fn in names:
+            mp.setattr(module, fn, refuse)
     try:
-        pics = decode_stream(read_data("sp_fast.xvc"), device=cuda)
+        pics = decode_stream(read_data(name + ".xvc"), device=cuda)
     finally:
         mp.undo()
-    assert b"".join(p.bytes for p in pics) == read_data("sp_fast_dec.yuv")
+    assert b"".join(p.bytes for p in pics) == read_data(name + "_dec.yuv")
 
 
 def _damaged(nals, idx, mode, seed):
@@ -836,7 +885,8 @@ def _session_result(session, nals):
 
 
 @pytest.mark.parametrize("mode", ["truncate", "corrupt", "garbage"])
-@pytest.mark.parametrize("stream", ["ai64x48", "ai64x48b10", "sp_fast"])
+@pytest.mark.parametrize("stream", ["ai64x48", "ai64x48b10", "sp_fast",
+                                    "ld64x48", "cf_c422"])
 def test_damaged_nals_on_card(cuda, stream, mode):
     """The damage of tests/test_torch_fuzz.py on the card: the session on
     the card gives the CPU device's pictures, bytes, conformance flags

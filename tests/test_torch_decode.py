@@ -1,12 +1,15 @@
 """The PyTorch port's decode slice as a whole (xvc_tpu_torch), on the CPU
 device: native parse -> flat reconstruction (ITX, MC, combine, intra
 scans) -> device deblock -> frame store, through the user entry points.
+(The replay path of the pictures the flat path refuses, every golden
+through it: tests/test_torch_recon.py.)
 
 - ai64x48, ai64x48b10 and sp_fast (the goldens whose every picture takes
   the flat path) equal their reference decodes byte for byte, every
   picture conforming, with the picture count asserted;
-- pictures the flat path cannot decode (LIC in ld64x48, 4:2:2 in
-  cf_c422) raise NotImplementedError instead of falling back;
+- pictures neither device path decodes (two or four CTU tile rows,
+  streams encoded here by the JAX package's encoder at 64x48) raise
+  NotImplementedError instead of falling back;
 - a CUDA device without a card raises;
 - a decode in a fresh process never imports jax.
 """
@@ -56,11 +59,28 @@ def test_session_api_matches_golden():
     assert sess.check_conformance() == (True, 0)
 
 
-@pytest.mark.parametrize("name,reason", [("ld64x48", "LIC"),
-                                         ("cf_c422", "chroma format")])
-def test_ineligible_pictures_raise(name, reason):
-    with pytest.raises(NotImplementedError, match=reason):
-        decode_stream(read_data(name + ".xvc"), device="cpu")
+def _tile_stream(tile_rows):
+    """One intra 64x48 picture with ``tile_rows`` CTU tile rows (the
+    explicit encoder setting ``tile_rows``), by the JAX package."""
+    import numpy as np
+    from xvc_tpu.codec.encoder import encode_stream
+    from xvc_tpu.codec.encoder_settings import EncoderSettings
+    from xvc_tpu.nal import write_nal_units
+    rng = np.random.RandomState(tile_rows)
+    yuv = rng.randint(0, 256, 64 * 48 * 3 // 2).astype(np.uint8).tobytes()
+    settings = EncoderSettings()
+    settings.initialize_speed(2)
+    settings.tile_rows = tile_rows
+    return write_nal_units(encode_stream(yuv, 64, 48, 1, qp=32,
+                                         settings=settings,
+                                         sub_gop_length=1, num_ref_pics=0,
+                                         checksum_mode=1))
+
+
+@pytest.mark.parametrize("tile_rows", [2, 4])
+def test_ineligible_pictures_raise(tile_rows):
+    with pytest.raises(NotImplementedError, match="tile_rows"):
+        decode_stream(_tile_stream(tile_rows), device="cpu")
 
 
 def test_unsupported_options_raise():

@@ -14,9 +14,9 @@ checksum, a quirk of its own (its ``XVC_DSP=jax`` device path counts as
 the per-CU path does, at some seconds of XLA compiles a stream).  That
 covers a segment header that cannot describe a picture (chroma format
 UNDEFINED, a zero dimension), after which the port counts its pictures
-as corrupt where it used to raise.  The streams are the
-goldens whose every picture the flat path decodes (the reference's
-``ra64x48`` and ``ld64x48`` use LIC, which the port refuses).
+as corrupt where it used to raise.  The streams are goldens of both
+device paths: ai64x48, ai64x48b10 and sp_fast take the flat path,
+ld64x48 (LIC) and cf_c422 (4:2:2) the replay path (``gpu/recon.py``).
 """
 import random
 import types
@@ -30,7 +30,7 @@ from xvc_tpu_torch.codec.decoder import DamagedHeaderError, Decoder
 
 from .util import read_data
 
-STREAMS = ("ai64x48", "ai64x48b10", "sp_fast")
+STREAMS = ("ai64x48", "ai64x48b10", "sp_fast", "ld64x48", "cf_c422")
 MODES = ("truncate", "corrupt", "garbage")
 
 

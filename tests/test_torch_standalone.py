@@ -2,10 +2,11 @@
 never jax and nothing of xvc_tpu.
 
 - In a fresh process whose import system refuses ``jax``, ``jaxlib`` and
-  ``xvc_tpu``, every module of the package imports, and ai64x48 decodes on
-  the CPU device to its golden; a source scan finds no import of either
-  in the package or in chip_smoke.py.
-- tests/data/bench/<stream>_dec.sha256 of the five bench streams, the
+  ``xvc_tpu``, every module of the package imports, and ai64x48 (the flat
+  path) and ld64x48 (LIC: the replay path with its host tail) decode on
+  the CPU device to their goldens; a source scan finds no import of
+  either in the package or in chip_smoke.py.
+- tests/data/bench/<stream>_dec.sha256 of the six bench streams, the
   references chip_smoke.py compares the card's pictures with, equal the
   JAX package's host decode of each stream (drained with the blocking
   pull).
@@ -50,13 +51,14 @@ assert len(names) > 30, names
 assert "xvc_tpu_torch.profiling" in names, names
 
 from xvc_tpu_torch.codec.decoder import decode_stream
-with open(sys.argv[2], "rb") as f:
-    data = f.read()
-with open(sys.argv[3], "rb") as f:
-    want = f.read()
-pics = decode_stream(data, device="cpu")
-assert len(pics) == 3 and all(p.conforming for p in pics)
-assert b"".join(p.bytes for p in pics) == want
+for stream, golden, count in zip(*[iter(sys.argv[2:])] * 3):
+    with open(stream, "rb") as f:
+        data = f.read()
+    with open(golden, "rb") as f:
+        want = f.read()
+    pics = decode_stream(data, device="cpu")
+    assert len(pics) == int(count) and all(p.conforming for p in pics)
+    assert b"".join(p.bytes for p in pics) == want, stream
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("STANDALONE-OK", len(names))
@@ -67,7 +69,8 @@ def test_port_imports_and_decodes_without_jax_and_xvc_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run(
         [sys.executable, "-c", _CHILD, ROOT, data_path("ai64x48.xvc"),
-         data_path("ai64x48_dec.yuv")],
+         data_path("ai64x48_dec.yuv"), "3", data_path("ld64x48.xvc"),
+         data_path("ld64x48_dec.yuv"), "8"],
         capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "STANDALONE-OK" in res.stdout
@@ -86,8 +89,8 @@ def test_no_source_imports_jax_or_xvc_tpu():
     assert not bad, bad
 
 
-BENCH_PICTURES = {"cif_ai": 16, "hd720_ld": 8, "fhd1080_ra": 8,
-                  "qhd1440_ra10": 5, "uhd2160_ra10": 3}
+BENCH_PICTURES = {"cif_ai": 16, "hd720_ld": 8, "hd720_lic": 8,
+                  "fhd1080_ra": 8, "qhd1440_ra10": 5, "uhd2160_ra10": 3}
 
 
 @pytest.mark.parametrize("name", sorted(BENCH_PICTURES))

@@ -1,12 +1,16 @@
 """Per-picture decoding on a torch device: header parse, native CABAC
-parse, flat device reconstruction, device deblock, checksum and output.
+parse, device reconstruction, device deblock, checksum and output.
 
 Behavioral equivalent of the reference picture decoder
 (ref: src/xvc_dec_lib/picture_decoder.cc).  Header handling, checksum
 and output are copies of ``xvc_tpu/codec/picture_decoder.py``;
-``decode`` is the flat branch of that module's ``_decode_impl`` alone: native parse ->
-``FlatReconstructor`` -> device deblock.  A picture the flat path cannot
-decode raises ``NotImplementedError`` naming the reason; there is no
+``decode`` dispatches as that module's ``_decode_impl`` does between its
+two device paths: native parse -> ``FlatReconstructor`` when
+``flat_recon.eligible`` allows it, else native parse with the CU-tree
+replay -> ``recon.Reconstructor`` (LIC, 4:2:2 / 4:4:4, restricted intra
+toolsets); then device deblock.  A picture with a bit depth above 14 or
+with two or more tile rows, which the JAX package decodes on its Python
+paths, raises ``NotImplementedError`` naming the reason; there is no
 host CU path to fall back to.  A segment header that cannot describe a
 picture (damaged: chroma format UNDEFINED, a zero dimension) is no such
 reason: its pictures decode as non-conforming, as in the reference.
@@ -16,6 +20,7 @@ from dataclasses import dataclass
 from .. import constants as k
 from .. import segment as seg
 from ..gpu import flat_recon
+from ..gpu import recon
 from ..gpu.deblock import deblock_picture
 from ..native import pic as native_pic
 from ..ops import resample
@@ -209,21 +214,29 @@ class PictureDecoder:
             return False
         if segment.tile_rows >= 2:
             raise NotImplementedError("tile_rows >= 2 (CTU-tile-row "
-                                      "extension) is not on the flat path")
-        reason = flat_recon.ineligible_reason(pd, restr)
-        if reason is not None:
-            raise NotImplementedError("picture not decodable on the flat "
-                                      "device path: " + reason)
+                                      "extension) is not on the device "
+                                      "paths")
+        if pd.bitdepth > 14:
+            # int16 device surfaces hold samples up to 14 bit
+            raise NotImplementedError("bitdepth %d > 14 is not on the "
+                                      "device paths" % pd.bitdepth)
+        flat = flat_recon.eligible(pd, restr)
         qp = Qp(self.pic_qp, pd.chroma_format, pd.bitdepth, 0.0,
                 segment.chroma_qp_offset_table, segment.chroma_qp_offset_u,
                 segment.chroma_qp_offset_v)
-        pd.init(segment)
+        pd.init(segment, tree=not flat)
         pd._parse_records = None
         with span("decode.parse"):
-            success = native_pic.parse_picture(self, segment, bit_reader, qp)
-        with span("decode.flat"):
-            planes = flat_recon.FlatReconstructor(self, segment,
-                                                  self.device).run()
+            success = native_pic.parse_picture(self, segment, bit_reader, qp,
+                                               replay=not flat)
+        if flat:
+            with span("decode.flat"):
+                planes = flat_recon.FlatReconstructor(self, segment,
+                                                      self.device).run()
+        else:
+            with span("decode.recon"):
+                planes = recon.Reconstructor(self, segment,
+                                             self.device).run()
         if pd.deblock:
             with span("decode.deblock"):
                 filt = DeblockingFilter(pd, self.rec_pic, pd.beta_offset,

@@ -9,7 +9,9 @@ of each reference of each list).
 
 - ``parse_pictures``: the pictures of a stream, parsed by the port's own
   decoder on the CPU with nothing reconstructed (the parse needs no
-  samples), so a test gets real record tables in a fraction of a decode;
+  samples), so a test gets real record tables in a fraction of a decode
+  (of either path's pictures: 4:2:2 and 4:4:4, LIC and restricted
+  toolsets too);
 - ``synthetic_picture``: a record table and an arena from a numpy seed:
   quad and binary splits of 64x64 CTUs over a picture whose right and
   bottom CTUs stick out, intra and inter leaves, every transform variant
@@ -40,8 +42,12 @@ STORE_SLOTS = 4      # frame-store slots of mc_args
 def _picture(records, coeff, bitdepth, width, height, mono=False,
              hp_tx=True, no_dst=False, hp_mv=True, chroma_subpel=True,
              qp_key=(0, 0, 0), ref_dims=None, nrefs=(0, 0), poc=0,
-             pad=None):
-    sx = sy = 0 if mono else 1
+             pad=None, chroma_format=None):
+    if chroma_format is None:
+        chroma_format = k.ChromaFormat.MONOCHROME if mono else \
+            k.ChromaFormat.YUV420
+    sx = 0 if mono else k.chroma_shift_x(chroma_format)
+    sy = 0 if mono else k.chroma_shift_y(chroma_format)
     # the picture's margins, as YuvPicture pads its planes
     pad = (PAD, PAD, PAD >> sx, PAD >> sy) if pad is None else tuple(pad)
     Hc, Wc = height >> sy, width >> sx
@@ -53,6 +59,7 @@ def _picture(records, coeff, bitdepth, width, height, mono=False,
     return dict(records=np.ascontiguousarray(records, np.int32),
                 coeff=np.ascontiguousarray(coeff, np.int32),
                 bitdepth=bitdepth, mono=mono, width=width, height=height,
+                chroma_format=int(chroma_format),
                 Hc=Hc, Wc=Wc, sx=sx, sy=sy, hp_tx=hp_tx, no_dst=no_dst,
                 hp_mv=hp_mv, chroma_subpel=chroma_subpel,
                 qp_key=tuple(qp_key), pad=pad,
@@ -73,7 +80,7 @@ def parse_pictures(data, pictures):
     pictures come out non-conforming; the parse itself (records, arena,
     MVs) is the decode's."""
     from ..codec import decoder
-    from . import flat_recon
+    from . import flat_recon, recon
     got, count = {}, [0]
 
     def capture(self):
@@ -97,12 +104,15 @@ def parse_pictures(data, pictures):
                 not restr.disable_inter_chroma_subpel,
                 (seg.chroma_qp_offset_table, seg.chroma_qp_offset_u,
                  seg.chroma_qp_offset_v), dims, nrefs, pd.poc,
-                (rec.pad_x[0], rec.pad_y[0], rec.pad_x[1], rec.pad_y[1]))
+                (rec.pad_x[0], rec.pad_y[0], rec.pad_x[1], rec.pad_y[1]),
+                pd.chroma_format)
         self.pd.deblock = False   # nothing to deblock
         return None
 
-    run = flat_recon.FlatReconstructor.run
-    flat_recon.FlatReconstructor.run = capture
+    classes = (flat_recon.FlatReconstructor, recon.Reconstructor)
+    runs = [cls.run for cls in classes]
+    for cls in classes:
+        cls.run = capture
     try:
         dec = decoder.Decoder("cpu")
         from ..nal import split_nal_units
@@ -113,7 +123,8 @@ def parse_pictures(data, pictures):
             if count[0] > max(pictures):
                 break
     finally:
-        flat_recon.FlatReconstructor.run = run
+        for cls, run in zip(classes, runs):
+            cls.run = run
     missing = sorted(set(pictures) - set(got))
     if missing:
         raise ValueError("the stream has no pictures %r" % (missing,))
@@ -291,7 +302,7 @@ def itx_args(pic, device, records=None):
     no_dst, sx, sy) of ``itx.itx_picture``; residual planes zeroed."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     zeros = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
-    fmt = k.ChromaFormat.MONOCHROME if pic["mono"] else k.ChromaFormat.YUV420
+    fmt = k.ChromaFormat(pic["chroma_format"])
     return (zeros(1, pic["height"], pic["width"]),
             None if pic["mono"] else zeros(2, pic["Hc"], pic["Wc"]),
             T(pic["records"] if records is None else records),

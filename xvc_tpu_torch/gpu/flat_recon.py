@@ -17,6 +17,10 @@ and the reference table, and the device runs in this order:
      pass, three kernels);
   6. a frame-store write and one download.
 
+Steps 1-4 and the store are shared with the replay path of the pictures
+this path refuses (``gpu/recon.py``, whose ``Reconstructor`` subclasses
+``FlatReconstructor``; ``ineligible_reason`` says which).
+
 Reference pictures live in a per-device ``FrameStore`` (int16 (S, Hp,
 Wp) luma and (S, 2, Hp, Wp) chroma), written in place with ``copy_``
 (the JAX version's donated ``_store_set3``/``_store_set4``).  The padded
@@ -215,8 +219,9 @@ def _intra_restrictions_default(restr):
 
 
 def ineligible_reason(pd, restr):
-    """Why the flat path cannot decode this picture, or None.  Covers
-    the default (unrestricted) toolset on 4:2:0 / monochrome; the
+    """Why the flat path cannot decode this picture, or None (the
+    picture then takes the replay path, ``gpu/recon.py``, up to 14 bit).
+    Covers the default (unrestricted) toolset on 4:2:0 / monochrome; the
     reasons match ``xvc_tpu.tpu.flat_recon.eligible``."""
     if pd.lic_active:
         return "LIC (local illumination compensation) is on"
@@ -290,7 +295,21 @@ def qp_scales_on(device, pd, segment):
     return t
 
 
+def decode_order_leaves(records):
+    """The leaf rows of a record table in decode (z-)order: pool-slot
+    order is allocation order, and the native derive walk exports the
+    decode order (``C_ORDER``)."""
+    leaves = records[records[:, C_SPLIT] == 0]
+    return leaves[np.argsort(leaves[:, C_ORDER], kind="stable")]
+
+
 class FlatReconstructor:
+    """Device reconstruction of a parsed picture.  ``_device_half``,
+    ``_scans`` and ``_visible`` are shared with the replay path
+    (``gpu/recon.py`` ``Reconstructor``, a subclass), whose spans carry
+    its ``STAGE`` prefix instead of ``flat``."""
+    STAGE = "flat"
+
     def __init__(self, pic_decoder, segment, device):
         self.pd = pic_decoder.pic_data
         self.rec = pic_decoder.rec_pic
@@ -308,22 +327,38 @@ class FlatReconstructor:
         it stores the picture and fills the host rec planes (one
         download) and returns None; with deblock it returns the visible
         device planes {comp: (H, W) int16} for ``deblock_picture``."""
+        with span("flat.build"):
+            leaves = decode_order_leaves(self.pd._parse_records)
+            lmeta, cmeta = self._build_intra_meta(leaves)
+        self._device_half(leaves, lmeta, cmeta)
+        self._scans()
+        planes_dev = self._visible()
+        if self.pd.deblock:
+            return planes_dev
+        store_and_download(self.rec, planes_dev, self.device)
+        return None
+
+    def _device_half(self, leaves, lmeta, cmeta):
+        """One upload of the records, the arena, the reference table and
+        the scans' metadata, then ITX, MC and combine (spans
+        ``<STAGE>.upload``, ``<STAGE>.dispatch``).  Leaves on ``self``
+        the zero-padded scan canvases of the reconstruction before the
+        intra scans (``plane_l``, ``plane_c`` int16), the residual
+        canvases (``rpad_l``, ``rpad_c`` int32; chroma None for
+        monochrome) and the scans' metadata on the device (``lmeta``,
+        ``cmeta``, or None)."""
         pd = self.pd
         dev = self.device
+        stage = self.STAGE
         rec_arr = pd._parse_records
         H, W = pd.height, pd.width
         Hc, Wc = self.rec.height[1], self.rec.width[1]
         ph, pw = _pad_canvas_dims(H, W)
         phc, pwc = _pad_canvas_dims(Hc, Wc) if not self.mono else (0, 0)
+        have_inter = bool(((leaves[:, C_TREE] == 0) &
+                           (leaves[:, C_PRED] == 1)).any())
 
-        with span("flat.build"):
-            leaves = rec_arr[rec_arr[:, C_SPLIT] == 0]
-            # pool-slot order is allocation order; the scans need decode
-            # (z-)order, exported by the native derive walk (r[70])
-            leaves = leaves[np.argsort(leaves[:, C_ORDER], kind="stable")]
-            lmeta, cmeta = self._build_intra_meta(leaves)
-            have_inter = bool(((leaves[:, C_TREE] == 0) &
-                               (leaves[:, C_PRED] == 1)).any())
+        with span(stage + ".upload"):
             # the records and the arena go up as they are: the kernels
             # derive every ITX and MC job from them
             batch = dsp.DevBatch()
@@ -331,15 +366,14 @@ class FlatReconstructor:
             h_coeff = batch.add(pd._parse_coeff)
             if have_inter:
                 h_refs = batch.add(self._ref_tables())
-            if lmeta is not None:
-                h_lmeta = batch.add(lmeta)
-            if cmeta is not None:
-                h_cmeta = batch.add(cmeta)
+            metas = [None if m is None else batch.add(m)
+                     for m in (lmeta, cmeta)]
             qp_scales = qp_scales_on(dev, pd, self.segment)
-        with span("flat.upload"):
             batch.upload(dev)
+            self.lmeta, self.cmeta = [None if h is None else batch.get(h)
+                                      for h in metas]
 
-        with span("flat.dispatch"):
+        with span(stage + ".dispatch"):
             zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
             records = batch.get(h_rec)
             resi_l = zeros((1, H, W), torch.int32)
@@ -370,32 +404,37 @@ class FlatReconstructor:
 
             plane_l, rpad_l = combine(pred_l, mask_l, resi_l, H, W, ph, pw,
                                       self.bitdepth)
-            plane_l, rpad_l = plane_l[0], rpad_l[0]
+            self.plane_l, self.rpad_l = plane_l[0], rpad_l[0]
+            self.plane_c = self.rpad_c = None
             if not self.mono:
-                plane_c, rpad_c = combine(pred_c, mask_c, resi_c, Hc, Wc, phc,
-                                          pwc, self.bitdepth)
+                self.plane_c, self.rpad_c = combine(
+                    pred_c, mask_c, resi_c, Hc, Wc, phc, pwc, self.bitdepth)
 
-        # intra scans (decode order; read and write the canvases)
-        if lmeta is not None:
-            with span("flat.intra_scan"):
-                intra_scan.intra_scan(plane_l, rpad_l, batch.get(h_lmeta),
+    def _scans(self):
+        """The intra scans whose metadata ``_device_half`` uploaded
+        (decode order; they read and write the canvases)."""
+        if self.lmeta is not None:
+            with span(self.STAGE + ".intra_scan"):
+                intra_scan.intra_scan(self.plane_l, self.rpad_l, self.lmeta,
                                       self.bitdepth)
-        if cmeta is not None:
-            with span("flat.chroma_scan"):
-                intra_scan.intra_chroma_scan(plane_c, rpad_c, plane_l,
-                                             batch.get(h_cmeta),
+        if self.cmeta is not None:
+            with span(self.STAGE + ".chroma_scan"):
+                intra_scan.intra_chroma_scan(self.plane_c, self.rpad_c,
+                                             self.plane_l, self.cmeta,
                                              self.bitdepth)
 
-        # visible device planes
+    def _visible(self, canvases=None):
+        """The visible area of the canvases (default: the reconstruction
+        canvases), {comp: (H, W) contiguous device plane}."""
+        luma, chroma = canvases or (self.plane_l, self.plane_c)
         pt = intra_scan.PAD_TL
-        planes_dev = {0: plane_l[pt:pt + H, pt:pt + W].contiguous()}
+        H, W = self.pd.height, self.pd.width
+        out = {0: luma[pt:pt + H, pt:pt + W].contiguous()}
         if not self.mono:
-            planes_dev[1] = plane_c[0, pt:pt + Hc, pt:pt + Wc].contiguous()
-            planes_dev[2] = plane_c[1, pt:pt + Hc, pt:pt + Wc].contiguous()
-        if pd.deblock:
-            return planes_dev
-        store_and_download(self.rec, planes_dev, dev)
-        return None
+            Hc, Wc = self.rec.height[1], self.rec.width[1]
+            out[1] = chroma[0, pt:pt + Hc, pt:pt + Wc].contiguous()
+            out[2] = chroma[1, pt:pt + Hc, pt:pt + Wc].contiguous()
+        return out
 
     # ------------------------------------------------------------------
     def _ref_tables(self):
@@ -422,10 +461,11 @@ class FlatReconstructor:
                              rec.pad_y[1]), self.pd.width, self.pd.height)
 
     # ------------------------------------------------------------------
-    def _build_intra_meta(self, leaves):
+    def _build_intra_meta(self, leaves, chroma=True):
         """Luma + chroma scan metadata straight from the records (the
         decode-order availability sbl/sar is exported by the native
-        derive walk, xvcn_pic.inc parse_derive_cu)."""
+        derive walk, xvcn_pic.inc parse_derive_cu); the luma half alone
+        without ``chroma``."""
         pd = self.pd
         lsel = leaves[(leaves[:, C_TREE] == 0) & (leaves[:, C_PRED] == 0)]
         lmeta = None
@@ -441,7 +481,7 @@ class FlatReconstructor:
                 np.clip(lsel[:, C_SBL], 0, 64),
                 np.clip(lsel[:, C_SAR], 0, 64),
                 np.ones(n, np.int64)], axis=1).astype(np.int32)
-        if self.mono:
+        if self.mono or not chroma:
             return lmeta, None
         dual = pd.has_secondary_cu_tree()
         ctree = 1 if dual else 0

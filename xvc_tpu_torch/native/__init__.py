@@ -3,7 +3,8 @@
 The C++ library holds the sequential part of decoding: the CABAC parse
 and the MV derivation of a whole picture (``xvcn_parse_picture``,
 ``csrc/xvcn_pic.inc``), which emit the flat record table the device path
-reconstructs from.  It is compiled with g++ the first time it is needed,
+reconstructs from, and the block predictors of the replay path's host
+tail (``xvcn_intra_*``, ``xvcn_mc_unipred``).  It is compiled with g++ the first time it is needed,
 into ``build/xvc_tpu_torch/`` at the root of the checkout (never next to
 the sources), and cached there under a hash of the sources.
 
@@ -92,5 +93,26 @@ def lib():
             handle.xvcn_export_parse.restype = None
             handle.xvcn_export_parse.argtypes = [c.c_void_p, c.c_int32,
                                                  c.c_void_p]
+            # the host tail of the replay path (ops/intra_pred.py,
+            # codec/inter_mc.py)
+            handle.xvcn_intra_filter_ref.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_void_p,
+                c.c_void_p]
+            handle.xvcn_intra_pred_dc.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int,
+                c.c_void_p]
+            handle.xvcn_intra_pred_planar.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_void_p]
+            handle.xvcn_intra_pred_angular.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
+                c.c_int, c.c_int, c.c_int, c.c_void_p]
+            handle.xvcn_mc_unipred.argtypes = [
+                c.c_int, c.c_void_p, c.c_int64, c.c_int, c.c_int, c.c_int,
+                c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+                c.c_void_p, c.c_int64]
+            for name in ("xvcn_intra_filter_ref", "xvcn_intra_pred_dc",
+                         "xvcn_intra_pred_planar", "xvcn_intra_pred_angular",
+                         "xvcn_mc_unipred"):
+                getattr(handle, name).restype = None
             _lib = handle
     return _lib

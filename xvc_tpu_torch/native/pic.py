@@ -10,9 +10,10 @@ Cross-picture TMVP state is carried by a per-4x4 "motion field" exported
 after each picture and attached to the picture's PictureData; reference
 pictures pass their fields back in.
 
-Copy of the parse half of ``xvc_tpu/native/pic.py``: the whole-picture
-host decode, the host postprocess and the Python CU-tree replay are not
-here.
+Copy of the parse half of ``xvc_tpu/native/pic.py``, with its CU-tree
+replay (``_fast_split``, ``_replay_tree``; the replay path of
+``gpu/recon.py`` reads the tree); the whole-picture host decode and the
+host postprocess are not here.
 """
 import ctypes as c
 
@@ -21,6 +22,7 @@ import numpy as np
 from .. import constants as k
 from ..cabac.contexts import FAMILIES, OFFSETS, CabacContexts
 from ..ops.transform import _TABLES
+from ..profiling import span
 from ..restrictions import ALL_FLAGS
 from . import family_offsets, lib
 
@@ -154,11 +156,82 @@ def mvfield_shape(width, height):
 PARSE_REC_STRIDE = 72  # must match kNParseRecStride in xvcn_pic.inc
 
 
-def parse_picture(pic_decoder, segment, bit_reader, qp):
+def _fast_split(cu, split):
+    """do_split of the reference CU (same child geometry and order,
+    ref: coding_unit.cc Split) with the picture's CU factory."""
+    cu.split = split
+    pic = cu.pic
+    tree = cu.cu_tree
+    x, y, w, h = cu.pos_x, cu.pos_y, cu.width, cu.height
+    sw, sh = w >> 1, h >> 1
+    if split == 1:  # QUAD
+        d = cu.depth + 1
+        cu.sub_cus = [pic.create_cu(tree, d, x, y, sw, sh),
+                      pic.create_cu(tree, d, x + sw, y, sw, sh),
+                      pic.create_cu(tree, d, x, y + sh, sw, sh),
+                      pic.create_cu(tree, d, x + sw, y + sh, sw, sh)]
+    elif split == 2:  # HORIZONTAL
+        cu.sub_cus = [pic.create_cu(tree, cu.depth, x, y, w, sh),
+                      pic.create_cu(tree, cu.depth, x, y + sh, w, sh)]
+    else:  # VERTICAL
+        cu.sub_cus = [pic.create_cu(tree, cu.depth, x, y, sw, h),
+                      pic.create_cu(tree, cu.depth, x + sw, y, sw, h)]
+
+
+def _replay_tree(pd, rec, roots):
+    """Rebuild the CU tree from the exported parse records (record index
+    == native pool slot; child indices are absolute).  Availability marks
+    are not set here: the reconstructor clears and re-marks them in its
+    own decode-order walk."""
+    stack = []
+    for rsaddr in range(pd.get_number_of_ctus()):
+        stack.append((pd.get_ctu(k.CuTree.PRIMARY, rsaddr),
+                      int(roots[2 * rsaddr])))
+        r1 = int(roots[2 * rsaddr + 1])
+        if r1 >= 0:
+            stack.append((pd.get_ctu(k.CuTree.SECONDARY, rsaddr), r1))
+    # raw python ints in the hot loop (IntEnum members compare equal to
+    # them); fresh CUs carry the defaults, so only differing fields are
+    # stored
+    rl = rec.tolist()
+    while stack:
+        cu, i = stack.pop()
+        r = rl[i]
+        split = r[6]
+        if split:
+            _fast_split(cu, split)
+            for j, sub in enumerate(cu.sub_cus):
+                if sub is not None:
+                    stack.append((sub, r[7 + j]))
+            continue
+        cu.split = 0
+        if r[21] or r[22] or r[23]:
+            cu.cbf = [r[21] != 0, r[22] != 0, r[23] != 0]
+        if r[11]:  # inter: final (derived) MVs
+            cu.pred_mode = 1
+            cu.inter_dir = r[16]
+            if r[18]:
+                cu.use_affine = True
+            if r[19]:
+                cu.use_lic = True
+            if r[35] or r[36]:
+                cu.ref_idx = [r[35], r[36]]
+            cu.mv = [[(r[41], r[42]), (r[43], r[44]),
+                      (r[45], r[46]), (r[47], r[48])],
+                     [(r[49], r[50]), (r[51], r[52]),
+                      (r[53], r[54]), (r[55], r[56])]]
+        else:
+            cu.intra_mode_luma = r[39]
+            cu.intra_mode_chroma = r[40]
+
+
+def parse_picture(pic_decoder, segment, bit_reader, qp, replay=False):
     """Native parse + MV derivation: fills ``pd._parse_records`` (the
     flat record table), ``pd._parse_coeff`` (the coefficient arena) and
     the picture's motion field for the record-driven device path
-    (gpu/flat_recon.py).
+    (gpu/flat_recon.py).  With ``replay`` it also rebuilds the CU tree
+    of ``pd`` (initialised with ``tree=True``) from the records, in the
+    span ``decode.parse.replay``, for the replay path (gpu/recon.py).
 
     Returns conformance success; raises ValueError on parse errors."""
     pd = pic_decoder.pic_data
@@ -254,6 +327,9 @@ def parse_picture(pic_decoder, segment, bit_reader, qp):
     roots = np.empty(2 * pd.ctu_num_x * pd.ctu_num_y, dtype=np.int32)
     LIB.xvcn_export_parse(rec.ctypes.data, PARSE_REC_STRIDE,
                           roots.ctypes.data)
+    if replay:
+        with span("decode.parse.replay"):
+            _replay_tree(pd, rec, roots)
     bit_reader.pos = p.out_bs_pos
     bit_reader.bit_mask = 0x80
     pd._xvcn_mvfield = mvfield
