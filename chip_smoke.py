@@ -34,7 +34,11 @@ Phases:
      restricted toolset, LIC), on synthetic tables
      (xvc_tpu_torch/gpu/flat_cases.py) and with damaged rows appended,
      each timed per picture of hd720_ld and of hd720_lic beside its
-     bound;
+     bound; the encoder's prepass ranking kernel (txrd) on synthetic
+     cases at each block size and on the real inputs of picture 0 of
+     hd720_s3 (captured from an encode of that picture at speed 3 on the
+     card), bit for bit against its plain version, timed beside it and
+     its bound;
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -58,7 +62,25 @@ Phases:
      8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
      the card, sizes 4/8/16/32, 67 modes; the maps must equal the same
      call on the CPU device (plain versions) bit for bit, and the SATD
-     kernel's launch count over that call must be above 0.
+     kernel's launch count over that call must be above 0;
+  6  encode path: hd720_s3 (1280x720, 4 pictures, 1 intra and 3 inter,
+     low delay, qp 32, made from a seed by make_hd720_s3, a copy of the
+     recipe in tests/encode_clips.py) through
+     xvc_tpu_torch.api.EncoderSession on the card at speed 3 (the split
+     DP and the transform-RD prepass on the card, the native CTU search on
+     the host) and with the split DP alone.  The split-DP stream must
+     equal the JAX package's (sha256 in
+     tests/data/bench/hd720_s3_enc.json); the speed-3 stream must too, or
+     else show no kernel-vs-plain difference, fewer than 0.1% of the
+     prepass blocks unlike tests/data/bench/hd720_s3_cands.npz, bytes
+     within 1% and PSNR within 0.05 dB.  Per picture it prints the prepass
+     blocks unlike the JAX package's and those where the kernel and its
+     plain version differ (0 required); both streams decode on the card,
+     conforming and equal to the encoder's reconstruction; then ms per
+     picture, the launches of satd and txrd per encode (set to 0 just
+     before each timed encode, read just after), the stage profile
+     (spans encode.txrd_prepass, encode.split_dp, encode.native.*) and the
+     device's busy and idle share of an encode under torch.profiler.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -100,6 +122,8 @@ KERNELS = {
                    "xvc_tpu/tpu/intra_scan.py:51"),
     "intra_chroma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
                      "xvc_tpu/tpu/intra_scan.py:296"),
+    "txrd": ("xvc_tpu_torch/kernels/csrc/txrd.cu",
+             "xvc_tpu/tpu/txrd_prepass.py:80"),
 }
 # the kernels each path must launch, and those the decode must not (the
 # group kernels, whose jobs the picture kernels derive on the card)
@@ -143,6 +167,21 @@ GOLDENS = {"ai16x16": 2, "ai352x288": 2, "ai44x36": 2, "ai64x48": 3,
            "sp_leadpics": 6, "sp_placebo": 6, "sp_tunepsnr": 6}
 HASHED = (("c422_ra64x48", 5), ("c444_ra64x48", 5))
 LOOKAHEAD_KERNELS = ("satd",)
+# phase 6: the kernels an encode at speed 3 must launch (the SATD of the
+# prepass and of the split DP's lookahead, the prepass's ranking)
+ENCODE_KERNELS = ("satd", "txrd")
+# hd720_s3, the encode clip of phase 6: a copy of tests/test_torch_encode.py
+# HD720_S3 and make_hd720_s3 (a test holds the two equal)
+HD720_S3 = dict(width=1280, height=720, frames=4, qp=32, seed=20261017)
+# the carve-out of the speed-3 stream (the transform-RD prepass's float
+# arithmetic): where its bytes differ from the JAX package's, the run must
+# show no kernel-vs-plain difference, fewer than this share of prepass
+# blocks unlike hd720_s3_cands.npz, bytes within 1% and every picture's
+# PSNR within 0.05 dB of the JAX stream's
+CARVE_OUT_BLOCKS = 0.001
+CARVE_OUT_BYTES = 0.01
+CARVE_OUT_DB = 0.05
+SEGMENT_HEADER = 16  # NalUnitType.SEGMENT_HEADER
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
 # no int32 rate: the CUDA cores' float32 rate stands in for their integer
@@ -150,6 +189,8 @@ LOOKAHEAD_KERNELS = ("satd",)
 # it is still a time the card cannot beat.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+# float64 outside the tensor cores (the same data sheet: 34 TFLOP/s)
+FP64_OPS_PER_S = 34e12
 # One dependent global store -> done bit -> load round trip inside a block,
 # assumed (not measured here) at two L2 accesses of about 270 cycles at
 # 1.7 GHz.  Used only for the scans' chain estimate, which is no bound.
@@ -176,6 +217,58 @@ def bound(nbytes, ops):
 
 def log(*args):
     print(*args, flush=True)
+
+
+def make_hd720_s3(seed=HD720_S3["seed"]):
+    """The raw 8-bit 4:2:0 bytes of hd720_s3: 1280x720, 4 pictures, from
+    a numpy seed.  Luma quadrants: flat (top left, +2 a picture),
+    diagonal stripes moving 4 samples a picture (top right), a noise
+    texture moving by (2, 1) (bottom left), a ramp brightening by 3 a
+    picture (bottom right), so that the split DP forces decisions both
+    ways and the prepass has real choices; smooth chroma."""
+    import numpy as np
+    W, H, N = HD720_S3["width"], HD720_S3["height"], HD720_S3["frames"]
+    rng = np.random.RandomState(seed)
+    tex = rng.randint(-40, 41, (H // 2 + 8, W // 2 + 8))
+    yy, xx = np.mgrid[0:H, 0:W]
+    cy, cx = np.mgrid[0:H // 2, 0:W // 2]
+    out = []
+    for t in range(N):
+        y = np.empty((H, W), np.int64)
+        y[:H // 2, :W // 2] = 90 + 2 * t
+        tr = (xx[:H // 2, W // 2:] + yy[:H // 2, W // 2:] // 2 + 4 * t) // 12
+        y[:H // 2, W // 2:] = 60 + 130 * (tr & 1)
+        y[H // 2:, :W // 2] = 128 + tex[t:t + H // 2, 2 * t:2 * t + W // 2]
+        y[H // 2:, W // 2:] = ((xx[H // 2:, W // 2:] - W // 2) * 200 //
+                               (W // 2) + (yy[H // 2:, W // 2:] - H // 2)
+                               // 8 + 3 * t)
+        u = 128 + (30 * np.sin(cx / 40.0 + t / 4.0)).astype(np.int64)
+        v = 120 + (cy * 40) // (H // 2)
+        out += [np.clip(p, 0, 255).astype(np.uint8).tobytes()
+                for p in (y, u, v)]
+    return b"".join(out)
+
+
+def hd720_s3_session(api, prepass, dev):
+    """The port's EncoderSession for hd720_s3 on ``dev``: low delay, one
+    reference picture, sub-GOP 1, qp 32, speed mode 3, checksum mode 1;
+    ``prepass`` False keeps the split DP alone (tpu_txrd_prepass 0)."""
+    return api.EncoderSession(api.EncoderParameters(
+        width=HD720_S3["width"], height=HD720_S3["height"],
+        qp=HD720_S3["qp"], speed_mode=3, low_delay=1, num_ref_pics=1,
+        sub_gop_length=1, checksum_mode=1,
+        explicit_encoder_settings="" if prepass else "tpu_txrd_prepass 0"),
+        device=dev)
+
+
+def session_encode(session, yuv, frames):
+    """Every NAL of the first ``frames`` pictures of hd720_s3's raw
+    bytes ``yuv`` through ``session``."""
+    fs = HD720_S3["width"] * HD720_S3["height"] * 3 // 2
+    nals = []
+    for i in range(frames):
+        nals += session.encode(yuv[i * fs:(i + 1) * fs])
+    return nals + session.flush()
 
 
 def cuda_ms(torch, fn, iters=20, fresh=None):
@@ -456,6 +549,28 @@ def satd_bound(diff, n):
     blocks = diff.size // (n * n)
     per_block = 96 if n == 4 else (n // 8) ** 2 * 512
     return bound(diff.nbytes + blocks * 4, blocks * per_block)
+
+
+def txrd_bound(torch, coeff, keep, p):
+    """The coefficients and candidates read once, [B, keep] int32
+    written; per coefficient 12 float32 operations (|.|, the two floor
+    quantizations, the two clamps, the products by the powers of two,
+    the difference) and 4 float64 ones (the contracted product, the
+    square and its sum), and per coefficient of nonzero level this run's
+    data has 3 more float32 and 3 float64 (log2 counted as one, the bit
+    term and its sum), each type over its own peak rate."""
+    c = coeff.abs().double()
+    u = (c * p["scale"] + p["offset"]).float()
+    nonzero = int((torch.floor(u * p["p_shift"]) > 0).sum().item())
+    blocks, m = coeff.shape[0], coeff.shape[1]
+    nbytes = coeff.numel() * 4 + blocks * m * 4 + blocks * keep * 4
+    f32 = 12 * coeff.numel() + 3 * nonzero
+    f64 = 4 * coeff.numel() + 3 * nonzero
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32 / CUDA_CORE_OPS_PER_S + f64 / FP64_OPS_PER_S) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(f32 + f64))
 
 
 def scan_bound(kind, meta, steps):
@@ -1285,12 +1400,123 @@ def phase_kernels(torch, dev, parent):
                                 res["satd"]["plain_ms"],
                                 res["satd"]["bound_ms"],
                                 res["satd"]["bound_by"]))
+    phase_txrd_kernel(torch, dev, res, rng)
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         real = capture_inputs(f.read())
     phase_deblock_kernels(torch, dev, res, real, rng)
     phase_scan_kernels(torch, dev, res, real, parent)
     phase_picture_kernels(torch, dev, res)
     return res
+
+
+def txrd_case(rng, B, n, bd):
+    """Synthetic ranking inputs: coefficients of a Laplace spread (most
+    small, a tail to the transform's range), every 7th block all zero
+    (its candidates tie), candidate 1 a copy of candidate 0 in every 5th
+    block (an exact tie), candidates a draw of 8 distinct modes of 67."""
+    import numpy as np
+    spread = {4: 40, 8: 60, 16: 90, 32: 140}[n] << (bd - 8)
+    c = np.round(rng.laplace(0, spread, (B, 8, n, n)))
+    c = np.clip(c, -(1 << (7 + bd)), 1 << (7 + bd)).astype(np.float32)
+    c[::7] = 0
+    c[1::5, 1] = c[1::5, 0]
+    cand = np.argsort(rng.rand(B, 67), axis=1)[:, :8].astype(np.int32)
+    return c, cand
+
+
+def capture_txrd_inputs(torch, dev):
+    """The ranking stage's inputs at every size on picture 0 of hd720_s3,
+    captured from one encode of it at speed 3 on the card (which also
+    makes the first-use costs of phase 6)."""
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.gpu import txrd_prepass
+    caught = {}
+    rank = txrd_prepass.txrd_rank
+
+    def spy(coeff, cand, keep, screen_step, params):
+        caught[coeff.shape[-1]] = (coeff.clone(), cand.clone(), keep,
+                                   screen_step, dict(params))
+        return rank(coeff, cand, keep, screen_step, params)
+
+    txrd_prepass.txrd_rank = spy
+    try:
+        session_encode(hd720_s3_session(api, True, dev), make_hd720_s3(), 1)
+    finally:
+        txrd_prepass.txrd_rank = rank
+    torch.cuda.synchronize()
+    return caught
+
+
+def phase_txrd_kernel(torch, dev, res, rng):
+    """The prepass's ranking kernel against its plain version on the card:
+    synthetic cases at each size, 8 and 10 bit, three qps, intra and
+    inter, keep 1-3; then the real inputs of picture 0 of hd720_s3 at
+    each size, bit for bit, timed (n = 4, 57,600 blocks, the row of the
+    kernels line) beside the plain version and the bound."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    cases = 0
+    for n in (4, 8, 16, 32):
+        for bd in (8, 10):
+            for qp in (22, 32, 37):
+                c, cand = txrd_case(rng, 1031, n, bd)
+                c, cand = torch.from_numpy(c).to(dev), \
+                    torch.from_numpy(cand).to(dev)
+                for intra in (True, False):
+                    p = tx.rank_params(n, bd, Qp(qp, 1, bd, 0.57 * 2 ** (
+                        (qp - 12) / 3)), intra)
+                    for keep in (1, 2, 3):
+                        got = tx.txrd_rank(c, cand, keep, 1 + cases % 3, p)
+                        want = tx.txrd_rank_plain(c, cand, keep,
+                                                  1 + cases % 3, p)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                "txrd mismatch %r: %d blocks" % (
+                                    (n, bd, qp, intra, keep),
+                                    int((got != want).any(1).sum())))
+                        cases += 1
+    # log2 of every level + 1 the ranking can meet, float64 on each device
+    # rounded to float32: the CPU's plain version and the card's agree
+    lv = torch.arange(1, 32769, dtype=torch.float64)
+    log2_differ = int((torch.log2(lv).float() !=
+                       torch.log2(lv.to(dev)).float().cpu()).sum())
+    real = capture_txrd_inputs(torch, dev)
+    per_size = {}
+    for n in sorted(real):
+        coeff, cand, keep, step, p = real[n]
+        got = tx.txrd_rank(coeff, cand, keep, step, p)
+        want = tx.txrd_rank_plain(coeff, cand, keep, step, p)
+        torch.cuda.synchronize()
+        differ = int((got != want).any(1).sum())
+        if differ:
+            raise AssertionError("txrd: %d blocks of picture 0 (n=%d) "
+                                 "differ from the plain version" % (differ,
+                                                                    n))
+        per_size[n] = dict(
+            blocks=coeff.shape[0], equal_blocks=coeff.shape[0],
+            ms=cuda_ms(torch, lambda: tx.txrd_rank(coeff, cand, keep, step,
+                                                   p)),
+            plain_ms=cuda_ms(torch, lambda: tx.txrd_rank_plain(
+                coeff, cand, keep, step, p), 5),
+            **txrd_bound(torch, coeff, keep, p))
+    row = per_size[4]
+    res["txrd"] = dict(
+        max_abs_err=0, shape="picture 0 of hd720_s3, n=4: [57600, 8, 4, 4] "
+        "float32, keep 1", ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        bound_bytes=row["bound_bytes"], bound_ops=row["bound_ops"],
+        per_size=per_size, synthetic_cases=cases,
+        log2_cpu_card_differ=log2_differ)
+    log("phase 2: txrd bit-exact over %d synthetic cases and picture 0 of "
+        "hd720_s3 (%s); float64 log2 rounded to float32 differs between CPU "
+        "and card at %d of 32,768 levels; per size: %s" % (
+            cases, ", ".join("n=%d: %d blocks equal" % (n, r["equal_blocks"])
+                             for n, r in per_size.items()), log2_differ,
+            {n: "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)" % (
+                r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"])
+             for n, r in per_size.items()}))
 
 
 def scan_statuses(torch, data, dev):
@@ -1428,18 +1654,18 @@ def phase_decode(torch, dev):
     return out, pic0
 
 
-def device_busy(torch, data):
-    """torch.profiler over one decode: the seconds that decode took on
-    the host's clock (profiler on), the seconds of device work in it
-    (kernels and copies) and the number of device operations; the last
-    two None where the profiler recorded no device time."""
+def device_busy(torch, fn):
+    """torch.profiler over one call of fn (a decode or an encode): the
+    seconds it took on the host's clock (profiler on), the seconds of
+    device work in it (kernels and copies) and the number of device
+    operations; the last two None where the profiler recorded no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    from xvc_tpu_torch.codec.decoder import decode_stream
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_stream(data)
+        fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     busy_us, ops = 0.0, 0
@@ -1461,7 +1687,8 @@ def phase_stage_profile(torch, name):
     with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
         data = f.read()
     report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
-    traced_s, busy_s, ops = device_busy(torch, data)
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    traced_s, busy_s, ops = device_busy(torch, lambda: decode_stream(data))
     out = dict(profiled_seconds=profiled_s, spans=report,
                traced_decode_seconds=traced_s, device_busy_seconds=busy_s,
                device_operations=ops,
@@ -1593,6 +1820,239 @@ def phase_lookahead(torch, dev, pic):
     return out
 
 
+def stage_device(torch, fn, iters=5):
+    """torch.profiler over ``iters`` calls of fn (after one warm-up
+    call): the device milliseconds and the device operations per call;
+    None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, ops = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        if t > 0:
+            us += t
+            ops += ev.count
+    return (us / 1e3 / iters, ops / iters) if ops else (None, None)
+
+
+def encode_stage_rows(torch, dev):
+    """The encode path's device stages alone, at hd720_s3's shapes
+    (picture 1, inter, against picture 0): the split DP's zero-MV SADs
+    and its DP (PyTorch, no kernel: each call as the picture encoder
+    makes it, uploads and downloads included, CUDA events; device time
+    and operations per call from torch.profiler) and the SATD kernel at
+    the prepass's largest shape (the fused entry, [57600, 67, 4, 4])
+    beside its plain version, each with its bound."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import analysis, intra_batch, satd
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.gpu import wavefront_rdo as wf
+    from xvc_tpu_torch.gpu.lookahead import frame_intra_lookahead
+    from xvc_tpu_torch.restrictions import Restrictions
+    W, H = HD720_S3["width"], HD720_S3["height"]
+    fs = W * H * 3 // 2
+    yuv = make_hd720_s3()
+    luma = [np.frombuffer(yuv, np.uint8, count=W * H, offset=t * fs)
+            .reshape(H, W) for t in (0, 1)]
+    rows = {}
+    sad = lambda: wf.frame_zero_mv_sad(luma[1], [luma[0]], 8,
+                                       sizes=(16, 32, 64), device=dev)
+    dev_ms, ops = stage_device(torch, sad)
+    # orig and the reference read once (int32, as uploaded), |d|, the
+    # box sums and the minimum: some 3 operations a sample; the three
+    # maps written
+    out_bytes = sum((H // n) * (W // n) * 4 for n in (16, 32, 64))
+    rows["zero_mv_sad"] = dict(
+        ms=cuda_ms(torch, sad, 10), device_ms=dev_ms, device_ops=ops,
+        **bound(2 * W * H * 4 + out_bytes, 3 * W * H))
+    maps = frame_intra_lookahead(luma[1], 8, Restrictions(), sizes=(16, 32),
+                                 mode_step=4, device=dev)
+    maps.update(frame_intra_lookahead(luma[1], 8, Restrictions(),
+                                      sizes=(64,), mode_step=8, device=dev))
+    sads = sad()
+    # lambda_sqrt of picture 1 (an inter picture at qp 34, lambda 87.04)
+    dp = lambda: wf.split_dp_from_lookahead(maps, 87.04 ** 0.5, sads,
+                                            allow_force_split=False,
+                                            device=dev)
+    dev_ms, ops = stage_device(torch, dp)
+    in_bytes = sum(m.nbytes for m in maps.values()) + \
+        sum(v.nbytes for v in sads.values())
+    rows["split_dp"] = dict(
+        ms=cuda_ms(torch, dp, 10), device_ms=dev_ms, device_ops=ops,
+        **bound(in_bytes + out_bytes // 4,
+                sum(m.size for m in maps.values()) * 2))
+    orig, top, left = (torch.from_numpy(a).to(dev)
+                       for a in tx._extract_grid_fast(
+                           np.asarray(luma[0], np.int32), 4))
+    preds = intra_batch.predict_all_modes(
+        4, top, left, analysis.weights_on(4, 1, dev), 8, True)
+    rows["satd_prepass"] = dict(
+        shape="fused, orig [57600, 4, 4], preds [57600, 67, 4, 4] int32",
+        ms=cuda_ms(torch, lambda: satd.satd_pred(orig, preds, 8)),
+        plain_ms=cuda_ms(torch, lambda: satd.satd_plain(
+            orig[:, None] - preds, 8), 5),
+        **bound(preds.numel() * 4 + orig.numel() * 4 +
+                preds.shape[0] * 67 * 4, preds.numel() * 6))
+    log("phase 6: the encode's device stages at hd720_s3's shapes: %s" % (
+        {n: {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in r.items() if k not in ("bound_bytes", "bound_ops")}
+         for n, r in rows.items()}))
+    return rows
+
+
+def phase_encode(torch, dev):
+    """hd720_s3 through xvc_tpu_torch.api.EncoderSession on the card, at
+    speed 3 and with the split DP alone: each stream held to the JAX
+    package's (tests/data/bench/hd720_s3_enc.json; the split-DP stream
+    must equal it, the speed-3 stream equal it or stay inside the
+    carve-out), the prepass's candidates of each picture counted against
+    hd720_s3_cands.npz and the ranking kernel against its plain version
+    on every call, both streams decoded on the card to the encoder's
+    reconstruction; then ms per picture with the launch counts set to 0
+    just before each timed encode and read just after, the stage profile
+    and the device's busy share of an encode."""
+    import numpy as np
+    from xvc_tpu_torch import api, kernels, profiling
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import txrd_prepass
+    from xvc_tpu_torch.nal import write_nal_units
+    N = HD720_S3["frames"]
+    yuv = make_hd720_s3()
+    with open(os.path.join(DATA, "bench", "hd720_s3_enc.json")) as f:
+        refs = json.load(f)
+    with np.load(os.path.join(DATA, "bench", "hd720_s3_cands.npz")) as z:
+        cands_ref = z["cands"]
+
+    # the checked encode: every ranking call beside its plain version,
+    # every picture's packed candidates against the JAX package's
+    rank, pack = txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands
+    differ = [0]
+    pictures = []
+
+    def rank_spy(coeff, cand, keep, screen_step, params):
+        out = rank(coeff, cand, keep, screen_step, params)
+        plain = txrd_prepass.txrd_rank_plain(coeff, cand, keep, screen_step,
+                                             params)
+        differ[0] += int((out != plain).any(1).sum())
+        return out
+
+    def pack_spy(*args, **kw):
+        buf = pack(*args, **kw)
+        ref = cands_ref[len(pictures)]
+        pictures.append(dict(
+            blocks=int((ref >= 0).sum()),
+            unlike_jax=int((buf != ref).sum()),
+            kernel_vs_plain=differ[0]))
+        differ[0] = 0
+        return buf
+
+    txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands = rank_spy, \
+        pack_spy
+    try:
+        checked = session_encode(hd720_s3_session(api, True, dev), yuv, N)
+    finally:
+        txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands = rank, pack
+    if len(pictures) != N or any(p["kernel_vs_plain"] for p in pictures):
+        raise AssertionError("txrd kernel and plain version differ on the "
+                             "encode: %r" % (pictures,))
+    log("phase 6: hd720_s3 prepass blocks per picture unlike the JAX "
+        "package's / kernel unlike plain: %s" % (
+            ["%d / %d of %d" % (p["unlike_jax"], p["kernel_vs_plain"],
+                                p["blocks"]) for p in pictures]))
+
+    out = dict(prepass_pictures=pictures)
+    for key, prepass in (("split_dp", False), ("speed3", True)):
+        ses = hd720_s3_session(api, prepass, dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        nals = session_encode(ses, yuv, N)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        data = write_nal_units(nals)
+        ref = refs[key]
+        psnr = [list(map(float, n.psnr)) for n in ses.nal_stats
+                if n.nal_unit_type != SEGMENT_HEADER]
+        row = dict(seconds=dt, ms_per_picture=dt * 1e3 / N,
+                   bytes=len(data), jax_bytes=ref["bytes"],
+                   equal=hashlib.sha256(data).hexdigest() == ref["sha256"],
+                   psnr=psnr, launches=launches)
+        if key == "speed3" and nals != checked:
+            raise AssertionError("two speed-3 encodes on the card differ")
+        for name in ENCODE_KERNELS if prepass else \
+                [n for n in ENCODE_KERNELS if n != "txrd"]:
+            if launches[name] <= 0:
+                raise AssertionError("kernel %s was not launched by the %s "
+                                     "encode" % (name, key))
+        if not row["equal"]:
+            dpsnr = max(abs(a - b) for p, q in zip(psnr, ref["psnr"])
+                        for a, b in zip(p, q))
+            row.update(max_psnr_delta_db=dpsnr,
+                       bytes_delta=len(data) - ref["bytes"],
+                       nal_equal=[hashlib.sha256(n).hexdigest() == h
+                                  for n, h in zip(nals, ref["nal_sha256"])])
+            log("phase 6: %s stream differs from the JAX package's: %d "
+                "bytes against %d (%+d), PSNR per picture %s against %s "
+                "(largest difference %.4f dB), NALs equal %s" % (
+                    key, len(data), ref["bytes"], row["bytes_delta"], psnr,
+                    ref["psnr"], dpsnr, row["nal_equal"]))
+            unlike = sum(p["unlike_jax"] for p in pictures)
+            total = sum(p["blocks"] for p in pictures)
+            if key == "split_dp" or unlike >= CARVE_OUT_BLOCKS * total or \
+                    abs(row["bytes_delta"]) > CARVE_OUT_BYTES * ref["bytes"] \
+                    or dpsnr > CARVE_OUT_DB:
+                raise AssertionError("%s stream outside its limits" % key)
+        # both streams decode on the card to the encoder's reconstruction
+        pics = decode_stream(data, device=dev)
+        if len(pics) != N or not all(p.conforming for p in pics) or \
+                [p.bytes for p in pics] != ses.rec_pictures:
+            raise AssertionError("%s stream: the card's decode differs from "
+                                 "the encoder's reconstruction" % key)
+        out[key] = row
+        log("phase 6: %s encode of hd720_s3 (1280x720, %d pictures) on the "
+            "card: %.1f ms/picture, %d bytes, %s the JAX package's stream; "
+            "decoded on the card, conforming and equal to the encoder's "
+            "reconstruction; launches %s" % (
+                key, N, row["ms_per_picture"], len(data),
+                "equal to" if row["equal"] else "unlike", {
+                    n: launches[n] for n in launches if launches[n]}))
+
+    profiling.reset()
+    profiling.enable(sync=True)
+    try:
+        t0 = time.perf_counter()
+        session_encode(hd720_s3_session(api, True, dev), yuv, N)
+        profiled_s = time.perf_counter() - t0
+        spans = profiling.report()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    traced_s, busy_s, ops = device_busy(torch, lambda: session_encode(
+        hd720_s3_session(api, True, dev), yuv, N))
+    out["stages"] = encode_stage_rows(torch, dev)
+    out["stage_profile"] = dict(
+        profiled_seconds=profiled_s, spans=spans,
+        traced_encode_seconds=traced_s, device_busy_seconds=busy_s,
+        device_operations=ops,
+        device_idle_share=None if busy_s is None else 1.0 - busy_s / traced_s)
+    log("phase 6: speed-3 encode stage profile: %.3f s with synchronising "
+        "spans; under torch.profiler %.3f s, device busy %s s in %s "
+        "operations (idle share %s); spans (s): %s" % (
+            profiled_s, traced_s, busy_s, ops,
+            out["stage_profile"]["device_idle_share"],
+            {n: v["seconds"] for n, v in spans.items()}))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -1639,6 +2099,7 @@ def main():
     stages = {name: phase_stage_profile(torch, name) for name in PROFILED}
     goldens = phase_goldens(dev)
     look = phase_lookahead(torch, dev, pic0)
+    enc = phase_encode(torch, dev)
     for module in ("jax", "xvc_tpu"):
         if module in sys.modules:
             raise AssertionError("%s was imported" % module)
@@ -1651,7 +2112,11 @@ def main():
                                 recon=res[n]["recon"])
                         for n in ("itx_picture", "mc_picture")},
                     "goldens": goldens,
-                    "lookahead": look, "satd_fused_ms": res["satd"]["fused_ms"],
+                    "lookahead": look, "encode": enc,
+                    "txrd": {k: res["txrd"][k] for k in (
+                        "per_size", "synthetic_cases",
+                        "log2_cpu_card_differ")},
+                    "satd_fused_ms": res["satd"]["fused_ms"],
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
                                    "operations": r["bound_ops"]}
@@ -1681,12 +2146,14 @@ def main():
     launches = {n: dec["hd720_ld"]["launches"][n]
                 for n in DECODE_KERNELS + OFF_DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
-    # library_ms: no single PyTorch call computes any of these integer
-    # functions on CUDA (gather + wrapped int16 filters, int32 transform
-    # with per-block bases, the jobs of a picture derived from its parse
+    launches["txrd"] = enc["speed3"]["launches"]["txrd"]
+    # library_ms: no single PyTorch call computes any of these functions
+    # on CUDA (gather + wrapped int16 filters, int32 transform with
+    # per-block bases, the jobs of a picture derived from its parse
     # records, table-driven edge decisions over a painted
     # map, the sequential edge walk, the gated two-sample chroma update,
-    # Hadamard + |.| sum, the sequential intra scans)
+    # Hadamard + |.| sum, the sequential intra scans, quantization and a
+    # rate proxy summed per candidate with a keep-best selection)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],

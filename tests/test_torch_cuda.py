@@ -902,3 +902,129 @@ def test_damaged_nals_on_card(cuda, stream, mode):
             assert got == _session_result(DecoderSession(device="cpu"), bad)
     pics = decode_stream(read_data(stream + ".xvc"), device=cuda)
     assert all(p.conforming for p in pics)
+
+
+# ---- the encoder's transform-RD prepass ranking (kernels/csrc/txrd.cu) --
+
+def _txrd_inputs(rng, B, n, bd):
+    """Coefficients of a Laplace spread with all-zero blocks and exactly
+    tied candidates, and 8 distinct candidate modes per block."""
+    spread = {4: 40, 8: 60, 16: 90, 32: 140}[n] << (bd - 8)
+    c = np.round(rng.laplace(0, spread, (B, 8, n, n)))
+    c = np.clip(c, -(1 << (7 + bd)), 1 << (7 + bd)).astype(np.float32)
+    c[::7] = 0
+    c[1::5, 1] = c[1::5, 0]
+    cand = np.argsort(rng.rand(B, 67), axis=1)[:, :8].astype(np.int32)
+    return c, cand
+
+
+@pytest.mark.parametrize("keep", [1, 2, 3, 8])
+@pytest.mark.parametrize("bd,qp,intra", [(8, 32, True), (8, 22, False),
+                                         (10, 37, True)])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_rank_kernel_matches_plain(cuda, n, bd, qp, intra, keep):
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    rng = np.random.RandomState(n * 100 + qp + keep)
+    c, cand = _to(cuda, *_txrd_inputs(rng, 1031, n, bd))
+    p = tx.rank_params(n, bd, Qp(qp, 1, bd, 0.57 * 2 ** ((qp - 12) / 3)),
+                       intra)
+    kernels.reset_launches()
+    got = tx.txrd_rank(c, cand, keep, 1 + keep % 3, p)
+    want = tx.txrd_rank_plain(c, cand, keep, 1 + keep % 3, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["txrd"] == 1
+    assert tuple(got.shape) == (1031, keep) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    # the CPU's plain version gives the same
+    assert torch.equal(got.cpu(), tx.txrd_rank_plain(
+        c.cpu(), cand.cpu(), keep, 1 + keep % 3, p))
+
+
+def _hd720_s3_luma():
+    from .encode_clips import make_hd720_s3
+    return np.frombuffer(make_hd720_s3(), np.uint8,
+                         count=1280 * 720).reshape(720, 1280)
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_txrd_prepass_on_card_matches_cpu_and_repeats(cuda, intra):
+    """frame_txrd_prepass of picture 0 of hd720_s3 on the card: the
+    maps of the CPU device (plain versions) and the same maps over 5
+    repeated calls; the ranking kernel holds its plain version on the real
+    inputs of every size."""
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    luma = _hd720_s3_luma()
+    qp = Qp(32, 1, 8, 0.57 * 2 ** (20 / 3))
+    want = tx.frame_txrd_prepass(luma, 8, qp, intra, keep=1, device="cpu")
+    rank = tx.txrd_rank
+    differ = []
+
+    def spy(coeff, cand, keep, screen_step, params):
+        out = rank(coeff, cand, keep, screen_step, params)
+        plain = tx.txrd_rank_plain(coeff, cand, keep, screen_step, params)
+        differ.append(int((out != plain).any(1).sum()))
+        return out
+
+    tx.txrd_rank = spy
+    try:
+        for _ in range(5):
+            kernels.reset_launches()
+            got = tx.frame_txrd_prepass(luma, 8, qp, intra, keep=1,
+                                        device=cuda)
+            assert kernels.LAUNCHES["txrd"] == 4
+            assert kernels.LAUNCHES["satd"] == 4
+            for n in want:
+                np.testing.assert_array_equal(got[n], want[n])
+    finally:
+        tx.txrd_rank = rank
+    assert differ == [0] * 20
+
+
+def test_speed3_encode_on_card_matches_cpu(cuda):
+    """A speed-3 encode (split DP + prepass) of the 192x192 clip of
+    tests/test_wavefront_rdo.py on the card: the CPU device's bytes, with
+    the card's kernels launched, and its decode on the card conforming."""
+    from xvc_tpu_torch.codec.encoder import encode_stream
+    from xvc_tpu_torch.codec.encoder_settings import EncoderSettings
+    from xvc_tpu_torch.nal import write_nal_units
+    from .encode_clips import wavefront_clip
+
+    def enc(dev):
+        s = EncoderSettings()
+        s.initialize_speed(3)
+        return write_nal_units(encode_stream(
+            wavefront_clip(), 192, 192, 2, qp=32, settings=s,
+            sub_gop_length=2, num_ref_pics=1, checksum_mode=1, device=dev))
+
+    want = enc("cpu")
+    kernels.reset_launches()
+    got = enc(cuda)
+    assert kernels.LAUNCHES["txrd"] > 0 and kernels.LAUNCHES["satd"] > 0
+    assert got == want
+    pics = decode_stream(got, device=cuda)
+    assert len(pics) == 2 and all(p.conforming for p in pics)
+
+
+def test_split_dp_on_card_matches_cpu(cuda):
+    from xvc_tpu_torch.gpu import wavefront_rdo as wf
+    luma = _hd720_s3_luma().astype(np.int32)
+    ref = np.roll(luma, 3, axis=1)
+    maps = lookahead.frame_intra_lookahead(luma, 8, Restrictions(),
+                                           sizes=(16, 32), mode_step=4,
+                                           device=cuda)
+    maps.update(lookahead.frame_intra_lookahead(
+        luma, 8, Restrictions(), sizes=(64,), mode_step=8, device=cuda))
+    for dev in ("cpu", cuda):
+        sad = wf.frame_zero_mv_sad(luma, [ref], 8, sizes=(16, 32, 64),
+                                   device=dev)
+        if dev == "cpu":
+            want_sad = sad
+            want = wf.split_dp_from_lookahead(maps, 11.3, sad, device=dev)
+        else:
+            for n in want_sad:
+                np.testing.assert_array_equal(sad[n], want_sad[n])
+            got = wf.split_dp_from_lookahead(maps, 11.3, sad, device=dev)
+            for n in want:
+                np.testing.assert_array_equal(got[n], want[n])

@@ -2,10 +2,12 @@
 never jax and nothing of xvc_tpu.
 
 - In a fresh process whose import system refuses ``jax``, ``jaxlib`` and
-  ``xvc_tpu``, every module of the package imports, and ai64x48 (the flat
+  ``xvc_tpu``, every module of the package imports, ai64x48 (the flat
   path) and ld64x48 (LIC: the replay path with its host tail) decode on
-  the CPU device to their goldens; a source scan finds no import of
-  either in the package or in chip_smoke.py.
+  the CPU device to their goldens, and a speed-3 encode (the split DP,
+  the transform-RD prepass and the native encoder) decodes back to the
+  encoder's reconstruction; a source scan finds no import of either in
+  the package or in chip_smoke.py.
 - tests/data/bench/<stream>_dec.sha256 of the six bench streams, the
   references chip_smoke.py compares the card's pictures with, equal the
   JAX package's host decode of each stream (drained with the blocking
@@ -59,6 +61,29 @@ for stream, golden, count in zip(*[iter(sys.argv[2:])] * 3):
     pics = decode_stream(data, device="cpu")
     assert len(pics) == int(count) and all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == want, stream
+# an encode at speed 3 (the split DP and the transform-RD prepass on the
+# device, the native CTU search), decoded back
+import numpy as np
+from xvc_tpu_torch import api
+rng = np.random.RandomState(2)
+w, h, f = 64, 64, 2
+luma = rng.randint(0, 256, (h, w)).astype(np.uint8)
+luma[:, :32] = 100
+yuv = b"".join(np.roll(luma, t, axis=1).tobytes() +
+               np.full((h // 2, w), 128, np.uint8).tobytes()
+               for t in range(f))
+ses = api.EncoderSession(api.EncoderParameters(
+    width=w, height=h, speed_mode=3, num_ref_pics=1, sub_gop_length=1,
+    low_delay=1, checksum_mode=1), device="cpu")
+fs = w * h * 3 // 2
+nals = []
+for t in range(f):
+    nals += ses.encode(yuv[t * fs:(t + 1) * fs])
+nals += ses.flush()
+from xvc_tpu_torch.nal import write_nal_units
+pics = decode_stream(write_nal_units(nals), device="cpu")
+assert len(pics) == f and all(p.conforming for p in pics)
+assert [p.bytes for p in pics] == ses.rec_pictures
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("STANDALONE-OK", len(names))
@@ -117,9 +142,13 @@ def test_bench_sha256_file_matches_the_jax_package_host_decode(name):
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
-    from xvc_tpu_torch.api import DecoderSession
+    from xvc_tpu_torch.api import (DecoderSession, EncoderParameters,
+                                   EncoderSession)
     from xvc_tpu_torch.codec.decoder import Decoder, decode_stream
+    from xvc_tpu_torch.codec.encoder import Encoder
     data = read_data("ai64x48.xvc")
-    for call in (lambda: decode_stream(data), Decoder, DecoderSession):
+    for call in (lambda: decode_stream(data), Decoder, DecoderSession,
+                 Encoder, lambda: EncoderSession(EncoderParameters(
+                     width=64, height=48))):
         with pytest.raises(RuntimeError, match="is_available"):
             call()

@@ -14,6 +14,11 @@ own trimmed copies under the same names.
 - Encoder lookahead: whole-frame open-loop intra SATD cost maps
   (``gpu.lookahead.frame_intra_lookahead``), with the Hadamard SATD as a
   hand-written kernel.
+- Encode: ``codec.encoder.encode_stream``, ``api.EncoderSession``; the
+  native CTU search codes every picture, and at speed mode 3 the
+  device stages feed it: the split DP (``gpu.wavefront_rdo``) and the
+  transform-RD intra prepass (``gpu.txrd_prepass``), whose ranking stage
+  is a hand-written kernel.
 
 Every entry point runs on the card unless the caller names another
 device.  The integer stages are exact, so the float paths that could

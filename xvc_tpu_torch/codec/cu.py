@@ -200,7 +200,10 @@ class PictureData:
     """High-level state of one picture.  CU-level state lives in the
     native parse's record table (``_parse_records``) and, for a picture
     initialised with ``tree=True``, in the CU tree the replay rebuilds
-    from it."""
+    from it.  The native encoder keeps its CU state in C++; the picture
+    encoder reads the header-level fields here (``init`` with
+    ``pic_qp``), and the encoded picture's motion field for the TMVP of
+    later pictures (``_xvcn_mvfield``, ``native/enc.py``)."""
 
     def __init__(self, chroma_format, width, height, bitdepth):
         self.chroma_format = chroma_format
@@ -237,17 +240,23 @@ class PictureData:
         self.tc_offset = 0
         self.lic_active = False
         self.qps = None
+        self.pic_qp = None
+        self.max_binary_split_depth = 0
         self.ref_pic_lists = ReferencePictureLists()
         self.force_bipred_l1_mvd_zero = False
         self.tmvp_valid = False
         self.tmvp_ref_list = 0
         self.tmvp_ref_idx = 0
 
-    def init(self, segment, tree=False):
+    def init(self, segment, tree=False, pic_qp=None):
         """Derive the header-level fields of a new picture (CU trees,
         TMVP source, forced-zero L1 MVD); with ``tree`` also allocate the
-        CTUs and the CU table of the CU tree the replay fills."""
+        CTUs and the CU table of the CU tree the replay fills.  The
+        encoder passes the picture's ``Qp`` (the light init of the JAX
+        package's native encode path)."""
         r = segment.restrictions
+        self.pic_qp = pic_qp
+        self.max_binary_split_depth = segment.max_binary_split_depth
         if (not r.disable_ext_two_cu_trees and self.is_intra_pic() and
                 self.max_num_components > 1):
             self.num_cu_trees = 2
@@ -318,6 +327,13 @@ class PictureData:
 
     def has_secondary_cu_tree(self):
         return self.num_cu_trees > 1
+
+    def get_max_binary_split_size(self, cu_tree):
+        if not self.is_intra_pic():
+            return k.MAX_BINARY_SPLIT_SIZE_INTER
+        return (k.MAX_BINARY_SPLIT_SIZE_INTRA1
+                if cu_tree == k.CuTree.PRIMARY
+                else k.MAX_BINARY_SPLIT_SIZE_INTRA2)
 
     def _build_qps(self):
         tab, off_u, off_v = self._qp_params

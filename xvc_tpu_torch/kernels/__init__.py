@@ -2,16 +2,17 @@
 
 Sources live in ``csrc/`` and are compiled by ``build.py`` at first use.
 Each wrapper (``gpu/mc.py``, ``gpu/itx.py``, ``gpu/deblock.py``,
-``gpu/satd.py``, ``gpu/intra_scan.py``) adds one to its entry of
-``LAUNCHES`` where it launches its kernel, and nowhere else, so a run
-can show that its main path went through the kernels.  ``deblock_edges``
+``gpu/satd.py``, ``gpu/intra_scan.py``, ``gpu/txrd_prepass.py``) adds
+one to its entry of ``LAUNCHES`` where it launches its kernel, and
+nowhere else, so a run can show that its main path went through the
+kernels.  ``deblock_edges``
 counts one call of ``xvc_deblock_edges``, which enqueues the map paint
 and the edge derivation back to back.
 """
 LAUNCHES = {"mc": 0, "itx": 0, "mc_picture": 0, "itx_picture": 0,
             "deblock_edges": 0, "deblock_luma": 0,
             "deblock_chroma": 0, "satd": 0, "intra_luma": 0,
-            "intra_chroma": 0}
+            "intra_chroma": 0, "txrd": 0}
 
 
 def reset_launches():

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
@@ -42,6 +43,8 @@ SIGNATURES = {
     "xvc_deblock_chroma": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                            _P],
     "xvc_satd": [_P, _P, _L, _I, _I, _I, _P, _P],
+    "xvc_txrd_rank": [_P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                      _F, _P, _P],
     "xvc_intra_luma_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P],

@@ -4,13 +4,18 @@ The C++ library holds the sequential part of decoding: the CABAC parse
 and the MV derivation of a whole picture (``xvcn_parse_picture``,
 ``csrc/xvcn_pic.inc``), which emit the flat record table the device path
 reconstructs from, and the block predictors of the replay path's host
-tail (``xvcn_intra_*``, ``xvcn_mc_unipred``).  It is compiled with g++ the first time it is needed,
-into ``build/xvc_tpu_torch/`` at the root of the checkout (never next to
-the sources), and cached there under a hash of the sources.
+tail (``xvcn_intra_*``, ``xvcn_mc_unipred``).  It also holds the
+encoder's CTU rate-distortion search and entropy write of a whole
+picture (``xvcn_encode_picture_intra``, ``csrc/xvcn_enc.inc`` and
+``csrc/xvcn_enc_inter.inc``; ``native/enc.py``), which consumes the
+device stages' force maps and intra candidates.  It is compiled with g++
+the first time it is needed, into ``build/xvc_tpu_torch/`` at the root
+of the checkout (never next to the sources), and cached there under a
+hash of the sources.
 
-``csrc/`` is a copy of ``xvc_tpu/native/xvcn.cpp`` and ``xvcn_pic.inc``
-without the two encoder units.  A build failure raises: there is no
-Python parse to fall back to.
+``csrc/`` is a copy of ``xvc_tpu/native/xvcn.cpp``, ``xvcn_pic.inc``,
+``xvcn_enc.inc`` and ``xvcn_enc_inter.inc``.  A build failure raises:
+there is no Python parse or CU encoder to fall back to.
 """
 import ctypes
 import hashlib
@@ -21,7 +26,8 @@ import threading
 import numpy as np
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SOURCES = ("xvcn.cpp", "xvcn_pic.inc")
+_SOURCES = ("xvcn.cpp", "xvcn_pic.inc", "xvcn_enc.inc",
+            "xvcn_enc_inter.inc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_ROOT, "build", "xvc_tpu_torch")
@@ -69,7 +75,7 @@ def build() -> str:
         if res.returncode == 0:
             break
     else:
-        raise RuntimeError("g++ failed to build the native parse:\n%s"
+        raise RuntimeError("g++ failed to build the native library:\n%s"
                            % res.stderr[-2000:])
     os.replace(tmp, so_path)
     return so_path
@@ -110,6 +116,9 @@ def lib():
                 c.c_int, c.c_void_p, c.c_int64, c.c_int, c.c_int, c.c_int,
                 c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
                 c.c_void_p, c.c_int64]
+            # the encoder (native/enc.py)
+            handle.xvcn_encode_picture_intra.restype = c.c_int
+            handle.xvcn_encode_picture_intra.argtypes = [c.c_void_p]
             for name in ("xvcn_intra_filter_ref", "xvcn_intra_pred_dc",
                          "xvcn_intra_pred_planar", "xvcn_intra_pred_angular",
                          "xvcn_mc_unipred"):

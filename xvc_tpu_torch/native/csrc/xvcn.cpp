@@ -4043,3 +4043,5 @@ XVCN_API void xvcn_intra_prepass_satd(
 // ---- full-picture decoder (separate unit for readability; same TU so it
 // can reuse the static engine internals above) ----
 #include "xvcn_pic.inc"
+#include "xvcn_enc.inc"
+#include "xvcn_enc_inter.inc"

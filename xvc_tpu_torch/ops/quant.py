@@ -2,8 +2,10 @@
 
 Behavioral equivalent of the reference quantizer
 (ref: src/xvc_common_lib/quantize.{h,cc}).  Copy of the ``Qp`` half of
-``xvc_tpu/ops/quant.py``; the inverse quantization itself runs on the
-device (``gpu/dsp._dequant_expr``, ``kernels/csrc/itx.cu``).
+``xvc_tpu/ops/quant.py``, with the shifts the encoder's transform-RD
+prepass reads (``get_transform_shift``, ``QUANT_SHIFT``,
+``IQUANT_SHIFT``); the inverse quantization itself runs on the device
+(``gpu/dsp._dequant_expr``, ``kernels/csrc/itx.cu``).
 """
 import math
 
@@ -21,6 +23,8 @@ CHROMA_QP_MAX = 57
 FWD_QUANT_SCALES = (26214, 23302, 20560, 18396, 16384, 14564)
 INV_QUANT_SCALES = (40, 45, 51, 57, 64, 72)
 NUM_SCALING_LIST_REM = 6
+QUANT_SHIFT = 14
+IQUANT_SHIFT = 6
 
 
 def _scale_chroma_qp(qp, chroma_format, chroma_scaling_table, offset):
@@ -83,3 +87,8 @@ class Qp:
 
     def get_lambda_scaled(self, comp):
         return self.lambda_[comp]
+
+
+def get_transform_shift(width, height, bitdepth):
+    tr_size_log2 = ((width.bit_length() - 1) + (height.bit_length() - 1)) >> 1
+    return k.MAX_TR_DYNAMIC_RANGE - bitdepth - tr_size_log2

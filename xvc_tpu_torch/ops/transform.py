@@ -3,9 +3,12 @@
 The tables of the reference transforms (ref:
 src/xvc_common_lib/transform.cc) as matrices, with the precision rule
 that picks the 6-bit or 8-bit set.  Copy of the table half of
-``xvc_tpu/ops/transform.py``; the host transforms themselves are not
-here: the port transforms on the device (``gpu/dsp.py``, ``gpu/itx.py``).
+``xvc_tpu/ops/transform.py`` (with ``_matrix_i32``, which the
+transform-RD prepass reads its forward bases from); the host transforms
+themselves are not here: the port transforms on the device
+(``gpu/dsp.py``, ``gpu/itx.py``, ``gpu/txrd_prepass.py``).
 """
+import functools
 import os
 
 import numpy as np
@@ -45,6 +48,13 @@ def get_matrix(tx_type, size, high_prec=True):
         return _TABLES[f"dct2_{size}"], adjust
     adjust = _HIGH_PREC_SHIFT if not high_prec else 0
     return _TABLES[f"{fam}_{size}"], adjust
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_i32(tx_type, size, high_prec):
+    """Contiguous int32 copy of a basis matrix."""
+    m, adjust = get_matrix(k.TransformType(tx_type), size, high_prec)
+    return np.ascontiguousarray(m, dtype=np.int32), adjust
 
 
 # 4x4 DST-7 basis at 6-bit precision (the classic HEVC 29/55/74/84 set);

@@ -20,6 +20,15 @@ device and so lengthens the whole run: it is for a breakdown, not for an
 end-to-end time.  Disabled spans record nothing and cost one test of a
 flag.
 
+The spans the port records: the decode's (``decode.*``, ``flat.*``,
+``recon.*``, ``deblock.*``) and the encoder's, per picture:
+``encode.txrd_prepass`` (the transform-RD prepass on the device),
+``encode.split_dp`` (the split DP's lookahead maps, zero-MV SADs and DP
+on the device), ``encode.native`` (the native CTU search and write) and,
+from the native encoder's own timers, ``encode.native.me``,
+``encode.native.intra_search``, ``encode.native.txrd`` (nested in the two
+searches), ``encode.native.write`` and ``encode.native.deblock``.
+
 Run as a script it decodes a stream on the card and prints the table:
 
     python -m xvc_tpu_torch.profiling tests/data/bench/hd720_ld.xvc
