@@ -27,18 +27,22 @@ Phases:
      the time per step, at pictures 0 and 3 and on the interleaved
      tiled case; with --parent TREE also the scan kernels of the
      checkout TREE (a parent commit, say) on the same inputs, in a child
-     process; the picture kernels on the record tables of every picture
-     of hd720_ld and of one picture of each other bench stream (parsed on
+     process (and TREE's transform-RD stages, below); the picture
+     kernels on the record tables of every picture of hd720_ld and of
+     one picture of each other bench stream (parsed on
      the CPU, the frame store from a seed) and on every picture of the
      goldens the flat path refuses (4:2:2 and 4:4:4, intra and inter, a
      restricted toolset, LIC), on synthetic tables
      (xvc_tpu_torch/gpu/flat_cases.py) and with damaged rows appended,
      each timed per picture of hd720_ld and of hd720_lic beside its
-     bound; the encoder's prepass ranking kernel (txrd) on synthetic
-     cases at each block size and on the real inputs of picture 0 of
-     hd720_s3 (captured from an encode of that picture at speed 3 on the
-     card), bit for bit against its plain version, timed beside it and
-     its bound;
+     bound; the encoder's prepass kernel (txrd: from the SATD screen to
+     the kept modes) on synthetic cases at each block size and on the
+     real inputs of picture 0 of hd720_s3 (captured from an encode of
+     that picture at speed 3 on the card), bit for bit against its plain
+     version, timed beside it and its bound, and with --parent TREE
+     beside the stages TREE runs on the same inputs (before txrd: a
+     stable sort, a gather, a float64 transform and the rank-only
+     kernel);
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -79,8 +83,10 @@ Phases:
      conforming and equal to the encoder's reconstruction; then ms per
      picture, the launches of satd and txrd per encode (set to 0 just
      before each timed encode, read just after), the stage profile
-     (spans encode.txrd_prepass, encode.split_dp, encode.native.*) and the
-     device's busy and idle share of an encode under torch.profiler.
+     (spans encode.txrd_prepass and its extract / upload / device /
+     download per picture, encode.split_dp, encode.native.*), the
+     device's busy and idle share of an encode under torch.profiler, and
+     the operator list of one prepass call (no sort, no float64).
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -168,7 +174,8 @@ GOLDENS = {"ai16x16": 2, "ai352x288": 2, "ai44x36": 2, "ai64x48": 3,
 HASHED = (("c422_ra64x48", 5), ("c444_ra64x48", 5))
 LOOKAHEAD_KERNELS = ("satd",)
 # phase 6: the kernels an encode at speed 3 must launch (the SATD of the
-# prepass and of the split DP's lookahead, the prepass's ranking)
+# prepass and of the split DP's lookahead; the prepass's txrd, from the
+# SATD screen to the kept modes)
 ENCODE_KERNELS = ("satd", "txrd")
 # hd720_s3, the encode clip of phase 6: a copy of tests/test_torch_encode.py
 # HD720_S3 and make_hd720_s3 (a test holds the two equal)
@@ -551,26 +558,35 @@ def satd_bound(diff, n):
     return bound(diff.nbytes + blocks * 4, blocks * per_block)
 
 
-def txrd_bound(torch, coeff, keep, p):
-    """The coefficients and candidates read once, [B, keep] int32
-    written; per coefficient 12 float32 operations (|.|, the two floor
-    quantizations, the two clamps, the products by the powers of two,
-    the difference) and 4 float64 ones (the contracted product, the
-    square and its sum), and per coefficient of nonzero level this run's
-    data has 3 more float32 and 3 float64 (log2 counted as one, the bit
-    term and its sum), each type over its own peak rate."""
-    c = coeff.abs().double()
-    u = (c * p["scale"] + p["offset"]).float()
+def txrd_bound(torch, orig, preds, satd, n, bd, keep, p):
+    """What the txrd kernel must do on these inputs.  Bytes: orig and
+    satd read once, the 8 picked n x n tiles of preds (not the other
+    modes), [B, keep] int32 written.  Operations, each type over its own
+    peak rate: the transform's 2n int32 multiply-adds per coefficient
+    (two operations each) and the squared error's multiply-add; per
+    coefficient 16 float32 operations (the two floor shifts, |.|, the two
+    quantizations with their clamps, the difference) and 2 float64 ones
+    (the contracted product), and per coefficient of nonzero level, as
+    this run's data has them, 3 more float32 (the bit term, log2 being a
+    table lookup); the screen, 8 rounds over the M SATDs of a block."""
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    blocks, m = satd.shape
+    cand = tx._stable_best(satd, tx.SATD_KEEP)
+    idx = cand[:, :, None, None].expand(-1, -1, n, n)
+    coeff = tx.forward_transform(orig[:, None] - torch.gather(preds, 1, idx),
+                                 n, bd)
+    u = (coeff.abs().double() * p["scale"] + p["offset"]).float()
     nonzero = int((torch.floor(u * p["p_shift"]) > 0).sum().item())
-    blocks, m = coeff.shape[0], coeff.shape[1]
-    nbytes = coeff.numel() * 4 + blocks * m * 4 + blocks * keep * 4
-    f32 = 12 * coeff.numel() + 3 * nonzero
-    f64 = 4 * coeff.numel() + 3 * nonzero
+    coeffs = blocks * tx.SATD_KEEP * n * n
+    nbytes = (orig.numel() + satd.numel() + coeffs + blocks * keep) * 4
+    ints = coeffs * (4 * n + 2) + blocks * tx.SATD_KEEP * m * 2
+    f32 = 16 * coeffs + 3 * nonzero
+    f64 = 2 * coeffs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32 / CUDA_CORE_OPS_PER_S + f64 / FP64_OPS_PER_S) * 1e3
+    t_ops = ((ints + f32) / CUDA_CORE_OPS_PER_S + f64 / FP64_OPS_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=int(nbytes), bound_ops=int(f32 + f64))
+                bound_bytes=int(nbytes), bound_ops=int(ints + f32 + f64))
 
 
 def scan_bound(kind, meta, steps):
@@ -665,43 +681,6 @@ def time_scans(torch, scans):
                                                         meta_c, bd_c),
                 fresh=planes.clone)
     return out
-
-
-# Run in a child process: time_scans of this file with the package of the
-# checkout argv[1], on the inputs saved in argv[3].
-_TIME_TREE = """
-import importlib.util, json, os, sys
-import torch
-tree, smoke_py, inputs = sys.argv[1:4]
-sys.path.insert(0, tree)
-spec = importlib.util.spec_from_file_location("smoke", smoke_py)
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
-import xvc_tpu_torch
-if not os.path.abspath(xvc_tpu_torch.__file__).startswith(tree + os.sep):
-    raise AssertionError("imported " + xvc_tpu_torch.__file__)
-times = smoke.time_scans(torch, torch.load(inputs))
-print(json.dumps([[n, p, ms] for (n, p), ms in times.items()]))
-"""
-
-
-def time_scans_of(torch, tree, scans):
-    """time_scans with the scan kernels of the checkout ``tree``, in a
-    child process, on the same inputs (saved under build/)."""
-    path = os.path.join(ROOT, "build", "scan_inputs.pt")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(scans, path)
-    try:
-        out = subprocess.run(
-            [sys.executable, "-c", _TIME_TREE, tree, os.path.abspath(__file__),
-             path], capture_output=True, text=True, timeout=600)
-    finally:
-        os.remove(path)
-    if out.returncode:
-        raise RuntimeError("timing the scans of %s failed:\n%s"
-                           % (tree, out.stderr[-4000:]))
-    times = json.loads(out.stdout.strip().splitlines()[-1])
-    return {(n, p): ms for n, p, ms in times}
 
 
 # ---------------------------------------------------------------------------
@@ -861,7 +840,9 @@ def phase_scan_kernels(torch, dev, res, real, parent):
     times = time_scans(torch, timed)
     parent_ms = None
     if parent is not None:
-        parent_ms = time_scans_of(torch, parent, timed)
+        parent_ms = {(n, p if p == "interleaved" else int(p)): ms for
+                     (n, p), ms in time_of_tree(torch, parent, "time_scans",
+                                                timed)}
         for key in sorted(times, key=str):
             log("phase 2: %s %s: %.4f ms, %s's %.4f ms (%.2fx)" % (
                 key + (times[key], parent, parent_ms[key],
@@ -1400,7 +1381,7 @@ def phase_kernels(torch, dev, parent):
                                 res["satd"]["plain_ms"],
                                 res["satd"]["bound_ms"],
                                 res["satd"]["bound_by"]))
-    phase_txrd_kernel(torch, dev, res, rng)
+    phase_txrd_kernel(torch, dev, res, parent)
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         real = capture_inputs(f.read())
     phase_deblock_kernels(torch, dev, res, real, rng)
@@ -1409,113 +1390,182 @@ def phase_kernels(torch, dev, parent):
     return res
 
 
-def txrd_case(rng, B, n, bd):
-    """Synthetic ranking inputs: coefficients of a Laplace spread (most
-    small, a tail to the transform's range), every 7th block all zero
-    (its candidates tie), candidate 1 a copy of candidate 0 in every 5th
-    block (an exact tie), candidates a draw of 8 distinct modes of 67."""
-    import numpy as np
-    spread = {4: 40, 8: 60, 16: 90, 32: 140}[n] << (bd - 8)
-    c = np.round(rng.laplace(0, spread, (B, 8, n, n)))
-    c = np.clip(c, -(1 << (7 + bd)), 1 << (7 + bd)).astype(np.float32)
-    c[::7] = 0
-    c[1::5, 1] = c[1::5, 0]
-    cand = np.argsort(rng.rand(B, 67), axis=1)[:, :8].astype(np.int32)
-    return c, cand
-
-
 def capture_txrd_inputs(torch, dev):
-    """The ranking stage's inputs at every size on picture 0 of hd720_s3,
-    captured from one encode of it at speed 3 on the card (which also
-    makes the first-use costs of phase 6)."""
+    """What the txrd kernel was given at every size on picture 0 of
+    hd720_s3, captured from one encode of it at speed 3 on the card
+    (which also makes the first-use costs of phase 6): n -> (orig, preds,
+    satd, n, bitdepth, keep, screen_step, params)."""
     from xvc_tpu_torch import api
     from xvc_tpu_torch.gpu import txrd_prepass
     caught = {}
-    rank = txrd_prepass.txrd_rank
+    fn = txrd_prepass.txrd
 
-    def spy(coeff, cand, keep, screen_step, params):
-        caught[coeff.shape[-1]] = (coeff.clone(), cand.clone(), keep,
-                                   screen_step, dict(params))
-        return rank(coeff, cand, keep, screen_step, params)
+    def spy(orig, preds, satd, n, *rest):
+        caught[n] = (orig.clone(), preds.clone(), satd.clone(), n) + rest
+        return fn(orig, preds, satd, n, *rest)
 
-    txrd_prepass.txrd_rank = spy
+    txrd_prepass.txrd = spy
     try:
         session_encode(hd720_s3_session(api, True, dev), make_hd720_s3(), 1)
     finally:
-        txrd_prepass.txrd_rank = rank
+        txrd_prepass.txrd = fn
     torch.cuda.synchronize()
     return caught
 
 
-def phase_txrd_kernel(torch, dev, res, rng):
-    """The prepass's ranking kernel against its plain version on the card:
-    synthetic cases at each size, 8 and 10 bit, three qps, intra and
-    inter, keep 1-3; then the real inputs of picture 0 of hd720_s3 at
-    each size, bit for bit, timed (n = 4, 57,600 blocks, the row of the
-    kernels line) beside the plain version and the bound."""
+def time_txrd(torch, real):
+    """Milliseconds per call, on the inputs of ``real`` (as
+    ``capture_txrd_inputs`` keeps them, with "want" the kept modes), of
+    what replaces the transform-RD stages after the SATD in the package
+    that is imported: ``txrd`` where it has it; else the chain of PyTorch
+    stages and the rank-only kernel that txrd replaced (the tail of
+    ``screen``: a stable sort and a gather; ``forward_transform``;
+    ``txrd_rank``).  Per size (ms, equal to "want")."""
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    out = {}
+    for n, (args, want) in real.items():
+        orig, preds, satd, n, bd, keep, step, p = args
+        if hasattr(tx, "txrd"):
+            fn = lambda: tx.txrd(*args)
+        else:
+            def fn():
+                cand = tx._stable_best(satd, tx.SATD_KEEP).to(torch.int32)
+                idx = cand.long()[:, :, None, None].expand(-1, -1, n, n)
+                coeff = tx.forward_transform(
+                    orig[:, None] - torch.gather(preds, 1, idx), n, bd)
+                return tx.txrd_rank(coeff, cand, keep, step, p)
+        out[n] = (cuda_ms(torch, fn), bool(torch.equal(fn(), want)))
+    return out
+
+
+# Run in a child process: a timing function of this file (argv[4]) with
+# the package of the checkout argv[1], on the inputs saved in argv[3].
+_TIME_TREE = """
+import importlib.util, json, os, sys
+import torch
+tree, smoke_py, inputs, name = sys.argv[1:5]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("smoke", smoke_py)
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+import xvc_tpu_torch
+if not os.path.abspath(xvc_tpu_torch.__file__).startswith(tree + os.sep):
+    raise AssertionError("imported " + xvc_tpu_torch.__file__)
+times = getattr(smoke, name)(torch, torch.load(inputs))
+print(json.dumps([[k, v] for k, v in times.items()]))
+"""
+
+
+def time_of_tree(torch, tree, name, inputs):
+    """The timing function ``name`` of this file with the package of the
+    checkout ``tree``, in a child process, on the same inputs (saved
+    under build/).  Returns its result, keys as JSON gives them back."""
+    path = os.path.join(ROOT, "build", "timed_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(inputs, path)
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _TIME_TREE, tree, os.path.abspath(__file__),
+             path, name], capture_output=True, text=True, timeout=600)
+    finally:
+        os.remove(path)
+    if out.returncode:
+        raise RuntimeError("%s of %s failed:\n%s"
+                           % (name, tree, out.stderr[-4000:]))
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_txrd_kernel(torch, dev, res, parent):
+    """The prepass kernel (txrd: screen, residual, exact transform,
+    ranking) against its plain version on the card: synthetic cases at
+    each size, 8, 10 and 14 bit, three qps, intra and inter, keep 1-3, 67
+    and 19 modes; then the real inputs of picture 0 of hd720_s3 at each size,
+    bit for bit, each timed (n = 4, 57,600 blocks, the row of the
+    kernels line) beside the plain version, the bound and, where
+    ``parent`` names a checkout, the stages that checkout runs there."""
     import numpy as np
     from xvc_tpu_torch.gpu import txrd_prepass as tx
     from xvc_tpu_torch.ops.quant import Qp
+    rng = np.random.RandomState(SEED + 9)
     cases = 0
     for n in (4, 8, 16, 32):
-        for bd in (8, 10):
+        # 14 bit: the row pass's sums pass 2^24 at n >= 8 (float32 shifts)
+        for bd in (8, 10, 14):
             for qp in (22, 32, 37):
-                c, cand = txrd_case(rng, 1031, n, bd)
-                c, cand = torch.from_numpy(c).to(dev), \
-                    torch.from_numpy(cand).to(dev)
+                step = 1 + cases % 4
+                inputs = [torch.from_numpy(a).to(dev) for a in
+                          tx.synthetic_inputs(rng, 1031 if n < 32 else 263,
+                                              n, bd, 2 + -(-65 // step))]
                 for intra in (True, False):
                     p = tx.rank_params(n, bd, Qp(qp, 1, bd, 0.57 * 2 ** (
                         (qp - 12) / 3)), intra)
                     for keep in (1, 2, 3):
-                        got = tx.txrd_rank(c, cand, keep, 1 + cases % 3, p)
-                        want = tx.txrd_rank_plain(c, cand, keep,
-                                                  1 + cases % 3, p)
+                        args = tuple(inputs) + (n, bd, keep, step, p)
+                        got = tx.txrd(*args)
+                        want = tx.txrd_plain(*args)
                         torch.cuda.synchronize()
                         if not torch.equal(got, want):
                             raise AssertionError(
                                 "txrd mismatch %r: %d blocks" % (
-                                    (n, bd, qp, intra, keep),
+                                    (n, bd, qp, intra, keep, step),
                                     int((got != want).any(1).sum())))
                         cases += 1
     # log2 of every level + 1 the ranking can meet, float64 on each device
-    # rounded to float32: the CPU's plain version and the card's agree
+    # rounded to float32: the plain version's values on the CPU and the
+    # card, and the kernel's table
     lv = torch.arange(1, 32769, dtype=torch.float64)
-    log2_differ = int((torch.log2(lv).float() !=
-                       torch.log2(lv.to(dev)).float().cpu()).sum())
+    on_card = torch.log2(lv.to(dev)).float().cpu()
+    log2_differ = int((torch.log2(lv).float() != on_card).sum())
+    table_differ = int((torch.from_numpy(tx.log2_table()) != on_card).sum())
     real = capture_txrd_inputs(torch, dev)
-    per_size = {}
+    per_size, timed = {}, {}
     for n in sorted(real):
-        coeff, cand, keep, step, p = real[n]
-        got = tx.txrd_rank(coeff, cand, keep, step, p)
-        want = tx.txrd_rank_plain(coeff, cand, keep, step, p)
+        args = real[n]
+        orig, preds, satd, _, bd, keep, step, p = args
+        got = tx.txrd(*args)
+        want = tx.txrd_plain(*args)
         torch.cuda.synchronize()
         differ = int((got != want).any(1).sum())
         if differ:
             raise AssertionError("txrd: %d blocks of picture 0 (n=%d) "
                                  "differ from the plain version" % (differ,
                                                                     n))
+        timed[n] = (args, want)
         per_size[n] = dict(
-            blocks=coeff.shape[0], equal_blocks=coeff.shape[0],
-            ms=cuda_ms(torch, lambda: tx.txrd_rank(coeff, cand, keep, step,
-                                                   p)),
-            plain_ms=cuda_ms(torch, lambda: tx.txrd_rank_plain(
-                coeff, cand, keep, step, p), 5),
-            **txrd_bound(torch, coeff, keep, p))
+            blocks=orig.shape[0], modes=satd.shape[1], equal_blocks=
+            orig.shape[0], ms=cuda_ms(torch, lambda: tx.txrd(*args)),
+            device_ms=device_ms(torch, lambda: tx.txrd(*args), "txrd"),
+            plain_ms=cuda_ms(torch, lambda: tx.txrd_plain(*args), 5),
+            **txrd_bound(torch, orig, preds, satd, n, bd, keep, p))
+    if parent is not None:
+        for n, (ms, equal) in time_of_tree(torch, parent, "time_txrd",
+                                           timed):
+            if not equal:
+                raise AssertionError("%s's txrd stages differ at n=%s"
+                                     % (parent, n))
+            per_size[int(n)]["parent_ms"] = ms
     row = per_size[4]
     res["txrd"] = dict(
-        max_abs_err=0, shape="picture 0 of hd720_s3, n=4: [57600, 8, 4, 4] "
-        "float32, keep 1", ms=row["ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-        bound_bytes=row["bound_bytes"], bound_ops=row["bound_ops"],
-        per_size=per_size, synthetic_cases=cases,
-        log2_cpu_card_differ=log2_differ)
+        max_abs_err=0, shape="picture 0 of hd720_s3, n=4: orig [57600, 4, "
+        "4], preds [57600, 67, 4, 4], satd [57600, 67] int32, keep 1",
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], bound_bytes=row["bound_bytes"],
+        bound_ops=row["bound_ops"], per_size=per_size,
+        synthetic_cases=cases, log2_cpu_card_differ=log2_differ,
+        log2_table_card_differ=table_differ)
     log("phase 2: txrd bit-exact over %d synthetic cases and picture 0 of "
         "hd720_s3 (%s); float64 log2 rounded to float32 differs between CPU "
-        "and card at %d of 32,768 levels; per size: %s" % (
+        "and card at %d of 32,768 levels, the kernel's table from the card's "
+        "at %d; per size: %s" % (
             cases, ", ".join("n=%d: %d blocks equal" % (n, r["equal_blocks"])
                              for n, r in per_size.items()), log2_differ,
-            {n: "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)" % (
-                r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"])
+            table_differ,
+            {n: "kernel %.4f ms (device time alone %s), plain %.4f ms, bound "
+                "%.4f ms (%s)%s" % (
+                r["ms"], r["device_ms"], r["plain_ms"], r["bound_ms"],
+                r["bound_by"],
+                ", %s's stages %.4f ms" % (parent, r["parent_ms"])
+                if "parent_ms" in r else "")
              for n, r in per_size.items()}))
 
 
@@ -1908,13 +1958,67 @@ def encode_stage_rows(torch, dev):
     return rows
 
 
+def prepass_ops(torch, dev):
+    """One prepass call of picture 0 of hd720_s3 on the card (after one
+    warm-up call): the profiler's operator list (name -> calls, device
+    ms), which must hold no aten::sort, and the dtypes every operation
+    was given (a dispatch mode), of which none may be float64: no float64
+    matmul or transform is left."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    W, H = HD720_S3["width"], HD720_S3["height"]
+    luma = np.frombuffer(make_hd720_s3(), np.uint8, count=W * H).reshape(H, W)
+    qp = Qp(HD720_S3["qp"], 1, 8, 0.57 * 2 ** ((HD720_S3["qp"] - 12) / 3))
+    call = lambda: tx.frame_txrd_prepass(luma, 8, qp, True, keep=2,
+                                         device=dev)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        ops[ev.key] = dict(calls=ev.count, device_ms=round(t / 1e3, 4))
+    float64 = []
+
+    class Dtypes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            flat = list(args) + list((kwargs or {}).values())
+            if any(isinstance(a, torch.Tensor) and a.dtype == torch.float64
+                   for a in flat):
+                float64.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Dtypes():
+        call()
+    torch.cuda.synchronize()
+    sorts = [k for k in ops if "sort" in k]
+    log("phase 6: one prepass call of picture 0 on the card, PyTorch "
+        "operators and the hand-written kernels (calls, device ms): %s; "
+        "sort operators %s, operations on float64 tensors %s" % (
+            {k: (v["calls"], v["device_ms"]) for k, v in ops.items()
+             if k.startswith("aten::") or "txrd" in k or "satd" in k},
+            sorts, float64))
+    if sorts or float64:
+        raise AssertionError("the prepass still sorts or runs float64: %r "
+                             "%r" % (sorts, float64))
+    return dict(operators=ops, sorts=sorts, float64_ops=float64)
+
+
 def phase_encode(torch, dev):
     """hd720_s3 through xvc_tpu_torch.api.EncoderSession on the card, at
     speed 3 and with the split DP alone: each stream held to the JAX
     package's (tests/data/bench/hd720_s3_enc.json; the split-DP stream
     must equal it, the speed-3 stream equal it or stay inside the
     carve-out), the prepass's candidates of each picture counted against
-    hd720_s3_cands.npz and the ranking kernel against its plain version
+    hd720_s3_cands.npz and the txrd kernel against its plain version
     on every call, both streams decoded on the card to the encoder's
     reconstruction; then ms per picture with the launch counts set to 0
     just before each timed encode and read just after, the stage profile
@@ -1931,16 +2035,15 @@ def phase_encode(torch, dev):
     with np.load(os.path.join(DATA, "bench", "hd720_s3_cands.npz")) as z:
         cands_ref = z["cands"]
 
-    # the checked encode: every ranking call beside its plain version,
-    # every picture's packed candidates against the JAX package's
-    rank, pack = txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands
+    # the checked encode: every txrd call beside its plain version, every
+    # picture's packed candidates against the JAX package's
+    fn, pack = txrd_prepass.txrd, txrd_prepass.pack_intra_cands
     differ = [0]
     pictures = []
 
-    def rank_spy(coeff, cand, keep, screen_step, params):
-        out = rank(coeff, cand, keep, screen_step, params)
-        plain = txrd_prepass.txrd_rank_plain(coeff, cand, keep, screen_step,
-                                             params)
+    def txrd_spy(*args):
+        out = fn(*args)
+        plain = txrd_prepass.txrd_plain(*args)
         differ[0] += int((out != plain).any(1).sum())
         return out
 
@@ -1954,12 +2057,11 @@ def phase_encode(torch, dev):
         differ[0] = 0
         return buf
 
-    txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands = rank_spy, \
-        pack_spy
+    txrd_prepass.txrd, txrd_prepass.pack_intra_cands = txrd_spy, pack_spy
     try:
         checked = session_encode(hd720_s3_session(api, True, dev), yuv, N)
     finally:
-        txrd_prepass.txrd_rank, txrd_prepass.pack_intra_cands = rank, pack
+        txrd_prepass.txrd, txrd_prepass.pack_intra_cands = fn, pack
     if len(pictures) != N or any(p["kernel_vs_plain"] for p in pictures):
         raise AssertionError("txrd kernel and plain version differ on the "
                              "encode: %r" % (pictures,))
@@ -2028,9 +2130,19 @@ def phase_encode(torch, dev):
 
     profiling.reset()
     profiling.enable(sync=True)
+    fs = HD720_S3["width"] * HD720_S3["height"] * 3 // 2
+    split, seen = [], {}
     try:
+        ses = hd720_s3_session(api, True, dev)
         t0 = time.perf_counter()
-        session_encode(hd720_s3_session(api, True, dev), yuv, N)
+        for i in range(N):   # low delay, sub-GOP 1: a picture a call
+            ses.encode(yuv[i * fs:(i + 1) * fs])
+            now = {n: v["seconds"] for n, v in profiling.report().items()
+                   if n.startswith("encode.txrd_prepass")}
+            split.append({n: round(v - seen.get(n, 0.0), 4)
+                          for n, v in now.items()})
+            seen = now
+        ses.flush()
         profiled_s = time.perf_counter() - t0
         spans = profiling.report()
     finally:
@@ -2039,8 +2151,9 @@ def phase_encode(torch, dev):
     traced_s, busy_s, ops = device_busy(torch, lambda: session_encode(
         hd720_s3_session(api, True, dev), yuv, N))
     out["stages"] = encode_stage_rows(torch, dev)
+    out["prepass_ops"] = prepass_ops(torch, dev)
     out["stage_profile"] = dict(
-        profiled_seconds=profiled_s, spans=spans,
+        profiled_seconds=profiled_s, spans=spans, prepass_split=split,
         traced_encode_seconds=traced_s, device_busy_seconds=busy_s,
         device_operations=ops,
         device_idle_share=None if busy_s is None else 1.0 - busy_s / traced_s)
@@ -2050,6 +2163,8 @@ def phase_encode(torch, dev):
             profiled_s, traced_s, busy_s, ops,
             out["stage_profile"]["device_idle_share"],
             {n: v["seconds"] for n, v in spans.items()}))
+    log("phase 6: the prepass per picture (s, synchronising spans): %s"
+        % (split,))
     return out
 
 
@@ -2115,7 +2230,7 @@ def main():
                     "lookahead": look, "encode": enc,
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",
-                        "log2_cpu_card_differ")},
+                        "log2_cpu_card_differ", "log2_table_card_differ")},
                     "satd_fused_ms": res["satd"]["fused_ms"],
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
@@ -2152,8 +2267,9 @@ def main():
     # per-block bases, the jobs of a picture derived from its parse
     # records, table-driven edge decisions over a painted
     # map, the sequential edge walk, the gated two-sample chroma update,
-    # Hadamard + |.| sum, the sequential intra scans, quantization and a
-    # rate proxy summed per candidate with a keep-best selection)
+    # Hadamard + |.| sum, the sequential intra scans, a top-8 screen with
+    # a per-block integer transform, quantization and a rate proxy summed
+    # per candidate with a keep-best selection)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],

@@ -904,41 +904,71 @@ def test_damaged_nals_on_card(cuda, stream, mode):
     assert all(p.conforming for p in pics)
 
 
-# ---- the encoder's transform-RD prepass ranking (kernels/csrc/txrd.cu) --
-
-def _txrd_inputs(rng, B, n, bd):
-    """Coefficients of a Laplace spread with all-zero blocks and exactly
-    tied candidates, and 8 distinct candidate modes per block."""
-    spread = {4: 40, 8: 60, 16: 90, 32: 140}[n] << (bd - 8)
-    c = np.round(rng.laplace(0, spread, (B, 8, n, n)))
-    c = np.clip(c, -(1 << (7 + bd)), 1 << (7 + bd)).astype(np.float32)
-    c[::7] = 0
-    c[1::5, 1] = c[1::5, 0]
-    cand = np.argsort(rng.rand(B, 67), axis=1)[:, :8].astype(np.int32)
-    return c, cand
-
+# ---- the encoder's transform-RD prepass (kernels/csrc/txrd.cu) ----------
 
 @pytest.mark.parametrize("keep", [1, 2, 3, 8])
 @pytest.mark.parametrize("bd,qp,intra", [(8, 32, True), (8, 22, False),
                                          (10, 37, True)])
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
-def test_txrd_rank_kernel_matches_plain(cuda, n, bd, qp, intra, keep):
+def test_txrd_kernel_matches_plain(cuda, n, bd, qp, intra, keep):
+    """txrd (screen to kept modes) against txrd_plain on the same CUDA
+    inputs (synthetic_inputs: SATD ties across the 8th and 9th place,
+    cost ties, full-scale residuals), 67 or 19 modes, and against the
+    CPU's plain version."""
     from xvc_tpu_torch.gpu import txrd_prepass as tx
     from xvc_tpu_torch.ops.quant import Qp
     rng = np.random.RandomState(n * 100 + qp + keep)
-    c, cand = _to(cuda, *_txrd_inputs(rng, 1031, n, bd))
+    step = 1 + keep % 3
+    blocks = 1031 if n < 32 else 263
+    orig, preds, satd = _to(cuda, *tx.synthetic_inputs(
+        rng, blocks, n, bd, 2 + -(-65 // step)))
     p = tx.rank_params(n, bd, Qp(qp, 1, bd, 0.57 * 2 ** ((qp - 12) / 3)),
                        intra)
     kernels.reset_launches()
-    got = tx.txrd_rank(c, cand, keep, 1 + keep % 3, p)
-    want = tx.txrd_rank_plain(c, cand, keep, 1 + keep % 3, p)
+    got = tx.txrd(orig, preds, satd, n, bd, keep, step, p)
+    want = tx.txrd_plain(orig, preds, satd, n, bd, keep, step, p)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["txrd"] == 1
-    assert tuple(got.shape) == (1031, keep) and got.dtype == torch.int32
+    assert tuple(got.shape) == (blocks, keep) and got.dtype == torch.int32
     assert torch.equal(got, want)
     # the CPU's plain version gives the same
-    assert torch.equal(got.cpu(), tx.txrd_rank_plain(
-        c.cpu(), cand.cpu(), keep, 1 + keep % 3, p))
+    assert torch.equal(got.cpu(), tx.txrd(
+        orig.cpu(), preds.cpu(), satd.cpu(), n, bd, keep, step, p))
+
+
+@pytest.mark.parametrize("bd", [12, 14, 16])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_kernel_matches_plain_at_high_bit_depths(cuda, n, bd):
+    """Where the row pass's sums pass 2^24 (n >= 8 above 11 to 13 bit)
+    the kernel shifts in float32, below in integers; both against
+    txrd_plain."""
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    orig, preds, satd = _to(cuda, *tx.synthetic_inputs(
+        np.random.RandomState(n + bd), 263, n, bd))
+    p = tx.rank_params(n, bd, Qp(37, 1, bd, 0.57 * 2 ** (25 / 3)), False)
+    got = tx.txrd(orig, preds, satd, n, bd, 2, 1, p)
+    want = tx.txrd_plain(orig, preds, satd, n, bd, 2, 1, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_txrd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    orig, preds, satd = _to(cuda, *tx.synthetic_inputs(
+        np.random.RandomState(1), 4, 32, 8))
+    p = tx.rank_params(32, 8, Qp(32, 1, 8, 57.0), True)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tx.txrd(orig, preds, satd, 32, 19, 1, 1, p)  # sums could pass 2^31
+    o4, p4, s4 = _to(cuda, *tx.synthetic_inputs(
+        np.random.RandomState(2), 4, 4, 8))
+    with pytest.raises(ValueError, match="2\\^24"):
+        tx.txrd(o4, p4, s4, 4, 17, 1, 1, p)    # n = 4: sums pass 2^24
+    with pytest.raises(ValueError, match="fewer than 8"):
+        tx.txrd(orig, preds[:, :7], satd[:, :7], 32, 8, 1, 1, p)
+    with pytest.raises(ValueError, match="several devices"):
+        tx.txrd(orig, preds, satd.cpu(), 32, 8, 1, 1, p)
 
 
 def _hd720_s3_luma():
@@ -951,23 +981,24 @@ def _hd720_s3_luma():
 def test_txrd_prepass_on_card_matches_cpu_and_repeats(cuda, intra):
     """frame_txrd_prepass of picture 0 of hd720_s3 on the card: the
     maps of the CPU device (plain versions) and the same maps over 5
-    repeated calls; the ranking kernel holds its plain version on the real
+    repeated calls; the txrd kernel holds its plain version on the real
     inputs of every size."""
     from xvc_tpu_torch.gpu import txrd_prepass as tx
     from xvc_tpu_torch.ops.quant import Qp
     luma = _hd720_s3_luma()
     qp = Qp(32, 1, 8, 0.57 * 2 ** (20 / 3))
     want = tx.frame_txrd_prepass(luma, 8, qp, intra, keep=1, device="cpu")
-    rank = tx.txrd_rank
+    fn = tx.txrd
     differ = []
 
-    def spy(coeff, cand, keep, screen_step, params):
-        out = rank(coeff, cand, keep, screen_step, params)
-        plain = tx.txrd_rank_plain(coeff, cand, keep, screen_step, params)
+    def spy(orig, preds, satd, n, bitdepth, keep, screen_step, params):
+        out = fn(orig, preds, satd, n, bitdepth, keep, screen_step, params)
+        plain = tx.txrd_plain(orig, preds, satd, n, bitdepth, keep,
+                              screen_step, params)
         differ.append(int((out != plain).any(1).sum()))
         return out
 
-    tx.txrd_rank = spy
+    tx.txrd = spy
     try:
         for _ in range(5):
             kernels.reset_launches()
@@ -978,8 +1009,33 @@ def test_txrd_prepass_on_card_matches_cpu_and_repeats(cuda, intra):
             for n in want:
                 np.testing.assert_array_equal(got[n], want[n])
     finally:
-        tx.txrd_rank = rank
+        tx.txrd = fn
     assert differ == [0] * 20
+
+
+def test_txrd_prepass_on_card_runs_no_sort_and_no_float64(cuda):
+    """One prepass call of picture 0 of hd720_s3 on the card: no
+    aten::sort and no operation on a float64 tensor (so no float64
+    matmul): prediction, SATD and txrd only."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from xvc_tpu_torch.gpu import txrd_prepass as tx
+    from xvc_tpu_torch.ops.quant import Qp
+    luma = _hd720_s3_luma()
+    qp = Qp(32, 1, 8, 0.57 * 2 ** (20 / 3))
+    seen = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            flat = list(args) + list((kwargs or {}).values())
+            seen.append((str(func), {a.dtype for a in flat
+                                     if isinstance(a, torch.Tensor)}))
+            return func(*args, **(kwargs or {}))
+
+    tx.frame_txrd_prepass(luma, 8, qp, True, keep=2, device=cuda)
+    with Log():
+        tx.frame_txrd_prepass(luma, 8, qp, True, keep=2, device=cuda)
+    assert seen and not [op for op, _ in seen if "sort" in op]
+    assert not [op for op, dt in seen if torch.float64 in dt]
 
 
 def test_speed3_encode_on_card_matches_cpu(cuda):

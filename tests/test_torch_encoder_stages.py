@@ -14,10 +14,18 @@ JAX package, on the CPU device, with inputs made from numpy seeds.
   frame_txrd_prepass equal the JAX package's at 8 and 10 bit, intra and
   inter, keep 1-3, on the clips of tests/test_txrd_prepass.py and a
   256x256 clip.  The tolerance is equality: the maps are equal entry for
-  entry (a differing block is named by the assertion).  txrd_rank_plain
-  is exercised through it; its stages are held alone below: the screen's
-  tie order against lax.top_k, the float64 forward transform against an
-  exact integer transform.
+  entry (a differing block is named by the assertion).  Below the
+  frame: txrd_plain (the plain version of the txrd kernel: everything
+  after the SATD) equals the JAX package's _txrd_step block for block at
+  every size, 8 and 10 bit, intra and inter, screen_step 1 and 4, keep 1,
+  2 and 8, on blocks with SATD and cost ties and at full scale; its
+  stages alone: the screen's tie order against lax.top_k, the float64
+  forward transform against an exact integer transform.
+- The kernel's arithmetic (kernels/csrc/txrd.cu), modelled in numpy and
+  held against txrd_plain: the int32 transform sums and their bounds
+  (exact_sum_bounds, the bit depths the kernel takes), the log2 table,
+  the int64 error sum and the fixed-point bit sum against the float64
+  sums of the plain version.
 """
 import numpy as np
 import pytest
@@ -352,3 +360,295 @@ def test_xla_exp2_table_is_jnp_exp2_on_the_cpu_backend():
     exact = np.ldexp(np.float32(1), xs.astype(int)).astype(np.float32)
     assert (got[np.abs(xs) <= 12] == exact[np.abs(xs) <= 12]).all()
     assert (got[np.abs(xs) == 13] != exact[np.abs(xs) == 13]).all()
+
+
+# ---- txrd_plain against the JAX step; the kernel's arithmetic -----------
+
+def _jax_quant_params(qp, n, bd):
+    """The JAX step's traced quant parameters, as its frame_txrd_prepass
+    makes them."""
+    import jax.numpy as jnp
+    from xvc_tpu.ops import quant as jq
+    tshift = jq.get_transform_shift(n, n, bd)
+    return tuple(jnp.float32(x) for x in (
+        qp.get_fwd_scale(0), jq.QUANT_SHIFT + qp.get_qp_per(0) + tshift,
+        qp.get_inv_scale(0), jq.IQUANT_SHIFT - tshift, qp.get_lambda()))
+
+
+def _step_inputs(n, bd, seed):
+    """(orig, top, left) int32 blocks: blocks of a real clip, blocks with
+    flat references (every mode predicts the same: SATD ties across the
+    8th and 9th place, and equal costs), flat on one side only, and full
+    scale residuals (orig 0 or 2^bd - 1 against references at the other
+    end, uniform and checkered)."""
+    rng = np.random.RandomState(seed)
+    maxv = (1 << bd) - 1
+    frame = txrd_luma(128, 96, 1) << (bd - 8)
+    orig, top, left = txrd_prepass._extract_grid_fast(frame, n)
+    extra_o, extra_t, extra_l = [], [], []
+
+    def add(o, t, l):
+        extra_o.append(np.broadcast_to(o, (n, n)))
+        extra_t.append(np.broadcast_to(t, (2 * n + 1,)))
+        extra_l.append(np.broadcast_to(l, (2 * n,)))
+
+    for v in (0, 100 << (bd - 8), maxv):        # flat references
+        add(rng.randint(0, maxv + 1, (n, n)), v, v)
+    add(rng.randint(0, maxv + 1, (n, n)), 60 << (bd - 8),
+        rng.randint(0, maxv + 1, 2 * n))         # flat top only
+    check = (np.add.outer(np.arange(n), np.arange(n)) & 1) * maxv
+    for o, r in ((maxv, 0), (0, maxv), (check, 0), (maxv - check, maxv)):
+        add(o, r, r)
+    return (np.concatenate([orig, np.stack(extra_o)]).astype(np.int32),
+            np.concatenate([top, np.stack(extra_t)]).astype(np.int32),
+            np.concatenate([left, np.stack(extra_l)]).astype(np.int32))
+
+
+@pytest.mark.parametrize("keep", [1, 2, 8])
+@pytest.mark.parametrize("screen_step", [1, 4])
+@pytest.mark.parametrize("intra", [True, False])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_plain_equals_the_jax_step(n, bd, intra, screen_step, keep):
+    import jax.numpy as jnp
+    qpv = 32 if bd == 8 else 37
+    orig, top, left = _step_inputs(n, bd, n + bd)
+    want = np.asarray(jtx._txrd_step(
+        jnp.asarray(orig), jnp.asarray(top), jnp.asarray(left), n, bd, keep,
+        intra, screen_step, _jax_quant_params(_qp(JaxQp, qpv, bd), n, bd)))
+    params = txrd_prepass.rank_params(n, bd, _qp(Qp, qpv, bd), intra)
+    t = [torch.from_numpy(a) for a in (orig, top, left)]
+    got = txrd_prepass._txrd_step(*t, n, bd, keep, intra, screen_step,
+                                  params)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    bad = np.argwhere(got.numpy() != want)
+    assert not len(bad), "blocks differ at %s" % bad[:10].tolist()
+    # the same through the three stages the step runs
+    from xvc_tpu_torch.gpu import intra_batch, satd
+    preds = intra_batch.predict_all_modes(
+        n, t[1], t[2], analysis.weights_on(n, screen_step, "cpu"), bd,
+        n <= 16 and screen_step == 1)
+    sat = satd.satd_pred(t[0], preds, bd)
+    assert sat.shape[1] == (67 if screen_step == 1 else 19)
+    assert torch.equal(txrd_prepass.txrd_plain(
+        t[0], preds, sat, n, bd, keep, screen_step, params), got)
+
+
+def test_txrd_refuses_fewer_modes_than_it_screens():
+    orig = torch.zeros((2, 4, 4), dtype=torch.int32)
+    preds = torch.zeros((2, 7, 4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fewer than 8"):
+        txrd_prepass.txrd(orig, preds, torch.zeros((2, 7), dtype=torch.int32),
+                          4, 8, 1, 1, {})
+    with pytest.raises(ValueError, match="disagree"):
+        txrd_prepass.txrd(orig, preds, torch.zeros((2, 8), dtype=torch.int32),
+                          4, 8, 1, 1, {})
+
+
+def _sign_patterns(basis, bd, rng):
+    """Full-scale residuals [k, n, n] (every entry +-(2^bd - 1)): all +,
+    all -, every row the signs of basis row k (the largest row-pass sum
+    |S1| there is), and random signs."""
+    n = basis.shape[0]
+    mag = (1 << bd) - 1
+    rows = np.sign(basis).astype(np.int64)
+    rows[rows == 0] = 1
+    pats = [np.ones((n, n), np.int64), -np.ones((n, n), np.int64)]
+    pats += [np.broadcast_to(rows[k], (n, n)) for k in range(n)]
+    pats += [rng.choice([-1, 1], (n, n)) for _ in range(8)]
+    return mag * np.stack(pats)
+
+
+def _floor_shift(s, shift, integer):
+    """A floor shift of the kernel: float32 (f32(s) + 2^(shift-1)) *
+    2^-shift floored, and where ``integer`` (txrd_prepass.integer_shifts)
+    the integer shift it takes instead, held equal."""
+    f = np.floor((s.astype(np.float32) + np.float32(1 << (shift - 1))) *
+                 np.float32(1.0 / (1 << shift))).astype(np.int64)
+    if integer:
+        assert np.array_equal((s + (1 << (shift - 1))) >> shift, f)
+    return f
+
+
+def _int_transform(resi, basis, shift1, shift2, integer=(False, False)):
+    """The kernel's transform in int64: (S1, t1, S2, c), each floor shift
+    as the kernel does it; at n >= 8 also the even-odd form of each pass
+    (sums and differences of mirrored entries, half the products), held
+    to the direct sums."""
+    m = basis.astype(np.int64)
+    n = m.shape[0]
+    s1 = resi @ m.T
+    t1 = _floor_shift(s1, shift1, integer[0])
+    s2 = m @ t1
+    if n > 4:
+        h = n // 2
+        rr = resi[..., ::-1][..., :h]                     # mirrored
+        assert np.array_equal((resi[..., :h] + rr) @ m[0::2, :h].T,
+                              s1[..., 0::2])
+        assert np.array_equal((resi[..., :h] - rr) @ m[1::2, :h].T,
+                              s1[..., 1::2])
+        tr = t1[..., ::-1, :][..., :h, :]
+        assert np.array_equal(m[0::2, :h] @ (t1[..., :h, :] + tr),
+                              s2[..., 0::2, :])
+        assert np.array_equal(m[1::2, :h] @ (t1[..., :h, :] - tr),
+                              s2[..., 1::2, :])
+    c = _floor_shift(s2, shift2, integer[1]).astype(np.float32)
+    return s1, t1, s2, c
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_int32_sums_at_full_scale(n, bd):
+    """Residuals at full scale: every sum of the kernel's int32
+    transform stays below 2^31 and inside exact_sum_bounds, the row-pass
+    bound is reached, and the coefficients equal the float64 transform."""
+    basis, shift1, shift2 = txrd_prepass._fwd_basis(n, bd, n == 4)
+    resi = _sign_patterns(basis, bd, np.random.RandomState(n))
+    s1, t1, s2, c = _int_transform(resi, basis, shift1, shift2,
+                                   txrd_prepass.integer_shifts(n, bd))
+    b1, bt, b2 = txrd_prepass.exact_sum_bounds(n, bd)
+    assert np.abs(s1).max() == b1 < 2 ** 31
+    assert np.abs(t1).max() <= bt < 2 ** 22
+    assert np.abs(s2).max() <= b2 < 2 ** 31
+    assert txrd_prepass.kernel_takes(n, bd)
+    got = txrd_prepass.forward_transform(
+        torch.from_numpy(resi[:, None].astype(np.int32)), n, bd)[:, 0]
+    assert np.array_equal(got.numpy(), c)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_kernel_takes_bit_depths_while_its_sums_fit(n):
+    """The wrapper's limit: the kernel takes every bit depth up to the
+    last whose row-pass sums stay below 2^31 (18 at n = 32, 19 at 16, 20
+    at 8) and refuses the next, where a full-scale residual's row pass
+    does pass 2^31; at n = 4, whose kernel shifts in integers only, up to
+    the last whose row-pass sums plus the rounding offset stay below 2^24
+    (16)."""
+    basis = txrd_prepass._fwd_basis(n, 8, n == 4)[0]
+    first = next(bd for bd in range(8, 32)
+                 if not txrd_prepass.kernel_takes(n, bd))
+    assert first == {4: 17, 8: 21, 16: 20, 32: 19}[n]
+    for bd in (first - 1, first):
+        shift1 = txrd_prepass._fwd_basis(n, bd, n == 4)[1]
+        limit = 2 ** 24 - (1 << (shift1 - 1)) if n == 4 else 2 ** 31
+        resi = _sign_patterns(basis, bd, np.random.RandomState(0))
+        s1 = np.abs(resi @ basis.astype(np.int64).T).max()
+        assert (s1 >= limit) == (bd == first)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_integer_floor_shifts_where_float32_is_exact(n):
+    """The kernel's integer floor shifts, each where the pass's sums plus
+    2^(shift-1) stay below 2^24 (which the full-scale test above holds to
+    the float32 shift): pass 1 up to 16 bit at n = 4, 13 at n = 8, 12 at
+    16 and 11 at 32; pass 2 at n = 4 only, at every bit depth (its
+    column sums stay below 2^23)."""
+    last = {4: 16, 8: 13, 16: 12, 32: 11}[n]
+    for bd in range(8, 19):
+        assert txrd_prepass.integer_shifts(n, bd) == (bd <= last, n == 4)
+
+
+def test_txrd_log2_table_is_torch_log2_of_float64():
+    table = txrd_prepass.log2_table()
+    want = torch.log2(torch.arange(1, 32769, dtype=torch.float64)).float()
+    assert table.dtype == np.float32 and table.shape == (32768,)
+    assert np.array_equal(table.view(np.uint32), want.numpy().view(np.uint32))
+
+
+def _kernel_sums(coeff, p):
+    """The kernel's two sums over [..., n, n] float32 coefficients: the
+    int64 sum of (|c| - ch)^2 and the bit sum in fixed point at 2^-22,
+    with levels from a float32 arithmetic equal to txrd_rank_plain's."""
+    f32 = np.float32
+    a = np.abs(coeff)
+    u = (a.astype(np.float64) * p["scale"] + p["offset"]).astype(f32)
+    level = np.minimum(np.floor(u * f32(p["p_shift"])), f32(32767))
+    ch = np.minimum(np.floor(level * f32(p["inv_scale"]) * f32(p["p_inv"]) +
+                             f32(0.5)), f32(32767))
+    e = (a - ch).astype(np.int64)
+    lg = txrd_prepass.log2_table()[level.astype(np.int64)]
+    term = f32(1.5) + f32(2) * lg
+    fixed = np.where(level > 0, (term * f32(2 ** 22)).astype(np.int64), 0)
+    assert (fixed == np.where(level > 0, term.astype(np.float64) * 2 ** 22,
+                              0)).all()         # exactly a multiple
+    return (e * e).sum(axis=(-1, -2)), fixed.sum(axis=(-1, -2)), level
+
+
+def _kernel_model(orig, preds, satd, n, bd, keep, step, p):
+    """txrd.cu in numpy: the (satd, mode) key screen, the int32
+    transform, the two exact sums rounded once to float32, the cost and
+    the strict (cost, candidate) pick."""
+    f32 = np.float32
+    key = (satd.astype(np.int64) + 2 ** 31) << 32 | np.arange(satd.shape[1])
+    cand = (np.sort(key, axis=1)[:, :8] & 0xffffffff).astype(np.int64)
+    picked = np.take_along_axis(preds, cand[:, :, None, None], axis=1)
+    basis, shift1, shift2 = txrd_prepass._fwd_basis(n, bd, n == 4)
+    s1, _, s2, c = _int_transform(orig[:, None].astype(np.int64) - picked,
+                                  basis, shift1, shift2,
+                                  txrd_prepass.integer_shifts(n, bd))
+    assert np.abs(s1).max() < 2 ** 31 and np.abs(s2).max() < 2 ** 31
+    err, fixed, _ = _kernel_sums(c, p)
+    dist = err.astype(f32) * f32(p["inv_gain"])
+    bits = fixed.astype(f32) * f32(2 ** -22)
+    cost = (p["lam"] * bits.astype(np.float64) + dist).astype(f32)
+    order = np.lexsort((np.broadcast_to(np.arange(8), cost.shape), cost),
+                       axis=1)[:, :keep]
+    best = np.take_along_axis(cand, order, axis=1)
+    return np.where(best < 2, best, (best - 2) * step + 2).astype(np.int32)
+
+
+@pytest.mark.parametrize("keep", [1, 3, 8])
+@pytest.mark.parametrize("bd,qpv,intra", [(8, 32, True), (8, 22, False),
+                                          (10, 37, True), (10, 27, False)])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_txrd_kernel_model_equals_txrd_plain(n, bd, qpv, intra, keep):
+    step = 4 if keep == 3 else 1            # 19 modes, else 67
+    orig, preds, satd = txrd_prepass.synthetic_inputs(
+        np.random.RandomState(n * 7 + qpv + keep), 40, n, bd,
+        2 + -(-65 // step))
+    p = txrd_prepass.rank_params(n, bd, _qp(Qp, qpv, bd), intra)
+    want = txrd_prepass.txrd(*(torch.from_numpy(a) for a in
+                               (orig, preds, satd)), n, bd, keep, step, p)
+    got = _kernel_model(orig, preds, satd, n, bd, keep, step, p)
+    assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+@pytest.mark.parametrize("n", [4, 32])
+def test_txrd_exact_sums_equal_the_float64_sums(n, kind):
+    """The kernel's int64 error sum and fixed-point bit sum, rounded to
+    float32, equal txrd_rank_plain's float64 sums rounded to float32, on
+    random levels and on extreme ones (|c| up to 2^15, zero and one; and
+    with a coarser quantizer shift, levels at the 32767 clamp)."""
+    rng = np.random.RandomState(n)
+    if kind == "random":
+        c = np.round(rng.laplace(0, 300, (64, 8, n, n)))
+    else:
+        c = rng.choice([0, 1, -1, 2 ** 15 - 1, -(2 ** 15), 2 ** 14 + 3],
+                       (64, 8, n, n))
+        c[0] = 2 ** 15 - 1
+    c = c.astype(np.float32)
+    for qpv in (22, 37, 51, "clamp"):
+        p = txrd_prepass.rank_params(n, 8, _qp(Qp, 22 if qpv == "clamp"
+                                                else qpv, 8), True)
+        if qpv == "clamp":          # a coarser shift: levels at the clamp
+            p["p_shift"] *= 2.0 ** 10
+        err, fixed, level = _kernel_sums(c, p)
+        if kind == "extreme" and qpv == "clamp":
+            assert (level[0] == 32767).all()
+        ct = torch.from_numpy(c)
+        # the plain version's float64 sums (txrd_rank_plain's expressions)
+        u = (ct.abs().double() * p["scale"] + p["offset"]).float()
+        lv = torch.floor(u * p["p_shift"]).clamp(max=32767.0)
+        ch = torch.floor(lv * p["inv_scale"] * p["p_inv"] + 0.5).clamp(
+            max=32767.0)
+        e = (ct.abs() - ch).double()
+        lg = torch.log2((lv + 1.0).double()).float()
+        terms = torch.where(lv > 0.0, lg * 2.0 + 1.5, torch.zeros_like(lg))
+        assert np.array_equal(lv.numpy(), level)
+        assert np.array_equal(err.astype(np.float32),
+                              (e * e).sum(dim=(2, 3)).float().numpy())
+        assert np.array_equal(
+            fixed.astype(np.float32) * np.float32(2 ** -22),
+            terms.double().sum(dim=(2, 3)).float().numpy())
+        assert (err < 2 ** 42).all() and (fixed < 2 ** 37).all()

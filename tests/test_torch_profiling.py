@@ -1,6 +1,7 @@
 """The port's span table (xvc_tpu_torch.profiling) against the JAX
-package's (xvc_tpu.profiling) on the same calls, and the spans a decode
-through the flat path reports.
+package's (xvc_tpu.profiling) on the same calls, the spans a decode
+through the flat path reports, and the transform-RD prepass's sub-spans
+in a speed-3 encode.
 """
 import time
 
@@ -139,3 +140,33 @@ def test_command_line_prints_the_table(capsys, tmp_path):
     out = capsys.readouterr().out
     assert out.splitlines()[0].split() == ["stage", "seconds", "calls"]
     assert "decode.flat" in out and "3 pictures" in out
+
+
+# the transform-RD prepass's sub-spans, one call each per block size of a
+# picture, inside the picture encoder's encode.txrd_prepass
+_PREPASS_SPANS = ("encode.txrd_prepass.extract", "encode.txrd_prepass.upload",
+                  "encode.txrd_prepass.device",
+                  "encode.txrd_prepass.download")
+
+
+def test_speed3_encode_reports_the_prepass_sub_spans():
+    from xvc_tpu_torch.codec.encoder import encode_stream
+    from xvc_tpu_torch.codec.encoder_settings import EncoderSettings
+    from .encode_clips import txrd_clip
+    s = EncoderSettings()
+    s.initialize_speed(3)
+    tprof.reset()
+    tprof.enable()
+    try:
+        encode_stream(txrd_clip(64, 48, 2), 64, 48, 2, qp=32, settings=s,
+                      sub_gop_length=1, num_ref_pics=1, checksum_mode=1,
+                      device="cpu")
+        rep = tprof.report()
+    finally:
+        tprof.enable(False)
+        tprof.reset()
+    assert rep["encode.txrd_prepass"]["calls"] == 2
+    for name in _PREPASS_SPANS:     # sizes 4, 8, 16 and 32, two pictures
+        assert rep[name]["calls"] == 8, name
+    inner = sum(rep[n]["seconds"] for n in _PREPASS_SPANS)
+    assert inner <= rep["encode.txrd_prepass"]["seconds"] + 1e-3

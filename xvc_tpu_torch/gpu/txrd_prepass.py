@@ -11,21 +11,23 @@ Parseval-domain distortion, and only the top-K candidates per block are
 handed to the native RD search, which then runs the exact per-candidate
 RDO on the shorter mode list.
 
-``_txrd_step`` of the JAX package is one jitted program; here its stages
-are:
+``_txrd_step`` of the JAX package is one jitted program; here it is
+three launches on the card:
 
 1. predictions: ``intra_batch.predict_all_modes``;
 2. SATD: ``satd.satd_pred`` (``kernels/csrc/satd.cu`` on the card);
-3. the 8-candidate screen: a stable ascending sort of the SATD, which
-   breaks ties toward the lower index as ``lax.top_k`` does;
-4. the forward transform, as two float64 ``torch.matmul`` whose every
-   product and partial sum is an exact integer (below 2^53), each product
-   rounded to float32 where the JAX expression has its float32 einsum
-   value; the JAX package's float32 einsum is exact only while its partial
-   sums stay below 2^24;
-5. the ranking (``txrd_rank``): quantization, distortion, rate, cost and
-   the keep-best selection, ``kernels/csrc/txrd.cu`` on the card and
-   ``txrd_rank_plain`` on the CPU.
+3. everything after the SATD (``txrd``): the 8-candidate screen, the
+   residual of the picked predictions, the exact forward transform,
+   quantization, distortion, rate, cost and the keep-best selection,
+   ``kernels/csrc/txrd.cu`` on the card and ``txrd_plain`` on the CPU.
+
+``txrd_plain`` keeps the stages apart: a stable ascending sort of the SATD
+(ties toward the lower index, as ``lax.top_k``), a gather, the forward
+transform as two float64 ``torch.matmul`` whose every product and partial
+sum is an exact integer (below 2^53), each rounded to float32 where the
+JAX expression has its float32 einsum value (the JAX package's float32
+einsum is exact only while its partial sums stay below 2^24), and the
+ranking (``txrd_rank_plain``).
 
 Open-loop (references from the original picture, with the left-edge
 self-clamp of ``_extract_grid_fast`` copied) and approximate (rate proxy
@@ -42,6 +44,7 @@ from .. import kernels
 from ..engine import resolve_device
 from ..ops import quant as q
 from ..ops import transform as tx
+from ..profiling import span
 from . import analysis as an
 from . import intra_batch as ib
 from . import satd as satd_mod
@@ -150,8 +153,8 @@ def _stable_best(values, count):
 
 
 def txrd_rank_plain(coeff, cand, keep, screen_step, params):
-    """Plain PyTorch version of the ranking kernel (same result bit for
-    bit): coeff [B, m, n, n] float32 integers, cand [B, m] int32 subset
+    """The ranking of ``txrd_plain``, the last stage of the kernel:
+    coeff [B, m, n, n] float32 integers, cand [B, m] int32 subset
     mode indices, ``params`` from ``rank_params``.  Returns [B, keep]
     int32 true mode numbers, best first."""
     p = params
@@ -176,34 +179,6 @@ def txrd_rank_plain(coeff, cand, keep, screen_step, params):
         torch.int32)
 
 
-def txrd_rank(coeff, cand, keep, screen_step, params):
-    """The ranking stage: ``kernels/csrc/txrd.cu`` on the card,
-    ``txrd_rank_plain`` on the CPU (same arguments and result)."""
-    if coeff.dtype != torch.float32 or coeff.dim() != 4 or \
-            coeff.shape[-1] != coeff.shape[-2] or \
-            cand.dtype != torch.int32 or cand.shape != coeff.shape[:2]:
-        raise ValueError("txrd_rank: coeff %s %r and cand %s %r disagree"
-                         % (coeff.dtype, tuple(coeff.shape), cand.dtype,
-                            tuple(cand.shape)))
-    if not kernels.on_cuda(coeff, cand):
-        return txrd_rank_plain(coeff, cand, keep, screen_step, params)
-    from ..kernels import build
-    coeff = coeff.contiguous()
-    cand = cand.contiguous()
-    b, m, n = coeff.shape[0], coeff.shape[1], coeff.shape[-1]
-    out = torch.empty((b, keep), dtype=torch.int32, device=coeff.device)
-    if b:
-        p = params
-        rc = build.lib().xvc_txrd_rank(
-            build.ptr(coeff), build.ptr(cand), b, m, n, keep, screen_step,
-            p["scale"], p["offset"], p["p_shift"], p["inv_scale"],
-            p["p_inv"], p["inv_gain"], p["lam"], build.ptr(out),
-            build.stream_of(coeff))
-        build.check(rc, "txrd")
-        kernels.LAUNCHES["txrd"] += 1
-    return out
-
-
 def forward_transform(resi, n, bitdepth):
     """Forward 2-D transform of [B, m, n, n] int32 residuals as the JAX
     expression computes it (row pass, floor shift, column pass, floor
@@ -218,24 +193,170 @@ def forward_transform(resi, n, bitdepth):
                         float(1 << (shift2 - 1))) * (1.0 / (1 << shift2)))
 
 
-def screen(orig, top, left, n, bitdepth, screen_step):
-    """Stages 1-3: all-mode prediction, SATD and the 8-candidate screen.
-    Returns (cand [B, 8] int32 subset indices, their predictions
-    [B, 8, n, n] int32)."""
-    weights = an.weights_on(n, screen_step, orig.device)
-    # the batched post filter edits fixed full-set mode positions, so it
-    # is only applicable on the unstrided tensor
-    post_filter = n <= 16 and screen_step == 1
-    preds = ib.predict_all_modes(n, top, left, weights, bitdepth,
-                                 post_filter)            # [B, M, n, n]
-    satd = satd_mod.satd_pred(orig, preds, bitdepth)     # [B, M]
+# int32 bound of the kernel's transform sums (sums of int32 products)
+_INT32_LIMIT = 1 << 31
+# the kernel turns t1 and |c| into ints by adding 1.5 * 2^23: exact below
+# 2^22
+_T1_LIMIT = 1 << 22
+# every integer below 2^24 is a float32
+_F32_EXACT = 1 << 24
+
+
+@functools.lru_cache(maxsize=None)
+def exact_sum_bounds(n, bitdepth):
+    """Upper bounds of |sum| of the kernel's row pass, |t1| after its
+    floor shift and |sum| of its column pass, for residuals of magnitude
+    at most 2^bitdepth - 1: the largest residual times the largest row sum
+    of |basis|, and for t1 that over 2^shift1 (with the float32 rounding of
+    the sum and the floor counted)."""
+    basis, shift1, _ = _fwd_basis(n, bitdepth, n == 4)
+    row = int(np.abs(basis.astype(np.int64)).sum(axis=1).max())
+    s1 = ((1 << bitdepth) - 1) * row
+    t1 = -(-(s1 + (s1 >> 23) + 1) // (1 << shift1)) + 1
+    return s1, t1, t1 * row
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_takes(n, bitdepth):
+    """True if the kernel's int32 transform holds every sum exactly (with
+    t1 and |c| below 2^22) and, at n = 4, whose kernel shifts in integers
+    only, both floor shifts are integer ones (``integer_shifts``)."""
+    s1, t1, s2 = exact_sum_bounds(n, bitdepth)
+    shift2 = _fwd_basis(n, bitdepth, n == 4)[2]
+    c = -(-(s2 + (s2 >> 23) + 1) // (1 << shift2)) + 1
+    return s1 < _INT32_LIMIT and s2 < _INT32_LIMIT and \
+        max(t1, c) < _T1_LIMIT and (n > 4 or all(integer_shifts(n, bitdepth)))
+
+
+@functools.lru_cache(maxsize=None)
+def integer_shifts(n, bitdepth):
+    """(pass 1, pass 2): True where every sum of that pass plus its
+    rounding offset 2^(shift-1) stays below 2^24, so that float32 holds
+    the sum and the offset's addition exactly and the floor shift is an
+    integer shift (the kernel then takes it so)."""
+    _, shift1, shift2 = _fwd_basis(n, bitdepth, n == 4)
+    s1, _, s2 = exact_sum_bounds(n, bitdepth)
+    return (s1 + (1 << (shift1 - 1)) < _F32_EXACT,
+            s2 + (1 << (shift2 - 1)) < _F32_EXACT)
+
+
+@functools.lru_cache(maxsize=None)
+def log2_table():
+    """float32 log2(level + 1) for every level the ranking's clamp allows
+    (0..32767): the float64 log2 rounded to float32, which is what
+    ``txrd_rank_plain`` computes (torch.log2 of float64 agrees on the CPU
+    and the card)."""
+    return np.log2(np.arange(1, 32769, dtype=np.float64)).astype(np.float32)
+
+
+_DEV_TABLES = {}
+
+
+def _device_tables(n, bitdepth, device):
+    """The int32 basis [n, n] and the log2 table on ``device`` (cached)."""
+    key = (n, bitdepth, str(device))
+    got = _DEV_TABLES.get(key)
+    if got is None:
+        basis = _fwd_basis(n, bitdepth, n == 4)[0].astype(np.int32)
+        # the kernel's even-odd passes at n >= 8 need every DCT-2 row even
+        # or odd: m[k][n-1-j] = (-1)^k m[k][j]
+        sign = np.where(np.arange(n) % 2, -1, 1)[:, None]
+        if n > 4 and not np.array_equal(basis[:, ::-1], sign * basis):
+            raise ValueError("txrd: the n=%d basis is not even-odd" % n)
+        got = (torch.from_numpy(basis).to(device),
+               torch.from_numpy(log2_table()).to(device))
+        _DEV_TABLES[key] = got
+    return got
+
+
+def txrd_plain(orig, preds, satd, n, bitdepth, keep, screen_step, params):
+    """Plain PyTorch version of the prepass kernel (same result bit for
+    bit): the 8-candidate screen as a stable sort of ``satd``, the gather
+    of the picked predictions, ``forward_transform`` of the residual and
+    ``txrd_rank_plain``."""
+    cand = _stable_best(satd, SATD_KEEP).to(torch.int32)
+    idx = cand.long()[:, :, None, None].expand(-1, -1, n, n)
+    coeff = forward_transform(orig[:, None] - torch.gather(preds, 1, idx),
+                              n, bitdepth)
+    return txrd_rank_plain(coeff, cand, keep, screen_step, params)
+
+
+def txrd(orig, preds, satd, n, bitdepth, keep, screen_step, params):
+    """Everything after the SATD for a batch of n x n blocks: orig
+    [B, n, n], preds [B, M, n, n] (``intra_batch.predict_all_modes``),
+    satd [B, M] (``satd.satd_pred``), all int32, samples of ``bitdepth``
+    bits; ``params`` from ``rank_params``.  Returns [B, keep] int32 true
+    mode numbers, best first.  ``kernels/csrc/txrd.cu`` on the card,
+    ``txrd_plain`` on the CPU."""
+    b = orig.shape[0]
+    if orig.dtype != torch.int32 or preds.dtype != torch.int32 or \
+            satd.dtype != torch.int32 or tuple(orig.shape[1:]) != (n, n) or \
+            preds.dim() != 4 or tuple(preds.shape[2:]) != (n, n) or \
+            preds.shape[0] != b or tuple(satd.shape) != preds.shape[:2]:
+        raise ValueError("txrd: orig %s %r, preds %s %r and satd %s %r "
+                         "disagree (n=%d)" % (
+                             orig.dtype, tuple(orig.shape), preds.dtype,
+                             tuple(preds.shape), satd.dtype,
+                             tuple(satd.shape), n))
     if satd.shape[1] < SATD_KEEP:
         # lax.top_k(-satd, SATD_KEEP) refuses fewer modes than it keeps
         raise ValueError("txrd prepass: %d screened modes, fewer than %d"
                          % (satd.shape[1], SATD_KEEP))
-    cand = _stable_best(satd, SATD_KEEP).to(torch.int32)
-    idx = cand.long()[:, :, None, None].expand(-1, -1, n, n)
-    return cand, torch.gather(preds, 1, idx)
+    if not 1 <= keep <= SATD_KEEP:
+        raise ValueError("txrd: keep %d outside 1..%d" % (keep, SATD_KEEP))
+    if not kernels.on_cuda(orig, preds, satd):
+        return txrd_plain(orig, preds, satd, n, bitdepth, keep, screen_step,
+                          params)
+    from ..kernels import build
+    if n not in SIZES or satd.shape[1] > ib.NUM_MODES_EXT or \
+            not kernel_takes(n, bitdepth):
+        raise ValueError("txrd: the kernel takes n in %r, at most %d modes "
+                         "and bit depths whose transform sums stay below "
+                         "2^31 (at n = 4 below 2^24); got n=%d, %d modes, "
+                         "%d bit" % (
+                             SIZES, ib.NUM_MODES_EXT, n, satd.shape[1],
+                             bitdepth))
+    orig, preds, satd = (t.contiguous() for t in (orig, preds, satd))
+    if orig.data_ptr() % 16 or preds.data_ptr() % 16:
+        raise ValueError("txrd: tensor storage is not 16-byte aligned")
+    basis, lg2 = _device_tables(n, bitdepth, orig.device)
+    _, shift1, shift2 = _fwd_basis(n, bitdepth, n == 4)
+    int1, int2 = integer_shifts(n, bitdepth)
+    out = torch.empty((b, keep), dtype=torch.int32, device=orig.device)
+    if b:
+        p = params
+        rc = build.lib().xvc_txrd(
+            build.ptr(orig), build.ptr(preds), build.ptr(satd),
+            build.ptr(basis), build.ptr(lg2), b, satd.shape[1], n, keep,
+            screen_step, shift1, shift2, int1, int2, p["scale"], p["offset"],
+            p["p_shift"], p["inv_scale"], p["p_inv"], p["inv_gain"],
+            p["lam"], build.ptr(out), build.stream_of(orig))
+        build.check(rc, "txrd")
+        kernels.LAUNCHES["txrd"] += 1
+    return out
+
+
+def synthetic_inputs(rng, B, n, bitdepth, modes=ib.NUM_MODES_EXT):
+    """numpy (orig [B, n, n], preds [B, modes, n, n], satd [B, modes])
+    int32 for holding the kernel to its plain version: predictions a
+    Laplace spread around orig; SATDs from a small range, so that many
+    tie, also across the 8th and 9th place.  Every 7th block and the two
+    after it are at full scale both ways (orig 2^bitdepth - 1 against
+    predictions 0, and 0 against 2^bitdepth - 1) and flat (every
+    candidate's cost equal); in the 4th all SATDs tie; in every 5th block
+    mode 1 predicts as mode 0."""
+    maxv = (1 << bitdepth) - 1
+    orig = rng.randint(0, maxv + 1, (B, n, n))
+    preds = np.clip(orig[:, None] + np.round(rng.laplace(
+        0, 30 << (bitdepth - 8), (B, modes, n, n))), 0, maxv)
+    orig[::7], preds[::7] = maxv, 0
+    orig[1::7], preds[1::7] = 0, maxv
+    preds[2::7] = orig[2::7, None]
+    preds[::5, 1] = preds[::5, 0]
+    satd = rng.randint(0, 12, (B, modes))
+    satd[3::7] = 5
+    return tuple(np.ascontiguousarray(a, dtype=np.int32)
+                 for a in (orig, preds, satd))
 
 
 def _txrd_step(orig, top, left, n, bitdepth, keep, is_intra_slice,
@@ -244,10 +365,16 @@ def _txrd_step(orig, top, left, n, bitdepth, keep, is_intra_slice,
 
     orig [B,n,n] int32, top [B,2n+1], left [B,2n] int32.  screen_step > 1
     predicts planar/DC + every screen_step-th angular mode only.  Returns
-    [B, keep] int32 mode indices (true 0..66 numbering), best first."""
-    cand, pred_m = screen(orig, top, left, n, bitdepth, screen_step)
-    coeff = forward_transform(orig[:, None] - pred_m, n, bitdepth)
-    return txrd_rank(coeff, cand, keep, screen_step, params)
+    [B, keep] int32 mode indices (true 0..66 numbering), best first;
+    ``is_intra_slice`` is in ``params`` (the JAX step's argument order)."""
+    weights = an.weights_on(n, screen_step, orig.device)
+    # the batched post filter edits fixed full-set mode positions, so it
+    # is only applicable on the unstrided tensor
+    post_filter = n <= 16 and screen_step == 1
+    preds = ib.predict_all_modes(n, top, left, weights, bitdepth,
+                                 post_filter)            # [B, M, n, n]
+    satd = satd_mod.satd_pred(orig, preds, bitdepth)     # [B, M]
+    return txrd(orig, preds, satd, n, bitdepth, keep, screen_step, params)
 
 
 def _extract_grid_fast(frame, n):
@@ -296,14 +423,18 @@ def frame_txrd_prepass(luma_plane, bitdepth, qp, is_intra_pic, keep=2,
         if h < n or w < n:
             continue
         params = rank_params(n, bitdepth, qp, bool(is_intra_pic))
-        orig, top, left = (torch.from_numpy(a).to(dev)
-                           for a in _extract_grid_fast(frame, n))
-        outs = [_txrd_step(orig[s:s + CHUNK], top[s:s + CHUNK],
+        with span("encode.txrd_prepass.extract"):
+            grid = _extract_grid_fast(frame, n)
+        with span("encode.txrd_prepass.upload"):
+            orig, top, left = (torch.from_numpy(a).to(dev) for a in grid)
+        with span("encode.txrd_prepass.device"):
+            out = torch.cat([
+                _txrd_step(orig[s:s + CHUNK], top[s:s + CHUNK],
                            left[s:s + CHUNK], n, bitdepth, keep,
                            bool(is_intra_pic), screen_step, params)
-                for s in range(0, orig.shape[0], CHUNK)]
-        maps[n] = torch.cat(outs).cpu().numpy().reshape(h // n, w // n,
-                                                        keep)
+                for s in range(0, orig.shape[0], CHUNK)])
+        with span("encode.txrd_prepass.download"):
+            maps[n] = out.cpu().numpy().reshape(h // n, w // n, keep)
     return maps or None
 
 

@@ -22,7 +22,10 @@ flag.
 
 The spans the port records: the decode's (``decode.*``, ``flat.*``,
 ``recon.*``, ``deblock.*``) and the encoder's, per picture:
-``encode.txrd_prepass`` (the transform-RD prepass on the device),
+``encode.txrd_prepass`` (the transform-RD prepass), with, per block
+size, ``encode.txrd_prepass.extract`` (the host's block and reference
+extraction), ``.upload``, ``.device`` (prediction, SATD and the ``txrd``
+kernel) and ``.download``;
 ``encode.split_dp`` (the split DP's lookahead maps, zero-MV SADs and DP
 on the device), ``encode.native`` (the native CTU search and write) and,
 from the native encoder's own timers, ``encode.native.me``,
