@@ -42,7 +42,14 @@ Phases:
      version, timed beside it and its bound, and with --parent TREE
      beside the stages TREE runs on the same inputs (before txrd: a
      stable sort, a gather, a float64 transform and the rank-only
-     kernel);
+     kernel); the resampler's kernel (resample: both passes of a plane's
+     windowed-sinc rescale) on the nine cases of
+     tests/test_resample_device.py and one case per scale class at 8, 10
+     and 14 bit, random and full-scale, and on the full-width planes of
+     1920x1080 -> 1280x720 and back (luma and chroma), each timed beside
+     its plain version, its bound, the dense float64 matmuls of the JAX
+     formulation (library_ms), the upload of its window and the whole
+     host call;
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -86,7 +93,20 @@ Phases:
      (spans encode.txrd_prepass and its extract / upload / device /
      download per picture, encode.split_dp, encode.native.*), the
      device's busy and idle share of an encode under torch.profiler, and
-     the operator list of one prepass call (no sort, no float64).
+     the operator list of one prepass call (no sort, no float64);
+  7  resampling decode paths, through DecoderSession with no device (the
+     card): tests/data/bench/hd720_fhd1080_splice.xvc (1280x720, then
+     1920x1080 from picture 8, output latched at 1280x720), every picture
+     equal to its hash list and conforming as recorded there (the three
+     tail pictures that predict from the downscaled 1080p key picture
+     fail their checksum in the JAX package's decode too), the resample
+     launches split into the alternative reconstruction's and the
+     output's, ms per picture, the stage profile with decode.post's share
+     and the device's idle share; hd720_ld resized to 1920x1080,
+     fhd1080_ra to 1280x720 and qhd1440_ra10 to 1920x1080 at 8 bit, each
+     to its hash list; hd720_ld and fhd1080_ra with 4 picture threads
+     beside sequential decodes in turns, each to its _dec.sha256, with
+     the threaded decode's idle share.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -130,6 +150,8 @@ KERNELS = {
                      "xvc_tpu/tpu/intra_scan.py:296"),
     "txrd": ("xvc_tpu_torch/kernels/csrc/txrd.cu",
              "xvc_tpu/tpu/txrd_prepass.py:80"),
+    "resample": ("xvc_tpu_torch/kernels/csrc/resample.cu",
+                 "xvc_tpu/tpu/resample_jax.py:44"),
 }
 # the kernels each path must launch, and those the decode must not (the
 # group kernels, whose jobs the picture kernels derive on the card)
@@ -189,6 +211,27 @@ CARVE_OUT_BLOCKS = 0.001
 CARVE_OUT_BYTES = 0.01
 CARVE_OUT_DB = 0.05
 SEGMENT_HEADER = 16  # NalUnitType.SEGMENT_HEADER
+# phase 2: the full-width planes the resampler is timed on (luma and
+# chroma of 1080p -> 720p and back), 8 bit
+RESAMPLE_PLANES = (((1920, 1080), (1280, 720)), ((960, 540), (640, 360)),
+                   ((1280, 720), (1920, 1080)), ((640, 360), (960, 540)))
+# phase 7: the open-GOP splice of a 1280x720 and a 1920x1080 stream
+# (tests/encode_clips.py make_splice): the output stays at 1280x720, so
+# the 1080p pictures are downscaled on output and the 720p tail pictures
+# predict from the 1080p key picture downscaled (the alternative
+# reconstruction); the bench streams resized on output, a copy of
+# tests/encode_clips.py RESIZED (a test holds the two equal): hash list ->
+# (stream, DecoderParameters fields); the streams decoded with picture
+# threads beside sequential decodes
+SPLICE = "hd720_fhd1080_splice"
+RESIZED_STREAMS = {
+    "hd720_ld_out1920x1080": ("hd720_ld", dict(output_width=1920,
+                                               output_height=1080)),
+    "fhd1080_ra_out1280x720": ("fhd1080_ra", dict(output_width=1280,
+                                                  output_height=720)),
+    "qhd1440_ra10_out1920x1080b8": ("qhd1440_ra10", dict(
+        output_width=1920, output_height=1080, output_bitdepth=8))}
+THREADED_STREAMS = (("hd720_ld", 4), ("fhd1080_ra", 4))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
 # no int32 rate: the CUDA cores' float32 rate stands in for their integer
@@ -1387,6 +1430,7 @@ def phase_kernels(torch, dev, parent):
     phase_deblock_kernels(torch, dev, res, real, rng)
     phase_scan_kernels(torch, dev, res, real, parent)
     phase_picture_kernels(torch, dev, res)
+    phase_resample_kernel(torch, dev, res)
     return res
 
 
@@ -1567,6 +1611,290 @@ def phase_txrd_kernel(torch, dev, res, parent):
                 ", %s's stages %.4f ms" % (parent, r["parent_ms"])
                 if "parent_ms" in r else "")
              for n, r in per_size.items()}))
+
+
+def resample_bound(case, tab_x, tab_y):
+    """The least time of one plane's rescale: the window read once, the two
+    axis tables read and the output written once (int32 each), and the
+    multiply and the add of every tap of both passes; ``bound_unfused_ms``
+    adds the intermediate rows, written and read back once, which a launch
+    a pass moves."""
+    src_w, src_h, _, dst_w, dst_h, _ = case
+    win_h = src_h + 16
+    nbytes = 4 * (win_h * (src_w + 16) + tab_x.numel() + tab_y.numel() +
+                  dst_w * dst_h)
+    ops = 2 * ((tab_x.shape[1] - 1) * win_h * dst_w +
+               (tab_y.shape[1] - 1) * dst_h * dst_w)
+    out = bound(nbytes, ops)
+    out["bound_unfused_ms"] = (nbytes + 8 * win_h * dst_w) / \
+        HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def dense_resample(torch, case, dev):
+    """The yardstick of library_ms (never used by the port): the JAX
+    package's formulation, the dense tap matrices of each axis as float64
+    and two torch.matmul calls, the shifts as floor divisions by powers of
+    two, then the clips.  Exact: every sum is an integer below 2^53."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import resample as rsm
+    src_w, src_h, src_bd, dst_w, dst_h, dst_bd = case
+    scale_x, scale_y, shift_hor, shift_ver, maxv = rsm.geometry(*case)
+
+    def dense(scale, out_size, src_size):
+        table, post = rsm.axis_table(scale, out_size, src_size)
+        m = np.zeros((src_size + 16, out_size))
+        for k in range(table.shape[1] - 1):
+            m[table[:, 0] + k, np.arange(out_size)] = table[:, 1 + k]
+        return torch.from_numpy(m).to(dev), post
+
+    mh, post_x = dense(scale_x, dst_w, src_w)
+    mv, post_y = dense(scale_y, dst_h, src_h)
+    mv = mv.t().contiguous()
+    div_x, div_y = float(1 << (post_x + shift_hor)), \
+        float(1 << (post_y + shift_ver))
+
+    def fn(window):
+        tmp = torch.floor(torch.matmul(window.double(), mh) / div_x)
+        out = torch.floor(torch.matmul(mv, tmp.clamp_(0, 65535)) / div_y)
+        return out.clamp_(0, maxv).to(torch.int32)
+    return fn
+
+
+def phase_resample_kernel(torch, dev, res):
+    """The resampler's kernel against its plain version on the card: the
+    nine cases of tests/test_resample_device.py and one case per scale
+    class at 8, 10 and 14 bit, each with random and with full-scale
+    samples; then the full-width planes of RESAMPLE_PLANES, bit for bit,
+    each timed beside its plain version, its bound, the dense float64
+    matmuls of the JAX formulation (library_ms), the host-to-card copy of
+    its window and the whole host call (window cut, upload, kernel,
+    download)."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import resample as rsm
+    cases = list(rsm.DEVICE_CASES) + [c for bd in (8, 10, 14)
+                                      for c in rsm.class_cases(bd)]
+    checked = 0
+    for i, case in enumerate(cases):
+        for full_scale in (False, True):
+            win = torch.from_numpy(rsm.synthetic_window(
+                case, SEED + i, full_scale)).to(dev)
+            args = (win,) + case[2:]
+            got = rsm.resample_window(*args)
+            want = rsm.resample_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError("resample mismatch %r (full scale %s)"
+                                     % (case, full_scale))
+            checked += 1
+    planes = []
+    for src, dst in RESAMPLE_PLANES:
+        case = src + (8,) + dst + (8,)
+        host = rsm.synthetic_window(case, SEED)
+        padded = np.pad(host, 8)
+        win = torch.from_numpy(host).to(dev)
+        args = (win,) + case[2:]
+        library = dense_resample(torch, case, dev)
+        got = rsm.resample_window(*args)
+        want = rsm.resample_plain(*args)
+        lib_out = library(win)
+        torch.cuda.synchronize()
+        if max_err(torch, got, want) or max_err(torch, lib_out, want):
+            raise AssertionError("resample mismatch at %r (kernel %d, dense "
+                                 "float64 %d)" % (case, max_err(
+                                     torch, got, want), max_err(
+                                         torch, lib_out, want)))
+        scale_x, scale_y = rsm.geometry(*case)[:2]
+        tab_x = rsm._tables_on(dev, scale_x, dst[0], src[0])[0]
+        tab_y = rsm._tables_on(dev, scale_y, dst[1], src[1])[0]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            rsm.resample(padded, 16, 16, src[0], src[1], 8, dst[0], dst[1],
+                         8, dev)
+        planes.append(dict(
+            shape="%dx%d -> %dx%d, 8 bit" % (src + dst),
+            ms=cuda_ms(torch, lambda: rsm.resample_window(*args)),
+            device_ms=device_ms(torch, lambda: rsm.resample_window(*args),
+                                "resample"),
+            plain_ms=cuda_ms(torch, lambda: rsm.resample_plain(*args), 5),
+            library_ms=cuda_ms(torch, lambda: library(win), 10),
+            upload_ms=cuda_ms(torch, lambda: torch.from_numpy(host).to(dev),
+                              10),
+            call_ms=(time.perf_counter() - t0) * 100,
+            **resample_bound(case, tab_x, tab_y)))
+    row = planes[0]
+    res["resample"] = dict(
+        max_abs_err=0, shape="1920x1080 -> 1280x720 luma, 8 bit: window "
+        "[1096, 1936] int32 -> [720, 1280] int32", per_plane=planes,
+        synthetic_cases=checked, **{k: row[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_bytes", "bound_ops")})
+    log("phase 2: resample bit-exact over %d synthetic cases (every scale "
+        "class, 8, 10 and 14 bit, random and full-scale samples) and the "
+        "full-width planes; per plane: %s" % (checked, [
+            "%s: kernel %.4f ms (device time alone %s), plain %.4f ms, dense "
+            "float64 matmuls %.4f ms, bound %.4f ms (%s; %.4f unfused), "
+            "window upload %.4f ms, whole call %.4f ms" % (
+                p["shape"], p["ms"], p["device_ms"], p["plain_ms"],
+                p["library_ms"], p["bound_ms"], p["bound_by"],
+                p["bound_unfused_ms"], p["upload_ms"], p["call_ms"])
+            for p in planes]))
+
+
+def read_hashes(path):
+    """(sha256 per picture, conforming per picture) of a hash list."""
+    with open(path) as f:
+        rows = [line.split() for line in f if line.strip()]
+    return [r[0] for r in rows], ["checksum-mismatch" not in r for r in rows]
+
+
+def session_decode(data, params, threads=0):
+    """Every picture of ``data`` through DecoderSession on the default
+    device (the card), drained with the blocking pull."""
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.nal import split_nal_units
+    ses = api.DecoderSession(api.DecoderParameters(threads=threads,
+                                                   **params))
+    pics = []
+    for nal in split_nal_units(data):
+        ses.decode_nal(nal)
+        while (pic := ses.get_picture()) is not None:
+            pics.append(pic)
+    ses.flush()
+    while (pic := ses.get_picture()) is not None:
+        pics.append(pic)
+    return pics
+
+
+def check_hashes(name, pics, hashes, flags):
+    got = [hashlib.sha256(p.bytes).hexdigest() for p in pics]
+    if got != hashes or [p.conforming for p in pics] != flags:
+        raise AssertionError(
+            "%s: %d pictures, %d recorded; differing pictures %s, "
+            "conformance %s recorded %s" % (
+                name, len(pics), len(hashes),
+                [i for i, (a, b) in enumerate(zip(got, hashes)) if a != b],
+                [p.conforming for p in pics], flags))
+
+
+def timed_session(torch, name, data, params, threads=0):
+    """One decode through DecoderSession with the launch counts set to 0
+    just before it and read just after, held to the hash list ``name``:
+    (pictures, seconds, launches)."""
+    from xvc_tpu_torch import kernels
+    hashes, flags = read_hashes(os.path.join(DATA, "bench",
+                                             name + "_dec.sha256"))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pics = session_decode(data, params, threads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_hashes(name, pics, hashes, flags)
+    return pics, dt, launches
+
+
+def phase_resampling(torch):
+    """Phase 7: the decoder paths that resample, through the default
+    entry points (no device argument: the card).  The splice
+    hd720_fhd1080_splice (its resample launches split into those of the
+    alternative reconstruction and those of the output), the output
+    resizing of RESIZED_STREAMS, each held to its hash list; then the
+    threaded decodes of THREADED_STREAMS (4 workers) beside sequential
+    ones in turns, held to their _dec.sha256."""
+    from xvc_tpu_torch import kernels, profiling
+    from xvc_tpu_torch.codec import picture_decoder
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.parallel import pipeline
+    pipeline.WAIT_SECONDS = 120.0
+    out = {}
+    with open(os.path.join(DATA, "bench", SPLICE + ".xvc"), "rb") as f:
+        data = f.read()
+    alt = [0]
+    generate = picture_decoder.PictureDecoder.generate_alternative_rec_pic
+
+    def spy(self, segment_header):
+        before = kernels.LAUNCHES["resample"]
+        made = generate(self, segment_header)
+        alt[0] += kernels.LAUNCHES["resample"] - before
+        return made
+
+    picture_decoder.PictureDecoder.generate_alternative_rec_pic = spy
+    try:
+        _, _, split = timed_session(torch, SPLICE, data, {})
+    finally:
+        picture_decoder.PictureDecoder.generate_alternative_rec_pic = \
+            generate
+    output_launches = split["resample"] - alt[0]
+    if alt[0] <= 0 or output_launches <= 0:
+        raise AssertionError("%s: resample launched %d times for the "
+                             "alternative picture, %d for the output" % (
+                                 SPLICE, alt[0], output_launches))
+    pics, dt, launches = timed_session(torch, SPLICE, data, {})
+    if launches["resample"] != split["resample"] or \
+            launches["itx_picture"] != len(pics):
+        raise AssertionError("%s launches %r" % (SPLICE, launches))
+    report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
+    traced_s, busy_s, ops = device_busy(torch, lambda: decode_stream(data))
+    post = report.get("decode.post", {}).get("seconds", 0.0)
+    out[SPLICE] = dict(
+        pictures=len(pics), conforming=sum(p.conforming for p in pics),
+        seconds=dt, ms_per_picture=dt * 1e3 / len(pics), launches=launches,
+        resample_alternative=alt[0], resample_output=output_launches,
+        profiled_seconds=profiled_s, spans=report,
+        post_share=post / profiled_s, traced_decode_seconds=traced_s,
+        device_busy_seconds=busy_s, device_operations=ops,
+        device_idle_share=None if busy_s is None else 1 - busy_s / traced_s)
+    log("phase 7: %s (1280x720, then 1920x1080 from picture 8; output at "
+        "1280x720) %d pictures equal to the recorded host decode, %d "
+        "conforming as recorded; %.2f ms/picture; resample launches %d "
+        "(alternative picture %d, output %d); profiled %.3f s, decode.post "
+        "%.3f s (%.1f%%); under torch.profiler %.3f s, device busy %s s "
+        "(idle share %s); spans (s): %s" % (
+            SPLICE, len(pics), out[SPLICE]["conforming"],
+            out[SPLICE]["ms_per_picture"], launches["resample"], alt[0],
+            output_launches, profiled_s, post, 100 * post / profiled_s,
+            traced_s, busy_s, out[SPLICE]["device_idle_share"],
+            {n: v["seconds"] for n, v in report.items()}))
+    for name, (stream, params) in RESIZED_STREAMS.items():
+        with open(os.path.join(DATA, "bench", stream + ".xvc"), "rb") as f:
+            data = f.read()
+        timed_session(torch, name, data, params)  # the first-use costs
+        pics, dt, launches = timed_session(torch, name, data, params)
+        if launches["resample"] != 3 * len(pics):
+            raise AssertionError("%s: resample launched %d times for %d "
+                                 "pictures" % (name, launches["resample"],
+                                               len(pics)))
+        out[name] = dict(pictures=len(pics), seconds=dt,
+                         ms_per_picture=dt * 1e3 / len(pics),
+                         launches=launches)
+        log("phase 7: %s: %d pictures equal to the recorded host decode, "
+            "conforming; %.2f ms/picture; resample launches %d" % (
+                name, len(pics), out[name]["ms_per_picture"],
+                launches["resample"]))
+    for name, threads in THREADED_STREAMS:
+        with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
+            data = f.read()
+        runs = {0: [], threads: []}
+        for n in (0, threads, threads, 0):
+            pics, dt, _ = timed_session(torch, name, data, {}, n)
+            runs[n].append(dt * 1e3 / len(pics))
+        traced_s, busy_s, _ = device_busy(
+            torch, lambda: session_decode(data, {}, threads))
+        out[name + "_threads"] = dict(
+            pictures=len(pics), threads=threads,
+            ms_per_picture=runs[threads], sequential_ms_per_picture=runs[0],
+            traced_decode_seconds=traced_s, device_busy_seconds=busy_s,
+            device_idle_share=None if busy_s is None
+            else 1 - busy_s / traced_s)
+        log("phase 7: %s with %d picture threads: %d pictures equal to its "
+            "_dec.sha256 (as the sequential decodes); ms/picture %s, "
+            "sequential %s (in turns, one call); threaded under "
+            "torch.profiler %.3f s, device busy %s s (idle share %s)" % (
+                name, threads, len(pics), runs[threads], runs[0], traced_s,
+                busy_s, out[name + "_threads"]["device_idle_share"]))
+    return out
 
 
 def scan_statuses(torch, data, dev):
@@ -2215,6 +2543,7 @@ def main():
     goldens = phase_goldens(dev)
     look = phase_lookahead(torch, dev, pic0)
     enc = phase_encode(torch, dev)
+    resampling = phase_resampling(torch)
     for module in ("jax", "xvc_tpu"):
         if module in sys.modules:
             raise AssertionError("%s was imported" % module)
@@ -2226,7 +2555,9 @@ def main():
                                 mean_device_ms=res[n]["device_ms"],
                                 recon=res[n]["recon"])
                         for n in ("itx_picture", "mc_picture")},
-                    "goldens": goldens,
+                    "goldens": goldens, "resampling": resampling,
+                    "resample": {k: res["resample"][k] for k in (
+                        "per_plane", "synthetic_cases")},
                     "lookahead": look, "encode": enc,
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",
@@ -2257,11 +2588,13 @@ def main():
                         res["deblock_luma"]["chain_steps"],
                     "deblock_luma_every_position_on_ms":
                         res["deblock_luma"]["every_position_on_ms"]}))
+    stages[SPLICE] = resampling[SPLICE]["spans"]
     log(json.dumps({"stage_profile": stages}))
     launches = {n: dec["hd720_ld"]["launches"][n]
                 for n in DECODE_KERNELS + OFF_DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
     launches["txrd"] = enc["speed3"]["launches"]["txrd"]
+    launches["resample"] = resampling[SPLICE]["launches"]["resample"]
     # library_ms: no single PyTorch call computes any of these functions
     # on CUDA (gather + wrapped int16 filters, int32 transform with
     # per-block bases, the jobs of a picture derived from its parse
@@ -2269,13 +2602,16 @@ def main():
     # map, the sequential edge walk, the gated two-sample chroma update,
     # Hadamard + |.| sum, the sequential intra scans, a top-8 screen with
     # a per-block integer transform, quantization and a rate proxy summed
-    # per candidate with a keep-best selection)
+    # per candidate with a keep-best selection); but resample's, the JAX
+    # formulation as two float64 torch.matmul calls on dense tap matrices
+    # with the shifts and clips (dense_resample)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],
              max_abs_err=res[n]["max_abs_err"], ms=res[n]["ms"],
              plain_ms=res[n]["plain_ms"], bound_ms=res[n]["bound_ms"],
-             bound_by=res[n]["bound_by"], library_ms=None)
+             bound_by=res[n]["bound_by"],
+             library_ms=res[n].get("library_ms"))
         for n in KERNELS]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ card tests, which run without JAX, share them with the CPU tests).
 chip_smoke.py phase 6 (the script carries its own copy;
 tests/test_torch_encode.py holds the two equal).
 """
+import os
+
 import numpy as np
 
 
@@ -72,3 +74,104 @@ def make_hd720_s3(seed=HD720_S3["seed"]):
         out += [np.clip(p, 0, 255).astype(np.uint8).tobytes()
                 for p in (y, u, v)]
     return b"".join(out)
+
+
+# The splices: two streams of one recipe at two sizes, joined at their
+# second segment headers (the open-GOP splice of tools/make_golden.py
+# make_scalability_vector, encoded by the JAX package's EncoderSession
+# instead of the reference binary).  hd720_fhd1080_splice is the full-width
+# one of chip_smoke.py (1280x720 then 1920x1080: the output stays latched
+# at 720p, so every 1080p picture is downscaled on output and the 720p
+# tail pictures predict from the downscaled 1080p key picture); the small
+# one goes the other way (96x64 then 64x48: both upsample).
+SPLICES = {"bench/hd720_fhd1080_splice": ((1280, 720), (1920, 1080), 17),
+           "splice96x64to64x48": ((96, 64), (64, 48), 17)}
+SEGMENT_HEADER = 16  # NalUnitType.SEGMENT_HEADER
+
+
+def _splice_stream(size, frames):
+    """The NALs of one side of a splice: synth_yuv420's clip of
+    tools/make_golden.py through the JAX package's EncoderSession, 8-bit
+    4:2:0, qp 32, checksum mode 1, sub-GOP 4, a key picture every 8, two
+    reference pictures, speed mode 2."""
+    from tools.make_golden import synth_yuv420
+    from xvc_tpu import api as japi
+    w, h = size
+    yuv = synth_yuv420(w, h, frames, 8)
+    ses = japi.EncoderSession(japi.EncoderParameters(
+        width=w, height=h, qp=32, checksum_mode=1, sub_gop_length=4,
+        max_keypic_distance=8, num_ref_pics=2, speed_mode=2))
+    fs = w * h * 3 // 2
+    nals = []
+    for t in range(frames):
+        nals += ses.encode(yuv[t * fs:(t + 1) * fs])
+    return nals + ses.flush()
+
+
+def make_splice(name, data_dir):
+    """Write ``<data_dir>/<name>.xvc`` (a key of SPLICES): the first
+    stream up to its second segment header, then the second stream from
+    its second segment header on.  The 1080p side of the full-width
+    splice takes some minutes on one CPU core."""
+    from xvc_tpu.nal import write_nal_units
+    first, second, frames = SPLICES[name]
+    parts = []
+    for size in (first, second):
+        nals = _splice_stream(size, frames)
+        parts.append((nals, next(i for i in range(1, len(nals))
+                                 if (nals[i][0] >> 1) & 31 ==
+                                 SEGMENT_HEADER)))
+    (n1, i1), (n2, i2) = parts
+    with open(os.path.join(data_dir, name + ".xvc"), "wb") as f:
+        f.write(write_nal_units(n1[:i1] + n2[i2:]))
+
+
+# The hash lists of the card's resampling decodes (chip_smoke.py phase 7):
+# name -> (stream under tests/data/bench, DecoderParameters fields).  The
+# splice at its own output size (its first segment's, 1280x720), the
+# others resized on output: hd720_ld up to 1920x1080, fhd1080_ra down to
+# 1280x720 (the 12-tap class 2), qhd1440_ra10 down to 1920x1080 at 8 bit
+# without dither.
+RESIZED = {"hd720_fhd1080_splice": ("hd720_fhd1080_splice", {}),
+           "hd720_ld_out1920x1080": ("hd720_ld", dict(output_width=1920,
+                                                      output_height=1080)),
+           "fhd1080_ra_out1280x720": ("fhd1080_ra", dict(output_width=1280,
+                                                         output_height=720)),
+           "qhd1440_ra10_out1920x1080b8": ("qhd1440_ra10", dict(
+               output_width=1920, output_height=1080, output_bitdepth=8))}
+
+
+def jax_session_decode(data, **params):
+    """The JAX package's host decode through its DecoderSession, drained
+    with the blocking pull."""
+    from xvc_tpu import api as japi
+    from xvc_tpu.nal import split_nal_units
+    ses = japi.DecoderSession(japi.DecoderParameters(**params))
+    pics = []
+    for nal in split_nal_units(data):
+        ses.decode_nal(nal)
+        while (pic := ses.get_picture()) is not None:
+            pics.append(pic)
+    ses.flush()
+    while (pic := ses.get_picture()) is not None:
+        pics.append(pic)
+    return pics
+
+
+def hash_lines(pics):
+    """The lines of a hash list: sha256, the POC, and "checksum-mismatch"
+    where the picture does not conform."""
+    import hashlib
+    return ["%s  poc %d%s" % (hashlib.sha256(p.bytes).hexdigest(), p.poc,
+                              "" if p.conforming else "  checksum-mismatch")
+            for p in pics]
+
+
+def make_resized_hashes(name, bench_dir):
+    """Write ``<bench_dir>/<name>_dec.sha256`` (a key of RESIZED) from the
+    JAX package's host decode."""
+    stream, params = RESIZED[name]
+    with open(os.path.join(bench_dir, stream + ".xvc"), "rb") as f:
+        pics = jax_session_decode(f.read(), **params)
+    with open(os.path.join(bench_dir, name + "_dec.sha256"), "w") as f:
+        f.write("\n".join(hash_lines(pics)) + "\n")

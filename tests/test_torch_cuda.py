@@ -10,8 +10,10 @@ gpu/recon.py) against every golden and the recorded host decodes
 (tests/data/bench/<stream>_dec.sha256 of the six bench streams,
 tests/data/c4*_ra64x48_dec.sha256), damaged
 streams against the same session on the CPU device (no sticky CUDA
-error), and the lookahead on the card against the same call on the CPU
-device.
+error), the lookahead on the card against the same call on the CPU
+device, the resampler's kernel against its plain version, output
+conversion against the goldens, and threaded decodes against sequential
+ones.
 """
 import hashlib
 
@@ -22,7 +24,8 @@ import torch
 from xvc_tpu_torch import kernels
 from xvc_tpu_torch.codec import picture_decoder
 from xvc_tpu_torch.codec.decoder import decode_stream
-from xvc_tpu_torch.gpu import deblock, flat_recon, itx, lookahead, mc, satd
+from xvc_tpu_torch.gpu import (deblock, flat_recon, itx, lookahead, mc,
+                               resample, satd)
 from xvc_tpu_torch.gpu import intra_scan as scan
 from xvc_tpu_torch.ops import deblock as dbk
 from xvc_tpu_torch.restrictions import Restrictions
@@ -1084,3 +1087,104 @@ def test_split_dp_on_card_matches_cpu(cuda):
             got = wf.split_dp_from_lookahead(maps, 11.3, sad, device=dev)
             for n in want:
                 np.testing.assert_array_equal(got[n], want[n])
+
+
+# ---- the resampler (kernels/csrc/resample.cu), output conversion and
+# picture threads on the card ------------------------------------------------
+
+RESAMPLE_CASES = list(resample.DEVICE_CASES) + [
+    c for bd in (8, 10, 14) for c in resample.class_cases(bd)]
+
+
+@pytest.mark.parametrize("case", RESAMPLE_CASES,
+                         ids=["%dx%d_%d-%dx%d_%d" % c for c in RESAMPLE_CASES])
+def test_resample_kernel_matches_plain(cuda, case):
+    src_bd, dst_w, dst_h, dst_bd = case[2:]
+    for full_scale in (False, True):
+        window = torch.from_numpy(resample.synthetic_window(
+            case, sum(case), full_scale)).to(cuda)
+        kernels.reset_launches()
+        got = resample.resample_window(window, src_bd, dst_w, dst_h, dst_bd)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["resample"] == 1
+        want = resample.resample_plain(window, src_bd, dst_w, dst_h, dst_bd)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [((1920, 1080), (1280, 720)),
+                                     ((960, 540), (640, 360)),
+                                     ((1280, 720), (1920, 1080)),
+                                     ((640, 360), (960, 540))])
+def test_resample_kernel_matches_plain_at_full_width(cuda, src, dst):
+    case = src + (8,) + dst + (8,)
+    window = torch.from_numpy(resample.synthetic_window(case, 3)).to(cuda)
+    got = resample.resample_window(window, 8, dst[0], dst[1], 8)
+    assert torch.equal(got, resample.resample_plain(window, 8, dst[0],
+                                                    dst[1], 8))
+
+
+def test_resample_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    window = torch.zeros((40, 40), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        resample.resample_window(window.to(torch.int16), 8, 16, 16, 8)
+    with pytest.raises(ValueError):
+        resample.resample_window(window[:, ::2], 8, 16, 16, 8)
+    with pytest.raises(ValueError):   # a vertical shift below 0
+        resample.resample_window(window, 8, 16, 16, 24)
+
+
+OUTPUT_GOLDENS = [
+    ("ai64x48", "ai64x48_out_down32x24.yuv", dict(output_width=32,
+                                                  output_height=24)),
+    ("ai64x48", "ai64x48_out_up128x96.yuv", dict(output_width=128,
+                                                 output_height=96)),
+    ("ai64x48", "ai64x48_out_down44x36.yuv", dict(output_width=44,
+                                                  output_height=36)),
+    ("ai64x48", "ai64x48_out_chroma444.yuv", dict(output_chroma_format=3)),
+    ("ai64x48", "ai64x48_out_argb.yuv", dict(output_chroma_format=4)),
+    ("ai64x48b10", "ai64x48b10_out_dither8.yuv", dict(output_bitdepth=8,
+                                                      dither=1))]
+
+
+def _session_pictures(session, data):
+    from xvc_tpu_torch.nal import split_nal_units
+    for nal in split_nal_units(data):
+        session.decode_nal(nal)
+    session.flush()
+    pics = []
+    while (pic := session.get_picture()) is not None:
+        pics.append(pic)
+    return pics
+
+
+@pytest.mark.parametrize("stream,golden,kw", OUTPUT_GOLDENS,
+                         ids=[g[1][:-4] for g in OUTPUT_GOLDENS])
+def test_output_conversion_on_card_equals_the_golden(cuda, stream, golden,
+                                                     kw):
+    from xvc_tpu_torch.api import DecoderParameters, DecoderSession
+    kernels.reset_launches()
+    pics = _session_pictures(DecoderSession(DecoderParameters(**kw),
+                                            device=cuda),
+                             read_data(stream + ".xvc"))
+    assert all(p.conforming for p in pics)
+    assert b"".join(p.bytes for p in pics) == read_data(golden)
+    # the sinc resizes run on the card; 4:4:4 and ARGB chroma is the
+    # bilinear 2x upsample of the host
+    assert (kernels.LAUNCHES["resample"] > 0) == ("output_width" in kw)
+
+
+@pytest.mark.parametrize("threads", [2, 4])
+@pytest.mark.parametrize("name", ["ra64x48", "ld64x48", "scal16to24",
+                                  "splice96x64to64x48"])
+def test_threaded_decode_on_card_equals_sequential(cuda, monkeypatch, name,
+                                                   threads):
+    from xvc_tpu_torch.parallel import pipeline
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    monkeypatch.setattr(pipeline, "WAIT_SECONDS", 120.0)
+    data = read_data(name + ".xvc")
+    seq = decode_stream(data, device=cuda)
+    thr = decode_stream(data, device=cuda, num_threads=threads)
+    cpu = decode_stream(data, device="cpu")
+    for pics in (thr, cpu):
+        assert [(p.poc, p.conforming, p.bytes) for p in pics] == \
+            [(p.poc, p.conforming, p.bytes) for p in seq]

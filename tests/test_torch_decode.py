@@ -84,10 +84,12 @@ def test_ineligible_pictures_raise(tile_rows):
 
 
 def test_unsupported_options_raise():
-    with pytest.raises(NotImplementedError):
-        Decoder("cpu", num_threads=2)
+    # picture threads are supported since the pipeline was ported
+    # (tests/test_torch_threads.py); a device other than cpu/cuda is not
     with pytest.raises(ValueError):
         Decoder("meta")
+    with pytest.raises(ValueError):
+        Decoder("meta", num_threads=2)
 
 
 def test_cuda_without_card_raises():

@@ -4,14 +4,18 @@ never jax and nothing of xvc_tpu.
 - In a fresh process whose import system refuses ``jax``, ``jaxlib`` and
   ``xvc_tpu``, every module of the package imports, ai64x48 (the flat
   path) and ld64x48 (LIC: the replay path with its host tail) decode on
-  the CPU device to their goldens, and a speed-3 encode (the split DP,
+  the CPU device to their goldens, ai64x48 resized to 32x24 on output
+  (the resampler) with two picture threads to its golden, and a speed-3
+  encode (the split DP,
   the transform-RD prepass and the native encoder) decodes back to the
   encoder's reconstruction; a source scan finds no import of either in
   the package or in chip_smoke.py.
 - tests/data/bench/<stream>_dec.sha256 of the six bench streams, the
   references chip_smoke.py compares the card's pictures with, equal the
   JAX package's host decode of each stream (drained with the blocking
-  pull).
+  pull); so do the hash lists of its resampling decodes (the 720p/1080p
+  splice, and three bench streams resized on output), conformance flags
+  included, and the script carries the table of those decodes.
 - An entry point called with no device asks for the card and raises
   where there is none, instead of decoding on the CPU.
 """
@@ -21,6 +25,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,6 +58,7 @@ assert len(names) > 30, names
 assert "xvc_tpu_torch.profiling" in names, names
 
 from xvc_tpu_torch.codec.decoder import decode_stream
+from xvc_tpu_torch.nal import split_nal_units
 for stream, golden, count in zip(*[iter(sys.argv[2:])] * 3):
     with open(stream, "rb") as f:
         data = f.read()
@@ -61,10 +67,25 @@ for stream, golden, count in zip(*[iter(sys.argv[2:])] * 3):
     pics = decode_stream(data, device="cpu")
     assert len(pics) == int(count) and all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == want, stream
+# output resizing (gpu/resample.py) on two picture threads
+# (parallel/pipeline.py)
+import os
+from xvc_tpu_torch import api
+data_dir = os.path.join(sys.argv[1], "tests", "data")
+ses = api.DecoderSession(api.DecoderParameters(
+    output_width=32, output_height=24, threads=2), device="cpu")
+with open(os.path.join(data_dir, "ai64x48.xvc"), "rb") as f:
+    for nal in split_nal_units(f.read()):
+        ses.decode_nal(nal)
+ses.flush()
+pics = []
+while (pic := ses.get_picture()) is not None:
+    pics.append(pic)
+with open(os.path.join(data_dir, "ai64x48_out_down32x24.yuv"), "rb") as f:
+    assert b"".join(p.bytes for p in pics) == f.read()
 # an encode at speed 3 (the split DP and the transform-RD prepass on the
 # device, the native CTU search), decoded back
 import numpy as np
-from xvc_tpu_torch import api
 rng = np.random.RandomState(2)
 w, h, f = 64, 64, 2
 luma = rng.randint(0, 256, (h, w)).astype(np.uint8)
@@ -92,6 +113,7 @@ print("STANDALONE-OK", len(names))
 
 def test_port_imports_and_decodes_without_jax_and_xvc_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["XVC_THREADS_NO_CLAMP"] = "1"
     res = subprocess.run(
         [sys.executable, "-c", _CHILD, ROOT, data_path("ai64x48.xvc"),
          data_path("ai64x48_dec.yuv"), "3", data_path("ld64x48.xvc"),
@@ -139,6 +161,42 @@ def test_bench_sha256_file_matches_the_jax_package_host_decode(name):
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
 
 
+# the pictures of each hash list of chip_smoke.py phase 7
+RESIZED_PICTURES = {"hd720_fhd1080_splice": 17, "hd720_ld_out1920x1080": 8,
+                    "fhd1080_ra_out1280x720": 8,
+                    "qhd1440_ra10_out1920x1080b8": 5}
+
+
+@pytest.mark.parametrize("name", sorted(RESIZED_PICTURES))
+def test_resampling_sha256_file_matches_the_jax_package_host_decode(name):
+    """The hash lists of chip_smoke.py's resampling decodes (the splice;
+    the bench streams resized on output), conformance flags included: the
+    splice's three tail pictures that predict from the downscaled 1080p key
+    picture fail their checksum in the JAX package's decode."""
+    from .encode_clips import RESIZED, hash_lines, jax_session_decode
+    stream, params = RESIZED[name]
+    pics = jax_session_decode(read_data("bench/%s.xvc" % stream), **params)
+    with open(data_path("bench/%s_dec.sha256" % name)) as f:
+        want = [line.rstrip("\n") for line in f if line.strip()]
+    assert len(pics) == RESIZED_PICTURES[name]
+    assert hash_lines(pics) == want
+    if name == "hd720_fhd1080_splice":
+        assert [p.poc for p in pics if not p.conforming] == [5, 6, 7]
+    else:
+        assert all(p.conforming for p in pics)
+
+
+def test_chip_smoke_carries_the_resized_streams():
+    import importlib.util
+    from .encode_clips import RESIZED
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {smoke.SPLICE: (smoke.SPLICE, {}), **smoke.RESIZED_STREAMS} == \
+        RESIZED
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
@@ -146,9 +204,15 @@ def test_entry_points_default_to_the_card():
                                    EncoderSession)
     from xvc_tpu_torch.codec.decoder import Decoder, decode_stream
     from xvc_tpu_torch.codec.encoder import Encoder
+    from xvc_tpu_torch.gpu import resample
     data = read_data("ai64x48.xvc")
+    plane = np.zeros((40, 40), np.int32)
     for call in (lambda: decode_stream(data), Decoder, DecoderSession,
+                 lambda: Decoder(num_threads=2),
+                 lambda: decode_stream(data, num_threads=2),
                  Encoder, lambda: EncoderSession(EncoderParameters(
-                     width=64, height=48))):
+                     width=64, height=48)),
+                 lambda: resample.resample(plane, 8, 8, 16, 16, 8, 24, 24,
+                                           8)):
         with pytest.raises(RuntimeError, match="is_available"):
             call()

@@ -134,7 +134,9 @@ INIT_VALUES = {
     "transform_select_idx": [[_D] * 4] * 3,
 }
 
-_RESET_CACHE = {}  # (qp, pic_type, alt_residual) -> initialized states
+# (qp, pic_type, alt_residual) -> initialized states; the workers of a
+# threaded decode may fill one key twice, with equal states, and copy out
+_RESET_CACHE = {}
 
 
 class CabacContexts:

@@ -5,9 +5,11 @@ Behavioral equivalent of the reference decoder session
 (ref: src/xvc_dec_lib/decoder.cc), keeping its sliding-window ordering
 semantics.  Copy of ``xvc_tpu/codec/decoder.py`` whose picture decoders
 are this package's (``codec/picture_decoder.py``) on the session's
-device.  Not here: picture-level threads (``num_threads > 0`` raises)
-and the deferred checksum of the native host decode, so every pull is a
-blocking pull.
+device, with its picture-level threads (``num_threads > 0``:
+``parallel/pipeline.py``, all workers on the session's one device).  Not
+here: the deferred checksum of the native host decode and the lazy
+non-blocking pull, so every pull is a blocking pull and never drops a
+picture.
 """
 from dataclasses import dataclass, field
 
@@ -16,6 +18,7 @@ from .. import segment as seg
 from ..bitio import BitReader
 from ..engine import resolve_device
 from ..nal import split_nal_units
+from ..parallel import pipeline
 from ..segment import DecoderState
 from .cu import ReferencePictureLists
 from .picture_decoder import PictureDecoder, decode_header, \
@@ -50,10 +53,13 @@ class OutputPicture:
 
 class Decoder:
     def __init__(self, device=None, num_threads=0):
-        if num_threads > 0:
-            raise NotImplementedError("picture-level threads are not "
-                                      "supported on the device path yet")
         self.device = resolve_device(device)
+        # a clamped pool of 1 worker cannot overlap anything: such a
+        # session decodes sequentially (identical output by construction)
+        self.pipeline = (pipeline.DecodePipeline(num_threads,
+                                                 self._PARSE_ERRORS)
+                         if num_threads > 0 and
+                         pipeline._pool_size(num_threads) > 1 else None)
         self.curr_segment_header = seg.SegmentHeader()
         self.prev_segment_header = seg.SegmentHeader()
         self.state = DecoderState.NO_SEGMENT_HEADER
@@ -162,6 +168,7 @@ class Decoder:
                 best = pic
         if best is None:
             return None
+        self._wait_for_picture(best)
         best.output_status_done = True
         self.num_pics_in_buffer -= 1
         poc_offset = -1 if self.curr_segment_header.leading_pictures else 0
@@ -190,6 +197,16 @@ class Decoder:
                 self.max_tid, self.curr_segment_header.bitstream_ticks,
                 self.curr_segment_header.max_sub_gop_length)
             if self.curr_segment_header.bitstream_ticks else 0.0)
+
+    def _wait_for_picture(self, pic_dec):
+        """Harvest a threaded picture decode (ref: thread_decoder.cc
+        WaitAll / decoder.cc:364-433); a worker's error other than a
+        parse error is raised here."""
+        job = pic_dec.pending_job
+        if job is not None:
+            pic_dec.pending_job = None
+            success = job.future.result(timeout=pipeline.WAIT_SECONDS)
+            self._on_picture_decoded(pic_dec, success, job.deps)
 
     def _has_picture_ready_for_output(self):
         """(ref: decoder.h:67-70)"""
@@ -325,10 +342,14 @@ class Decoder:
                     segment_header.num_ref_pics + 1:
                 pic = self.zero_tid_pic_dec.pop(0)
                 pic.ref_count -= 1
+        if self.pipeline is not None:
+            pic_dec.pending_job = self.pipeline.submit(
+                pic_dec, deps, segment_header, self.prev_segment_header,
+                bit_reader)
+            return
         try:
             success = pic_dec.decode(segment_header,
-                                     self.prev_segment_header,
-                                     bit_reader, True)
+                                     self.prev_segment_header, bit_reader)
         except self._PARSE_ERRORS:
             # Corrupt/truncated payload: keep the session alive and mark
             # the picture non-conforming (ref: the C++ decoder never
@@ -378,10 +399,11 @@ class Decoder:
             self.state = DecoderState.CHECKSUM_MISMATCH
             self.num_corrupted_pics += 1
 
-def decode_stream(data, max_pics=None, device=None):
+def decode_stream(data, max_pics=None, device=None, num_threads=0):
     """Decode a length-prefixed stream on ``device`` (the card when
-    None); return the output pictures."""
-    dec = Decoder(device)
+    None), with ``num_threads`` picture workers; return the output
+    pictures."""
+    dec = Decoder(device, num_threads)
     pics = []
     for nal in split_nal_units(data):
         dec.decode_nal(nal)

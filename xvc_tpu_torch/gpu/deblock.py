@@ -309,7 +309,7 @@ def edge_params(attrs, n_cus, lay, beta_offset, tc_offset, bitdepth,
         build.ptr(cu_map), build.ptr(attrs), build.ptr(params),
         cfg.ctypes.data, build.stream_of(attrs))
     build.check(rc, "deblock_edges")
-    kernels.LAUNCHES["deblock_edges"] += 1
+    kernels.count_launch("deblock_edges")
     return cu_map, params
 
 
@@ -371,7 +371,7 @@ def _launch_luma(plane, direction, xs, edge_step, params, E, nsub, shift,
         None if xs is None else build.ptr(xs), edge_step, build.ptr(params),
         E, nsub, shift, bitdepth, *_flag_ints(flags), build.stream_of(plane))
     build.check(rc, "deblock_luma")
-    kernels.LAUNCHES["deblock_luma"] += 1
+    kernels.count_launch("deblock_luma")
 
 
 def luma_pass(plane, xs, mask, tc, beta, bitdepth, flags, direction=0):
@@ -532,7 +532,7 @@ def _launch_chroma(planes, direction, edges, edge_step, params, E, nsub,
         build.ptr(params), E, nsub, shift, bitdepth,
         build.stream_of(planes[0]))
     build.check(rc, "deblock_chroma")
-    kernels.LAUNCHES["deblock_chroma"] += 1
+    kernels.count_launch("deblock_chroma")
 
 
 def chroma_pass(plane, edges, apply, tc, bitdepth, direction=0):

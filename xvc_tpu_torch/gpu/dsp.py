@@ -19,6 +19,7 @@ Differences from JAX that the port must undo:
     dequant product) the sum is taken in int64 and wrapped explicitly.
 """
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -274,9 +275,20 @@ def pad_pow2(n):
 # Transfers: one upload per dtype, one download
 # ---------------------------------------------------------------------------
 
-# transfer and dispatch counts (uploads per picture: one per dtype)
+# transfer and dispatch counts (uploads per picture: one per dtype),
+# counted under a lock by the workers of a threaded decode
 STATS = {"uploads": 0, "upload_bytes": 0, "downloads": 0,
          "download_bytes": 0, "dispatches": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def count_transfer(kind, nbytes=0):
+    """One more ``kind`` ("uploads", "downloads" or "dispatches") in
+    ``STATS``, with its bytes."""
+    with _STATS_LOCK:
+        STATS[kind] += 1
+        if kind != "dispatches":
+            STATS[kind[:-1] + "_bytes"] += nbytes
 
 
 class DevBatch:
@@ -305,8 +317,7 @@ class DevBatch:
             if device.type == "cuda":
                 flat = flat.pin_memory().to(device, non_blocking=True)
             self._dev[key] = flat
-            STATS["uploads"] += 1
-            STATS["upload_bytes"] += flat.numel() * flat.element_size()
+            count_transfer("uploads", flat.numel() * flat.element_size())
         self._host = {"int16": [], "int32": []}
 
     def get(self, handle):
@@ -331,6 +342,5 @@ def gather_flat(outs):
     if not outs:
         return np.zeros((0,)), offs
     host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
-    STATS["downloads"] += 1
-    STATS["download_bytes"] += host.nbytes
+    count_transfer("downloads", host.nbytes)
     return host, offs

@@ -35,6 +35,7 @@ derivation (``_build_itx_groups``, ``_build_mc_groups``) has no host twin
 here: the kernels make it (and ``itx.itx_jobs`` / ``mc.mc_jobs`` in the
 plain versions).
 """
+import threading
 import weakref
 
 import numpy as np
@@ -55,11 +56,21 @@ from .records import (C_H, C_IMC, C_IML, C_ORDER, C_PRED, C_SAR, C_SBL,
 # Device-resident frame store
 # ---------------------------------------------------------------------------
 
+# The workers of a threaded decode share the stores: slots are assigned,
+# released and the superstacks grown under this lock, and a reader takes
+# both superstacks in one ``stacks()`` call.  A finalizer takes no lock
+# (it can run inside any locked section of any thread): it hands its slot
+# to ``release_later``.
+_STORE_LOCK = threading.RLock()
+
+
 class FrameStore:
     """Per-geometry device store: int16 superstacks (S, Hp, Wp) for luma
     and (S, 2, Hp, Wp) for chroma.  Slots are assigned per decoded
     picture and written in place; MC reads windows straight from the
-    superstack (chroma reshaped (S*2, Hp, Wp))."""
+    superstack (chroma reshaped (S*2, Hp, Wp)).  Growing replaces the
+    superstacks (an MC launch already issued reads the old ones, which
+    hold every slot it can name)."""
 
     def __init__(self, luma_shape, chroma_shape, device, n0=8):
         self.luma_shape = luma_shape
@@ -67,6 +78,7 @@ class FrameStore:
         self.device = device
         self.n = 0
         self.free = []
+        self.released = []  # slots of pictures that died, not yet free
         self.luma = None
         self.chroma = None
         self._grow(n0)
@@ -89,18 +101,33 @@ class FrameStore:
 
     def put(self, dev_planes):
         """dev_planes: {comp: (Hp, Wp) device plane}.  Returns the slot."""
-        if not self.free:
-            self._grow(self.n * 2)
-        slot = self.free.pop()
-        self.luma[slot].copy_(dev_planes[0])
-        if self.chroma_shape is not None and 1 in dev_planes:
-            self.chroma[slot, 0].copy_(dev_planes[1])
-            self.chroma[slot, 1].copy_(dev_planes[2])
-        return slot
+        with _STORE_LOCK:
+            while self.released:
+                self.release(self.released.pop())
+            if not self.free:
+                self._grow(self.n * 2)
+            slot = self.free.pop()
+            self.luma[slot].copy_(dev_planes[0])
+            if self.chroma_shape is not None and 1 in dev_planes:
+                self.chroma[slot, 0].copy_(dev_planes[1])
+                self.chroma[slot, 1].copy_(dev_planes[2])
+            return slot
 
     def release(self, slot):
-        if slot not in self.free:
-            self.free.append(slot)
+        with _STORE_LOCK:
+            if slot not in self.free:
+                self.free.append(slot)
+
+    def release_later(self, slot):
+        """Free ``slot`` at the next ``put`` (for finalizers)."""
+        self.released.append(slot)
+
+    def stacks(self):
+        """(luma, chroma stack (S*2, Hp, Wp) or None) as they are now."""
+        with _STORE_LOCK:
+            chroma = None if self.chroma is None else \
+                self.chroma.view((-1,) + self.chroma_shape)
+            return self.luma, chroma
 
 
 _STORES = {}
@@ -122,11 +149,11 @@ def get_store(rec_pic, device):
     cs = _padded_shape(rec_pic, 1) \
         if rec_pic.chroma_format != k.ChromaFormat.MONOCHROME else None
     key = (ls, cs, str(device))
-    st = _STORES.get(key)
-    if st is None:
-        st = FrameStore(ls, cs, device)
-        _STORES[key] = st
-    return st
+    with _STORE_LOCK:
+        st = _STORES.get(key)
+        if st is None:
+            st = _STORES[key] = FrameStore(ls, cs, device)
+        return st
 
 
 def _slot_map(rec_pic):
@@ -139,32 +166,41 @@ def _slot_map(rec_pic):
 
 def release_slot(rec_pic):
     """Free the picture's store slots (its buffer is being recycled)."""
-    slots = getattr(rec_pic, "_torch_slots", None)
-    if slots:
-        for store, slot, fin in slots.values():
-            fin.detach()
-            store.release(slot)
-        slots.clear()
+    with _STORE_LOCK:
+        slots = getattr(rec_pic, "_torch_slots", None)
+        if slots:
+            for store, slot, fin in slots.values():
+                fin.detach()
+                store.release(slot)
+            slots.clear()
 
 
 def _register(rec_pic, store, slot):
     # a finalizer frees the slot when the picture object dies, so
     # sessions that end without recycling their buffers leak no slots
-    fin = weakref.finalize(rec_pic, store.release, slot)
+    fin = weakref.finalize(rec_pic, store.release_later, slot)
     _slot_map(rec_pic)[str(store.device)] = (store, slot, fin)
     return slot
 
 
 def frame_store_put(rec_pic, dev_planes, device):
     """Register a picture's final padded device planes in the store."""
-    release_slot(rec_pic)
-    store = get_store(rec_pic, device)
-    return _register(rec_pic, store, store.put(dev_planes))
+    with _STORE_LOCK:
+        release_slot(rec_pic)
+        store = get_store(rec_pic, device)
+        return _register(rec_pic, store, store.put(dev_planes))
 
 
 def ensure_slot(rec_pic, device):
     """Slot of a reference picture; a picture never written by this
-    package (decoded elsewhere) uploads its host padded planes once."""
+    package (decoded elsewhere, or an alternative reconstruction that
+    several workers' pictures may ask for at once) uploads its host
+    padded planes once."""
+    with _STORE_LOCK:
+        return _ensure_slot(rec_pic, device)
+
+
+def _ensure_slot(rec_pic, device):
     ent = _slot_map(rec_pic).get(str(device))
     if ent is not None:
         return ent[1]
@@ -176,8 +212,7 @@ def ensure_slot(rec_pic, device):
         host = np.pad(base, ((0, th - base.shape[0]),
                              (0, tw - base.shape[1])), mode="edge")
         planes[comp] = torch.from_numpy(host).to(device)
-        dsp.STATS["uploads"] += 1
-        dsp.STATS["upload_bytes"] += host.nbytes
+        dsp.count_transfer("uploads", host.nbytes)
     store = get_store(rec_pic, device)
     return _register(rec_pic, store, store.put(planes))
 
@@ -284,14 +319,15 @@ _QP_SCALES = {}
 
 
 def qp_scales_on(device, pd, segment):
-    """The segment's ``itx.qp_scale_table`` on ``device`` (cached)."""
+    """The segment's ``itx.qp_scale_table`` on ``device`` (cached; the
+    workers of a threaded decode keep the first one made)."""
     key = (str(device), int(pd.chroma_format), pd.bitdepth,
            segment.chroma_qp_offset_table, segment.chroma_qp_offset_u,
            segment.chroma_qp_offset_v)
     t = _QP_SCALES.get(key)
     if t is None:
-        t = torch.from_numpy(itx.qp_scale_table(*key[1:])).to(device)
-        _QP_SCALES[key] = t
+        t = _QP_SCALES.setdefault(key, torch.from_numpy(
+            itx.qp_scale_table(*key[1:])).to(device))
     return t
 
 
@@ -378,7 +414,7 @@ class FlatReconstructor:
             records = batch.get(h_rec)
             resi_l = zeros((1, H, W), torch.int32)
             resi_c = zeros((2, Hc, Wc), torch.int32) if not self.mono else None
-            dsp.STATS["dispatches"] += 1
+            dsp.count_transfer("dispatches")
             itx.itx_picture(resi_l, resi_c, records, batch.get(h_coeff),
                             qp_scales, self.bitdepth, self.hp_tx,
                             self.restr.disable_ext2_transform_dst,
@@ -393,13 +429,10 @@ class FlatReconstructor:
                 pred_c = zeros((4, Hc, Wc), torch.int16)
                 mask_c = zeros((2, Hc, Wc), torch.int16)
             if have_inter:
-                store = get_store(self.rec, dev)
-                if not self.mono:
-                    chroma_stack = store.chroma.view((-1,) +
-                                                     store.chroma_shape)
-                dsp.STATS["dispatches"] += 1
+                luma_stack, chroma_stack = get_store(self.rec, dev).stacks()
+                dsp.count_transfer("dispatches")
                 mc_kernel.mc_picture(pred_l, mask_l, pred_c, mask_c, records,
-                                     batch.get(h_refs), store.luma,
+                                     batch.get(h_refs), luma_stack,
                                      chroma_stack, self._mc_flags())
 
             plane_l, rpad_l = combine(pred_l, mask_l, resi_l, H, W, ph, pw,

@@ -334,13 +334,14 @@ _DEV = {}
 
 
 def _dev(device, fn, *key):
-    """Host tables of ``fn(*key)`` as tensors on ``device`` (cached)."""
+    """Host tables of ``fn(*key)`` as tensors on ``device`` (cached; the
+    workers of a threaded decode keep the first one made)."""
     dkey = (str(device), fn.__name__) + key
     t = _DEV.get(dkey)
     if t is None:
-        t = tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                  for a in fn(*key) if isinstance(a, np.ndarray))
-        _DEV[dkey] = t
+        t = _DEV.setdefault(dkey, tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in fn(*key) if isinstance(a, np.ndarray)))
     return t
 
 
@@ -446,7 +447,7 @@ def intra_scan(plane, resi, meta, bitdepth):
         build.ptr(plane), build.ptr(resi), build.ptr(meta), len(meta), Hp,
         Wp, bitdepth, build.ptr(scratch), stream)
     build.check(rc, "intra_luma")
-    kernels.LAUNCHES["intra_luma"] += 1
+    kernels.count_launch("intra_luma")
     LAST_SCRATCH["intra_luma"] = scratch
     return plane
 
@@ -459,13 +460,15 @@ def _scratch(device, stream, nplanes, Hp, Wp, N, unit):
     the owner map of the canvas's unit x unit cells, N ticket entries and
     N row ranks.  The kernel fills all of it, so one tensor per device,
     stream and size serves every launch: the stream puts each launch
-    after the one before."""
+    after the one before, also the launches of the workers of a threaded
+    decode, which share the current stream (a worker on a stream of its
+    own would get a scratch of its own)."""
     size = nplanes * (STATUS_WORDS + -(-Hp // unit) * -(-Wp // unit) + 2 * N)
     key = (device, stream.value, size)
     scratch = _SCRATCH.get(key)
     if scratch is None:
-        scratch = _SCRATCH[key] = torch.empty(size, dtype=torch.int32,
-                                              device=device)
+        scratch = _SCRATCH.setdefault(key, torch.empty(
+            size, dtype=torch.int32, device=device))
     return scratch
 
 
@@ -653,7 +656,7 @@ def intra_chroma_scan(planes, resi, luma, meta, bitdepth):
         build.ptr(meta), len(meta), Hp, Wp, HpL, WpL, bitdepth,
         build.ptr(scratch), stream)
     build.check(rc, "intra_chroma")
-    kernels.LAUNCHES["intra_chroma"] += 1
+    kernels.count_launch("intra_chroma")
     LAST_SCRATCH["intra_chroma"] = scratch
     return planes
 

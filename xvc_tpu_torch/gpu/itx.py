@@ -85,13 +85,13 @@ _DEV_BASES = {}
 
 
 def _bases(device, *key):
-    """The bases of ``_bases_np`` as tensors on ``device`` (cached)."""
+    """The bases of ``_bases_np`` as tensors on ``device`` (cached; the
+    workers of a threaded decode keep the first one made)."""
     dkey = (str(device),) + key
     t = _DEV_BASES.get(dkey)
     if t is None:
-        t = tuple(torch.as_tensor(a, device=device)
-                  for a in _bases_np(*key))
-        _DEV_BASES[dkey] = t
+        t = _DEV_BASES.setdefault(dkey, tuple(
+            torch.as_tensor(a, device=device) for a in _bases_np(*key)))
     return t
 
 
@@ -148,7 +148,7 @@ def _run(resi, coeff, scale, params, width, height, bitdepth,
         build.ptr(M1), build.ptr(S1), build.ptr(M2), build.ptr(S2),
         M1.shape[0], build.ptr(resi), nplanes, H, W, build.stream_of(resi))
     build.check(rc, "itx_scatter")
-    kernels.LAUNCHES["itx"] += 1
+    kernels.count_launch("itx")
 
 
 def itx_scatter_plain(resi, coeff, scale, params, width, height, bitdepth,
@@ -337,7 +337,7 @@ def itx_picture(resi_l, resi_c, records, coeff, qp_scales, bitdepth,
         None if resi_c is None else build.ptr(resi_c), cfg.ctypes.data,
         cfg.size, build.stream_of(resi_l))
     build.check(rc, "itx_picture")
-    kernels.LAUNCHES["itx_picture"] += 1
+    kernels.count_launch("itx_picture")
 
 
 def itx_picture_plain(resi_l, resi_c, records, coeff, qp_scales, bitdepth,

@@ -81,7 +81,7 @@ def mc_scatter(pred, mask, planes, params, wb, hb, luma, bitdepth,
         1 if short_out else 0, build.ptr(pred), nchan, H, W,
         build.ptr(mask), mask.shape[0], build.stream_of(pred))
     build.check(rc, "mc_scatter")
-    kernels.LAUNCHES["mc"] += 1
+    kernels.count_launch("mc")
 
 
 def mc_scatter_plain(pred, mask, planes, params, wb, hb, luma, bitdepth,
@@ -372,7 +372,7 @@ def mc_picture(pred_l, mask_l, pred_c, mask_c, records, refs, luma_stack,
         none(pred_c), none(mask_c), cfg.ctypes.data, cfg.size,
         tables.ctypes.data, tables.size, build.stream_of(pred_l))
     build.check(rc, "mc_picture")
-    kernels.LAUNCHES["mc_picture"] += 1
+    kernels.count_launch("mc_picture")
 
 
 def mc_picture_plain(pred_l, mask_l, pred_c, mask_c, records, refs,

@@ -42,7 +42,9 @@ from . import flat_recon
 from .records import C_LIC, C_PRED, C_TREE
 
 # the number of blocks the sequential host tail reconstructed for the last
-# picture this module reconstructed (one per leaf and component)
+# picture this module reconstructed (one per leaf and component; each
+# Reconstructor counts its own in ``tail_blocks`` and sets this when its
+# picture is done, so the workers of a threaded decode do not mix counts)
 LAST_TAIL_BLOCKS = -1
 
 
@@ -68,10 +70,11 @@ class Reconstructor(flat_recon.FlatReconstructor):
         self._device_half(leaves, lmeta, cmeta)
         self._scans()
         planes_dev = self._visible()
-        LAST_TAIL_BLOCKS = 0
+        self.tail_blocks = 0
         if self._tail_needed(leaves, scan_luma, scan_chroma):
             planes_dev = self._sequential_tail(planes_dev, scan_luma,
                                                scan_chroma)
+        LAST_TAIL_BLOCKS = self.tail_blocks
         if pd.deblock:
             return planes_dev
         flat_recon.store_and_download(self.rec, planes_dev, self.device,
@@ -160,7 +163,6 @@ class Reconstructor(flat_recon.FlatReconstructor):
             visitor(cu)
 
     def _sequential_leaf(self, cu, resi, skip_luma, skip_chroma):
-        global LAST_TAIL_BLOCKS
         if not (cu.is_intra() or (cu.is_inter() and cu.use_lic)):
             return
         dec = self.dec
@@ -171,7 +173,7 @@ class Reconstructor(flat_recon.FlatReconstructor):
                 continue  # luma handled by the device intra scan
             if skip_chroma and comp != 0 and cu.is_intra():
                 continue  # chroma handled by the device chroma scan
-            LAST_TAIL_BLOCKS += 1
+            self.tail_blocks += 1
             cx, cy = cu.pos(comp)
             w, h = cu.size(comp)
             if cu.is_intra():

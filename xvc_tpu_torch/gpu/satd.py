@@ -85,7 +85,7 @@ def _launch(src, orig, modes, bitdepth):
             out.numel(), modes, n, bitdepth, build.ptr(out),
             build.stream_of(src))
         build.check(rc, "satd")
-        kernels.LAUNCHES["satd"] += 1
+        kernels.count_launch("satd")
     return out
 
 

@@ -332,7 +332,7 @@ def txrd(orig, preds, satd, n, bitdepth, keep, screen_step, params):
             p["p_shift"], p["inv_scale"], p["p_inv"], p["inv_gain"],
             p["lam"], build.ptr(out), build.stream_of(orig))
         build.check(rc, "txrd")
-        kernels.LAUNCHES["txrd"] += 1
+        kernels.count_launch("txrd")
     return out
 
 

@@ -2,22 +2,33 @@
 
 Sources live in ``csrc/`` and are compiled by ``build.py`` at first use.
 Each wrapper (``gpu/mc.py``, ``gpu/itx.py``, ``gpu/deblock.py``,
-``gpu/satd.py``, ``gpu/intra_scan.py``, ``gpu/txrd_prepass.py``) adds
-one to its entry of ``LAUNCHES`` where it launches its kernel, and
-nowhere else, so a run can show that its main path went through the
-kernels.  ``deblock_edges``
+``gpu/satd.py``, ``gpu/intra_scan.py``, ``gpu/txrd_prepass.py``,
+``gpu/resample.py``) adds one to its entry of ``LAUNCHES`` where it
+launches its kernel (``count_launch``, under a lock: the workers of a
+threaded decode launch side by side), and nowhere else, so a run can
+show that its main path went through the kernels.  ``deblock_edges``
 counts one call of ``xvc_deblock_edges``, which enqueues the map paint
-and the edge derivation back to back.
+and the edge derivation back to back; ``resample`` one call of
+``xvc_resample``, which enqueues a plane's horizontal and vertical pass.
 """
+import threading
+
 LAUNCHES = {"mc": 0, "itx": 0, "mc_picture": 0, "itx_picture": 0,
             "deblock_edges": 0, "deblock_luma": 0,
             "deblock_chroma": 0, "satd": 0, "intra_luma": 0,
-            "intra_chroma": 0, "txrd": 0}
+            "intra_chroma": 0, "txrd": 0, "resample": 0}
+_LOCK = threading.Lock()
+
+
+def count_launch(name):
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 def on_cuda(*tensors):

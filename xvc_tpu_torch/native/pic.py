@@ -140,7 +140,8 @@ def _restr_vec(restrictions):
 
 def _fam_arrays():
     global _FAM41, _FAM18
-    if _FAM41 is None:
+    if _FAM18 is None:
+        # _FAM18 last: a worker that finds it set finds both
         _FAM41 = np.array([OFFSETS[name] for name, _ in FAMILIES],
                           dtype=np.int32)
         _FAM18 = family_offsets()

@@ -38,10 +38,14 @@ Run as a script it decodes a stream on the card and prints the table:
 """
 import collections
 import contextlib
+import threading
 import time
 
 _stats = collections.defaultdict(float)
 _counts = collections.defaultdict(int)
+# the workers of a threaded decode record side by side (their spans
+# overlap, so a span's seconds can add up to more than the decode's)
+_lock = threading.Lock()
 _enabled = False
 _sync = False
 
@@ -57,8 +61,9 @@ def enabled():
 
 
 def reset():
-    _stats.clear()
-    _counts.clear()
+    with _lock:
+        _stats.clear()
+        _counts.clear()
 
 
 def _device_sync():
@@ -79,8 +84,13 @@ def span(name):
     finally:
         if _sync:
             _device_sync()
-        _stats[name] += time.perf_counter() - t0
-        _counts[name] += 1
+        _add(name, time.perf_counter() - t0, 1)
+
+
+def _add(name, seconds, calls):
+    with _lock:
+        _stats[name] += seconds
+        _counts[name] += calls
 
 
 def add_span_time(name, seconds, calls=1):
@@ -88,15 +98,15 @@ def add_span_time(name, seconds, calls=1):
     into the span table (no-op when disabled)."""
     if not _enabled:
         return
-    _stats[name] += seconds
-    _counts[name] += calls
+    _add(name, seconds, calls)
 
 
 def report():
     """{stage: {"seconds": s, "calls": n}} sorted by time desc."""
-    return {name: {"seconds": round(_stats[name], 4),
-                   "calls": _counts[name]}
-            for name in sorted(_stats, key=_stats.get, reverse=True)}
+    with _lock:
+        return {name: {"seconds": round(_stats[name], 4),
+                       "calls": _counts[name]}
+                for name in sorted(_stats, key=_stats.get, reverse=True)}
 
 
 def format_report():
