@@ -42,14 +42,21 @@ Phases:
      version, timed beside it and its bound, and with --parent TREE
      beside the stages TREE runs on the same inputs (before txrd: a
      stable sort, a gather, a float64 transform and the rank-only
-     kernel); the resampler's kernel (resample: both passes of a plane's
-     windowed-sinc rescale) on the nine cases of
-     tests/test_resample_device.py and one case per scale class at 8, 10
-     and 14 bit, random and full-scale, and on the full-width planes of
-     1920x1080 -> 1280x720 and back (luma and chroma), each timed beside
-     its plain version, its bound, the dense float64 matmuls of the JAX
-     formulation (library_ms), the upload of its window and the whole
-     host call;
+     kernel); the resampler's fused kernel (resample: both passes of
+     every plane of a picture in one launch) on the nine cases of
+     tests/test_resample_device.py, one case per scale class at 8, 10
+     and 14 bit and the extreme ratios, random and full-scale, as one
+     plane and as two planes of a launch (packed output; int32 output
+     with the store's edge replication), on the full-width planes of
+     1920x1080 -> 1280x720 and back (luma and chroma) one at a time, and
+     on decoded pictures (picture 3 of fhd1080_ra to 1280x720, of
+     hd720_ld to 1920x1080) from their frame-store slots: the kernel
+     timed beside its plain version, its bound, PR 10's bound of the
+     same planes, the dense float64 matmuls of the JAX formulation
+     (library_ms), the whole per-picture call (with and without the
+     border ring) and its spans, the alternative reconstruction, and the
+     per-plane host-window calls (window cut, upload, kernel, download,
+     pack) of this tree and, with --parent TREE, of TREE;
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -101,10 +108,13 @@ Phases:
      tail pictures that predict from the downscaled 1080p key picture
      fail their checksum in the JAX package's decode too), the resample
      launches split into the alternative reconstruction's and the
-     output's, ms per picture, the stage profile with decode.post's share
-     and the device's idle share; hd720_ld resized to 1920x1080,
-     fhd1080_ra to 1280x720 and qhd1440_ra10 to 1920x1080 at 8 bit, each
-     to its hash list; hd720_ld and fhd1080_ra with 4 picture threads
+     output's (one launch for the alternative picture and one for each
+     resized picture, no reference slot uploaded), ms per picture, the
+     stage profile with decode.post's share and the device's idle share;
+     hd720_ld resized to 1920x1080, fhd1080_ra to 1280x720 and
+     qhd1440_ra10 to 1920x1080 at 8 bit, each to its hash list with one
+     launch a picture, in turns with the decode at its own size;
+     hd720_ld and fhd1080_ra with 4 picture threads
      beside sequential decodes in turns, each to its _dec.sha256, with
      the threaded decode's idle share.
 
@@ -215,6 +225,11 @@ SEGMENT_HEADER = 16  # NalUnitType.SEGMENT_HEADER
 # chroma of 1080p -> 720p and back), 8 bit
 RESAMPLE_PLANES = (((1920, 1080), (1280, 720)), ((960, 540), (640, 360)),
                    ((1280, 720), (1920, 1080)), ((640, 360), (960, 540)))
+# phase 2: the decoded pictures the per-picture call is timed on (stream,
+# decode-order index, output size), and the one of the kernels line
+RESAMPLE_PICTURES = {"fhd1080_to_720": ("fhd1080_ra", 3, (1280, 720)),
+                     "hd720_to_1080": ("hd720_ld", 3, (1920, 1080))}
+RESAMPLE_TIMED = "fhd1080_to_720"
 # phase 7: the open-GOP splice of a 1280x720 and a 1920x1080 stream
 # (tests/encode_clips.py make_splice): the output stays at 1280x720, so
 # the 1080p pictures are downscaled on output and the 720p tail pictures
@@ -1430,7 +1445,7 @@ def phase_kernels(torch, dev, parent):
     phase_deblock_kernels(torch, dev, res, real, rng)
     phase_scan_kernels(torch, dev, res, real, parent)
     phase_picture_kernels(torch, dev, res)
-    phase_resample_kernel(torch, dev, res)
+    phase_resample_kernel(torch, dev, res, parent)
     return res
 
 
@@ -1614,20 +1629,45 @@ def phase_txrd_kernel(torch, dev, res, parent):
 
 
 def resample_bound(case, tab_x, tab_y):
-    """The least time of one plane's rescale: the window read once, the two
-    axis tables read and the output written once (int32 each), and the
-    multiply and the add of every tap of both passes; ``bound_unfused_ms``
-    adds the intermediate rows, written and read back once, which a launch
-    a pass moves."""
+    """PR 10's bound of one plane's rescale as its two-pass kernel took
+    it: the int32 window read once, the two axis tables read and the int32
+    output written once, and the multiply and the add of every tap of both
+    passes; ``bound_unfused_ms`` adds the intermediate rows, written and
+    read back once, which a launch a pass moves."""
     src_w, src_h, _, dst_w, dst_h, _ = case
     win_h = src_h + 16
-    nbytes = 4 * (win_h * (src_w + 16) + tab_x.numel() + tab_y.numel() +
+    nbytes = 4 * (win_h * (src_w + 16) + tab_x.size + tab_y.size +
                   dst_w * dst_h)
     ops = 2 * ((tab_x.shape[1] - 1) * win_h * dst_w +
                (tab_y.shape[1] - 1) * dst_h * dst_w)
     out = bound(nbytes, ops)
     out["bound_unfused_ms"] = (nbytes + 8 * win_h * dst_w) / \
         HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def picture_bound(planes):
+    """The least time of one picture's rescale as the fused kernel does
+    it: ``planes`` ((case, output element bytes) each), each plane's int16
+    window read once, its two axis tables read once, its output written
+    once, and the multiply and the add of every tap of both passes.  Also
+    ``bound_int32_two_pass_ms``, PR 10's bound of the same planes (int32
+    window and output, the intermediate written and read back)."""
+    from xvc_tpu_torch.gpu import resample as rsm
+    nbytes = ops = 0
+    old = 0.0
+    for case, esize in planes:
+        src_w, src_h, _, dst_w, dst_h, _ = case
+        p = rsm.plan(*case)
+        win_h = src_h + 16
+        nbytes += 2 * win_h * (src_w + 16) + 4 * (p.tab_x.size +
+                                                  p.tab_y.size) + \
+            esize * dst_w * dst_h
+        ops += 2 * ((p.tab_x.shape[1] - 1) * win_h * dst_w +
+                    (p.tab_y.shape[1] - 1) * dst_h * dst_w)
+        old += resample_bound(case, p.tab_x, p.tab_y)["bound_unfused_ms"]
+    out = bound(nbytes, ops)
+    out["bound_int32_two_pass_ms"] = old
     return out
 
 
@@ -1661,29 +1701,182 @@ def dense_resample(torch, case, dev):
     return fn
 
 
-def phase_resample_kernel(torch, dev, res):
-    """The resampler's kernel against its plain version on the card: the
-    nine cases of tests/test_resample_device.py and one case per scale
-    class at 8, 10 and 14 bit, each with random and with full-scale
-    samples; then the full-width planes of RESAMPLE_PLANES, bit for bit,
-    each timed beside its plain version, its bound, the dense float64
-    matmuls of the JAX formulation (library_ms), the host-to-card copy of
-    its window and the whole host call (window cut, upload, kernel,
-    download)."""
+def time_resample_planes(torch, inputs):
+    """The per-plane host-window call of the package that is imported
+    (``gpu.resample.resample``: the window cut from the host plane, its
+    upload, a launch and a synchronous download, one plane at a time;
+    then the planes packed into bytes), on each picture of ``inputs``
+    ({name: [(padded int32 plane, (origin_y, origin_x, src_w, src_h, bd,
+    dst_w, dst_h, dst_bd))]}): per picture, ms of the whole call and of
+    its parts (each part ended by a synchronisation, 10 calls after a
+    warm-up) and the sha256 of the bytes."""
     import numpy as np
     from xvc_tpu_torch.gpu import resample as rsm
+    dev = torch.device("cuda", 0)
+    iters = 10
+    out = {}
+    for name, planes in inputs.items():
+        planes = [(t.numpy(), tuple(int(v) for v in g)) for t, g in planes]
+
+        def clock():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        parts = dict.fromkeys(("window", "upload", "kernel", "download",
+                               "pack"), 0.0)
+        for it in range(iters + 1):
+            got = []
+            for plane, (oy, ox, sw, sh, bd, dw, dh, dbd) in planes:
+                t0 = clock()
+                win = rsm.cut_window(plane, oy, ox, sw, sh)
+                t1 = clock()
+                dwin = torch.from_numpy(win).to(dev)
+                t2 = clock()
+                o = rsm.resample_window(dwin, bd, dw, dh, dbd)
+                t3 = clock()
+                got.append(o.cpu().numpy())
+                t4 = clock()
+                if it:
+                    for key, dt in (("window", t1 - t0), ("upload", t2 - t1),
+                                    ("kernel", t3 - t2),
+                                    ("download", t4 - t3)):
+                        parts[key] += dt
+            t5 = clock()
+            data = b"".join(p.astype(np.uint8 if dbd <= 8 else np.uint16)
+                            .tobytes() for p in got)
+            if it:
+                parts["pack"] += time.perf_counter() - t5
+        t0 = clock()
+        for _ in range(iters):
+            data = b"".join(
+                rsm.resample(plane, *g, device=dev).astype(
+                    np.uint8 if g[7] <= 8 else np.uint16).tobytes()
+                for plane, g in planes)
+        call_ms = (clock() - t0) * 1e3 / iters
+        out[name] = dict(call_ms=call_ms, sha256=hashlib.sha256(
+            data).hexdigest(), **{k + "_ms": v * 1e3 / iters
+                                  for k, v in parts.items()})
+    return out
+
+
+def decoded_picture(torch, dev, stream, index):
+    """Picture ``index`` of a bench stream as its decode on the card
+    leaves it for the resampler: a 4:2:0 8-bit picture whose host border
+    is padded and whose frame-store slot on the card holds its planes,
+    edge-replicated (the samples from a decode of the stream on the card,
+    held to its hash list)."""
+    import numpy as np
+    from xvc_tpu_torch import constants as k
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.codec.yuv import YuvPicture
+    from xvc_tpu_torch.gpu import flat_recon
+    with open(os.path.join(DATA, "bench", stream + ".xvc"), "rb") as f:
+        pics = decode_stream(f.read(), device=dev)
+    hashes, _ = read_hashes(os.path.join(DATA, "bench",
+                                         stream + "_dec.sha256"))
+    src = pics[index]
+    if hashlib.sha256(src.bytes).hexdigest() != hashes[index]:
+        raise AssertionError("%s picture %d differs from its hash list"
+                             % (stream, index))
+    pic = YuvPicture(k.ChromaFormat.YUV420, src.width, src.height, 8, True)
+    buf = np.frombuffer(src.bytes, np.uint8)
+    off = 0
+    for c in range(3):
+        view = pic.plane_view(c)
+        view[:] = buf[off:off + view.size].reshape(view.shape)
+        off += view.size
+    pic.pad_border()
+    flat_recon.frame_store_put(pic, flat_recon.device_pad_planes(
+        pic, {c: torch.from_numpy(pic.plane_view(c).astype(np.int16)).to(
+            dev) for c in range(3)}), dev)
+    return pic
+
+
+def time_resample_picture(torch, dev, pic, fmt, border_padded, iters=10):
+    """The per-picture call of output resizing
+    (``codec.output.convert_to``: one launch from the frame-store slot
+    into the packed output bytes, one download) on ``pic``: (bytes, ms
+    of the whole call (host clock, 10 calls after a warm-up), ms per call
+    of each span under ``profiling.enable(sync=True)``)."""
+    from xvc_tpu_torch import profiling
+    from xvc_tpu_torch.codec import output
+    data = output.convert_to(pic, fmt, dev, border_padded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        output.convert_to(pic, fmt, dev, border_padded)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3 / iters
+    profiling.reset()
+    profiling.enable(sync=True)
+    try:
+        for _ in range(iters):
+            output.convert_to(pic, fmt, dev, border_padded)
+    finally:
+        profiling.enable(False)
+    spans = {n: r["seconds"] * 1e3 / iters
+             for n, r in profiling.report().items()}
+    profiling.reset()
+    return data, call_ms, spans
+
+
+def phase_resample_kernel(torch, dev, res, parent):
+    """The resampler's fused kernel against its plain version on the card:
+    the nine cases of tests/test_resample_device.py, one case per scale
+    class at 8, 10 and 14 bit and the extreme ratios, each with random and
+    with full-scale samples, as one plane (``resample_window``) and as two
+    planes of one launch (a packed output, and an int32 output with the
+    store's edge replication around it); the full-width planes of
+    RESAMPLE_PLANES one at a time, each timed beside its plain version,
+    its PR 10 bound, the dense float64 matmuls of the JAX formulation, the
+    upload of its window and the whole per-plane host call; then the
+    per-picture call on decoded pictures (RESAMPLE_PICTURES: 1080p ->
+    720p and 720p -> 1080p, 4:2:0, 8 bit) from their frame-store slots,
+    bit for bit against the per-plane calls and the plain version: the
+    kernel (CUDA events and device time), its bound and PR 10's bound of
+    the same planes, the plain version and the dense matmuls of its three
+    planes, the whole call with and without the ring, its spans, the
+    alternative reconstruction of the 1080p picture at 720p, and the
+    per-plane calls of this tree and, with ``parent``, of the checkout
+    ``parent`` (in a child process) on the same pictures."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import flat_recon
+    from xvc_tpu_torch.gpu import resample as rsm
+    from xvc_tpu_torch.ops import resample as ors
+    from xvc_tpu_torch.codec.yuv import YuvPicture
     cases = list(rsm.DEVICE_CASES) + [c for bd in (8, 10, 14)
-                                      for c in rsm.class_cases(bd)]
+                                      for c in rsm.class_cases(bd)] + \
+        list(rsm.EXTREME_CASES)
     checked = 0
     for i, case in enumerate(cases):
+        src_w, src_h, src_bd, dst_w, dst_h, dst_bd = case
         for full_scale in (False, True):
             win = torch.from_numpy(rsm.synthetic_window(
                 case, SEED + i, full_scale)).to(dev)
             args = (win,) + case[2:]
             got = rsm.resample_window(*args)
             want = rsm.resample_plain(*args)
+            h, w = win.shape
+            win16 = torch.empty((h, w + (w & 1)), dtype=torch.int16,
+                                device=dev)[:, :w]
+            win16.copy_(win)
+            packed = torch.empty((dst_h, dst_w), device=dev, dtype=(
+                torch.uint8 if dst_bd <= 8 else torch.int16))
+            padded = torch.empty((dst_h + 13, dst_w + 20), device=dev,
+                                 dtype=torch.int32)
+            rsm.run_planes(
+                [rsm.PlaneJob(0, 8, 8, src_w, src_h, dst_w, dst_h, packed),
+                 rsm.PlaneJob(0, 8, 8, src_w, src_h, dst_w, dst_h, padded,
+                              5, 9)], [(win16, 0, 0)] * 2, src_bd, dst_bd)
+            rows = (torch.arange(dst_h + 13, device=dev) - 5).clamp(
+                0, dst_h - 1)
+            cols = (torch.arange(dst_w + 20, device=dev) - 9).clamp(
+                0, dst_w - 1)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not torch.equal(got, want) or \
+                    not torch.equal(packed.to(torch.int32) & 0xFFFF,
+                                    want) or \
+                    not torch.equal(padded, want[rows][:, cols]):
                 raise AssertionError("resample mismatch %r (full scale %s)"
                                      % (case, full_scale))
             checked += 1
@@ -1704,9 +1897,7 @@ def phase_resample_kernel(torch, dev, res):
                                  "float64 %d)" % (case, max_err(
                                      torch, got, want), max_err(
                                          torch, lib_out, want)))
-        scale_x, scale_y = rsm.geometry(*case)[:2]
-        tab_x = rsm._tables_on(dev, scale_x, dst[0], src[0])[0]
-        tab_y = rsm._tables_on(dev, scale_y, dst[1], src[1])[0]
+        p = rsm.plan(*case)
         t0 = time.perf_counter()
         for _ in range(10):
             rsm.resample(padded, 16, 16, src[0], src[1], 8, dst[0], dst[1],
@@ -1721,24 +1912,112 @@ def phase_resample_kernel(torch, dev, res):
             upload_ms=cuda_ms(torch, lambda: torch.from_numpy(host).to(dev),
                               10),
             call_ms=(time.perf_counter() - t0) * 100,
-            **resample_bound(case, tab_x, tab_y)))
-    row = planes[0]
-    res["resample"] = dict(
-        max_abs_err=0, shape="1920x1080 -> 1280x720 luma, 8 bit: window "
-        "[1096, 1936] int32 -> [720, 1280] int32", per_plane=planes,
-        synthetic_cases=checked, **{k: row[k] for k in (
-            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_bytes", "bound_ops")})
+            **resample_bound(case, p.tab_x, p.tab_y)))
     log("phase 2: resample bit-exact over %d synthetic cases (every scale "
-        "class, 8, 10 and 14 bit, random and full-scale samples) and the "
-        "full-width planes; per plane: %s" % (checked, [
-            "%s: kernel %.4f ms (device time alone %s), plain %.4f ms, dense "
-            "float64 matmuls %.4f ms, bound %.4f ms (%s; %.4f unfused), "
-            "window upload %.4f ms, whole call %.4f ms" % (
-                p["shape"], p["ms"], p["device_ms"], p["plain_ms"],
-                p["library_ms"], p["bound_ms"], p["bound_by"],
-                p["bound_unfused_ms"], p["upload_ms"], p["call_ms"])
-            for p in planes]))
+        "class, 8, 10 and 14 bit, extreme ratios, random and full-scale "
+        "samples; one plane, and two planes of one launch) and the "
+        "full-width planes; per plane (one launch, int32 window): %s" % (
+            checked, [
+                "%s: kernel %.4f ms (device time alone %s), plain %.4f ms, "
+                "dense float64 matmuls %.4f ms, PR 10's bound %.4f ms (%s; "
+                "%.4f with the intermediate), window upload %.4f ms, whole "
+                "per-plane call %.4f ms" % (
+                    p["shape"], p["ms"], p["device_ms"], p["plain_ms"],
+                    p["library_ms"], p["bound_ms"], p["bound_by"],
+                    p["bound_unfused_ms"], p["upload_ms"], p["call_ms"])
+                for p in planes]))
+    pictures = {}
+    inputs = {}
+    for name, (stream, index, size) in RESAMPLE_PICTURES.items():
+        pic = decoded_picture(torch, dev, stream, index)
+        fmt = dict(width=size[0], height=size[1], chroma_format=1,
+                   bitdepth=8, color_matrix=0, dither=0)
+        geoms = [(c, pic.pad_y[c], pic.pad_x[c], pic.get_display_width(c),
+                  pic.get_display_height(c), size[0] >> (c > 0),
+                  size[1] >> (c > 0)) for c in range(3)]
+        inputs[name] = [
+            (torch.from_numpy(np.ascontiguousarray(pic.padded_plane(c))),
+             (oy, ox, sw, sh, 8, dw, dh, 8))
+            for c, oy, ox, sw, sh, dw, dh in geoms]
+        data, call_ms, spans = time_resample_picture(torch, dev, pic, fmt,
+                                                     True)
+        ring, ring_ms, ring_spans = time_resample_picture(torch, dev, pic,
+                                                          fmt, False)
+        total = sum(dw * dh for *_, dw, dh in geoms)
+        buf = torch.empty(total, dtype=torch.uint8, device=dev)
+        jobs, off = [], 0
+        for c, oy, ox, sw, sh, dw, dh in geoms:
+            jobs.append(rsm.PlaneJob(c, oy, ox, sw, sh, dw, dh,
+                                     buf[off:off + dw * dh].view(dh, dw)))
+            off += dw * dh
+        kernel = lambda: rsm.resample_picture(pic, jobs, 8, 8, dev, True)
+        cases3 = [(sw, sh, 8, dw, dh, 8)
+                  for _, _, _, sw, sh, dw, dh in geoms]
+        windows = [w[0][w[1]:w[1] + j.src_h + 16,
+                        w[2]:w[2] + j.src_w + 16].to(torch.int32)
+                   for w, j in zip(rsm.store_windows(pic, jobs, dev, True),
+                                   jobs)]
+        plain = lambda: [rsm.resample_plain(w, *c[2:])
+                         for w, c in zip(windows, cases3)]
+        dense = [dense_resample(torch, c, dev) for c in cases3]
+        library = lambda: [d(w) for d, w in zip(dense, windows)]
+        kernel()
+        want = b"".join(p.to(torch.uint8).cpu().numpy().tobytes()
+                        for p in plain())
+        torch.cuda.synchronize()
+        if buf.cpu().numpy().tobytes() != want or data != want or \
+                ring != want:
+            raise AssertionError("%s: the per-picture call differs from "
+                                 "the plain version" % name)
+        from xvc_tpu_torch import kernels
+        kernels.reset_launches()
+        ors.resample_pic(YuvPicture(1, size[0], size[1], 8, True), pic, dev,
+                         True)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["resample"] != 1:
+            raise AssertionError("the alternative picture took %d launches"
+                                 % kernels.LAUNCHES["resample"])
+        alt_t0 = time.perf_counter()
+        for _ in range(10):
+            alt = YuvPicture(1, size[0], size[1], 8, True)
+            ors.resample_pic(alt, pic, dev, True)
+        torch.cuda.synchronize()
+        alt_ms = (time.perf_counter() - alt_t0) * 100
+        flat_recon.release_slot(alt)
+        per_plane = time_resample_planes(torch, {name: inputs[name]})[name]
+        if per_plane.pop("sha256") != hashlib.sha256(want).hexdigest():
+            raise AssertionError("%s: the per-plane calls differ" % name)
+        pictures[name] = dict(
+            shape="%dx%d -> %dx%d 4:2:0, 8 bit, picture %d of %s" % (
+                pic.width[0], pic.height[0], size[0], size[1], index,
+                stream),
+            ms=cuda_ms(torch, kernel),
+            device_ms=device_ms(torch, kernel, "resample_picture"),
+            plain_ms=cuda_ms(torch, plain, 5),
+            library_ms=cuda_ms(torch, library, 10),
+            call_ms=call_ms, spans_ms=spans, ring_call_ms=ring_ms,
+            ring_spans_ms=ring_spans, alternative_call_ms=alt_ms,
+            per_plane_calls=per_plane,
+            sha256=hashlib.sha256(want).hexdigest(),
+            **picture_bound([(c, 1) for c in cases3]))
+        flat_recon.release_slot(pic)
+    if parent is not None:
+        for name, times in time_of_tree(torch, parent,
+                                        "time_resample_planes", inputs):
+            if times.pop("sha256") != pictures[name]["sha256"]:
+                raise AssertionError("%s: %s's per-plane calls give other "
+                                     "bytes" % (name, parent))
+            pictures[name]["parent_per_plane_calls"] = times
+    row = pictures[RESAMPLE_TIMED]
+    res["resample"] = dict(
+        max_abs_err=0, shape=row["shape"] + ": int16 windows from the "
+        "frame store -> packed uint8 output, one launch", per_plane=planes,
+        per_picture=pictures, synthetic_cases=checked,
+        **{k: row[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by", "bound_bytes",
+                               "bound_ops")})
+    log("phase 2: resample per picture (one launch, the frame store in, the "
+        "packed output bytes out): %s" % json.dumps(pictures))
 
 
 def read_hashes(path):
@@ -1804,33 +2083,58 @@ def phase_resampling(torch):
     threaded decodes of THREADED_STREAMS (4 workers) beside sequential
     ones in turns, held to their _dec.sha256."""
     from xvc_tpu_torch import kernels, profiling
-    from xvc_tpu_torch.codec import picture_decoder
+    from xvc_tpu_torch.codec import output, picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import dsp, flat_recon
     from xvc_tpu_torch.parallel import pipeline
     pipeline.WAIT_SECONDS = 120.0
     out = {}
     with open(os.path.join(DATA, "bench", SPLICE + ".xvc"), "rb") as f:
         data = f.read()
     alt = [0]
+    resized = [0]
+    uploaded = [0]
     generate = picture_decoder.PictureDecoder.generate_alternative_rec_pic
+    convert = output.convert_to
+    ensure = flat_recon._ensure_slot
 
-    def spy(self, segment_header):
+    def spy(self, *args, **kw):
         before = kernels.LAUNCHES["resample"]
-        made = generate(self, segment_header)
+        made = generate(self, *args, **kw)
         alt[0] += kernels.LAUNCHES["resample"] - before
         return made
 
+    def convert_spy(pic, fmt, *args):
+        resized[0] += (fmt["width"], fmt["height"]) != (
+            pic.get_display_width(0), pic.get_display_height(0))
+        return convert(pic, fmt, *args)
+
+    def ensure_spy(rec_pic, device):
+        before = dsp.STATS["uploads"]
+        slot = ensure(rec_pic, device)
+        uploaded[0] += dsp.STATS["uploads"] - before
+        return slot
+
     picture_decoder.PictureDecoder.generate_alternative_rec_pic = spy
+    output.convert_to = convert_spy
+    flat_recon._ensure_slot = ensure_spy
     try:
         _, _, split = timed_session(torch, SPLICE, data, {})
     finally:
         picture_decoder.PictureDecoder.generate_alternative_rec_pic = \
             generate
+        output.convert_to = convert
+        flat_recon._ensure_slot = ensure
     output_launches = split["resample"] - alt[0]
-    if alt[0] <= 0 or output_launches <= 0:
+    # one launch a resized picture and one an alternative picture; the
+    # alternative picture is written to its store slot, so no reference
+    # slot is uploaded from the host
+    if alt[0] != 1 or output_launches != resized[0] or uploaded[0]:
         raise AssertionError("%s: resample launched %d times for the "
-                             "alternative picture, %d for the output" % (
-                                 SPLICE, alt[0], output_launches))
+                             "alternative picture, %d for the output of %d "
+                             "resized pictures; %d reference uploads" % (
+                                 SPLICE, alt[0], output_launches,
+                                 resized[0], uploaded[0]))
     pics, dt, launches = timed_session(torch, SPLICE, data, {})
     if launches["resample"] != split["resample"] or \
             launches["itx_picture"] != len(pics):
@@ -1861,18 +2165,26 @@ def phase_resampling(torch):
         with open(os.path.join(DATA, "bench", stream + ".xvc"), "rb") as f:
             data = f.read()
         timed_session(torch, name, data, params)  # the first-use costs
-        pics, dt, launches = timed_session(torch, name, data, params)
-        if launches["resample"] != 3 * len(pics):
-            raise AssertionError("%s: resample launched %d times for %d "
-                                 "pictures" % (name, launches["resample"],
-                                               len(pics)))
-        out[name] = dict(pictures=len(pics), seconds=dt,
-                         ms_per_picture=dt * 1e3 / len(pics),
+        # resized and at its own size, in turns (own, resized, resized,
+        # own), each held to its hash list
+        runs = {name: [], stream: []}
+        for key in (stream, name, name, stream):
+            pics, dt, got = timed_session(torch, key, data,
+                                          params if key == name else {})
+            runs[key].append(dt * 1e3 / len(pics))
+            if key == name:
+                launches = got
+                if launches["resample"] != len(pics):
+                    raise AssertionError(
+                        "%s: resample launched %d times for %d pictures"
+                        % (name, launches["resample"], len(pics)))
+        out[name] = dict(pictures=len(pics), ms_per_picture=runs[name],
+                         own_size_ms_per_picture=runs[stream],
                          launches=launches)
         log("phase 7: %s: %d pictures equal to the recorded host decode, "
-            "conforming; %.2f ms/picture; resample launches %d" % (
-                name, len(pics), out[name]["ms_per_picture"],
-                launches["resample"]))
+            "conforming; ms/picture %s, at its own size %s (in turns); "
+            "resample launches %d" % (name, len(pics), runs[name],
+                                      runs[stream], launches["resample"]))
     for name, threads in THREADED_STREAMS:
         with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
             data = f.read()
@@ -2557,7 +2869,7 @@ def main():
                         for n in ("itx_picture", "mc_picture")},
                     "goldens": goldens, "resampling": resampling,
                     "resample": {k: res["resample"][k] for k in (
-                        "per_plane", "synthetic_cases")},
+                        "per_plane", "per_picture", "synthetic_cases")},
                     "lookahead": look, "encode": enc,
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",

@@ -1124,6 +1124,9 @@ def test_resample_kernel_matches_plain_at_full_width(cuda, src, dst):
 
 
 def test_resample_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    """The host-window entry takes int32 windows (copied to int16 for the
+    kernel); the kernel's own planes take int16 windows with an even row
+    stride and uint8, int16 or int32 outputs with contiguous rows."""
     window = torch.zeros((40, 40), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         resample.resample_window(window.to(torch.int16), 8, 16, 16, 8)
@@ -1131,6 +1134,85 @@ def test_resample_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         resample.resample_window(window[:, ::2], 8, 16, 16, 8)
     with pytest.raises(ValueError):   # a vertical shift below 0
         resample.resample_window(window, 8, 16, 16, 24)
+    win16 = torch.zeros((40, 42), dtype=torch.int16, device=cuda)[:, :40]
+
+    def run(win, out):
+        resample.run_planes([resample.PlaneJob(0, 8, 8, 24, 24, 16, 16,
+                                               out)], [(win, 0, 0)], 8, 8)
+
+    out = torch.empty((16, 16), dtype=torch.uint8, device=cuda)
+    run(win16, out)   # taken
+    for bad_win, bad_out in (
+            (win16.to(torch.int32), out),                     # int32 window
+            (torch.zeros((40, 41), dtype=torch.int16,
+                         device=cuda)[:, :40], out),          # odd stride
+            (win16, out.float()),                             # float output
+            (win16, torch.empty((16, 32), dtype=torch.uint8,
+                                device=cuda)[:, ::2])):       # strided rows
+        with pytest.raises(ValueError):
+            run(bad_win, bad_out)
+
+
+PICTURE_CASES = [(1920, 1080, 1280, 720), (1280, 720, 1920, 1080),
+                 (96, 64, 64, 48), (48, 32, 72, 48)]
+
+
+def _stored_picture(dev, seed, width, height, bd, padded=True):
+    """A 4:2:0 picture with random samples in its frame-store slot on
+    ``dev`` (edge-replicated, as the decoder stores it); its host border
+    padded, or random (a buffer that kept an older border)."""
+    from xvc_tpu_torch import constants as k
+    from xvc_tpu_torch.codec.yuv import YuvPicture
+    rng = np.random.RandomState(seed)
+    pic = YuvPicture(k.ChromaFormat.YUV420, width, height, bd, True, 8, 4)
+    for c in range(3):
+        plane = pic.padded_plane(c)
+        plane[:] = rng.randint(0, 1 << bd, plane.shape)
+    if padded:
+        pic.pad_border()
+    flat_recon.frame_store_put(pic, flat_recon.device_pad_planes(
+        pic, {c: torch.from_numpy(pic.plane_view(c).astype(np.int16)).to(
+            dev) for c in range(3)}), dev)
+    return pic
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "ring"])
+@pytest.mark.parametrize("case", PICTURE_CASES,
+                         ids=["%dx%d-%dx%d" % c for c in PICTURE_CASES])
+def test_resample_picture_from_the_store_matches_the_cpu(cuda, case,
+                                                         padded):
+    """Whole pictures from the frame store: the three planes of a 4:2:0
+    picture in one launch into the packed output bytes, at 8 and 10 bit,
+    equal to the same call on the CPU device (``resample_plain`` on the
+    same windows); and the alternative reconstruction in one launch, its
+    store slot and host planes equal to the CPU's."""
+    from xvc_tpu_torch.codec.yuv import YuvPicture
+    from xvc_tpu_torch.ops import resample as ors
+    sw, sh, dw, dh = case
+    for bd in (8, 10):
+        pics = {d: _stored_picture(d, sum(case) + bd, sw, sh, bd, padded)
+                for d in (cuda, torch.device("cpu"))}
+        planes, off = [], 0
+        for c in range(3):
+            w, h = (dw, dh) if c == 0 else (dw // 2, dh // 2)
+            planes.append((c, off, w, h))
+            off += w * h
+        kernels.reset_launches()
+        got = {d: resample.resample_to_buffer(p, planes, bd, bd, off, d,
+                                              padded)
+               for d, p in pics.items()}
+        assert kernels.LAUNCHES["resample"] == 1
+        assert np.array_equal(*got.values())
+        alts = {d: YuvPicture(1, dw, dh, bd, True) for d in pics}
+        slots = {d: ors.resample_pic(alts[d], p, d, padded)
+                 for d, p in pics.items()}
+        assert kernels.LAUNCHES["resample"] == 2
+        for c in range(3):
+            assert np.array_equal(alts[cuda].padded_plane(c),
+                                  alts[torch.device("cpu")].padded_plane(c))
+        stored = [flat_recon.get_store(alts[d], d).stacks()[0][slots[d]]
+                  for d in pics]
+        assert torch.equal(stored[0].cpu(), stored[1])
 
 
 OUTPUT_GOLDENS = [
@@ -1168,9 +1250,10 @@ def test_output_conversion_on_card_equals_the_golden(cuda, stream, golden,
                              read_data(stream + ".xvc"))
     assert all(p.conforming for p in pics)
     assert b"".join(p.bytes for p in pics) == read_data(golden)
-    # the sinc resizes run on the card; 4:4:4 and ARGB chroma is the
-    # bilinear 2x upsample of the host
-    assert (kernels.LAUNCHES["resample"] > 0) == ("output_width" in kw)
+    # the sinc resizes run on the card, one launch a resized picture;
+    # 4:4:4 and ARGB chroma is the bilinear 2x upsample of the host
+    assert kernels.LAUNCHES["resample"] == \
+        (len(pics) if "output_width" in kw else 0)
 
 
 @pytest.mark.parametrize("threads", [2, 4])

@@ -46,3 +46,64 @@ def test_output_conversion_equals_the_golden(stream, golden, kw):
     if "max_framerate" in kw:
         assert [p.poc for p in pics] == [0, 4, 8]
         assert pics[0].framerate == 15.0
+
+
+SPLICE = "splice96x64to64x48"
+
+
+def test_splice_alternative_is_stored_without_an_upload(monkeypatch):
+    """The splice's alternative reconstruction is written to its
+    frame-store slot by the one resample call that makes it: right after
+    it the picture has its slot, and no reference slot is ever uploaded
+    from the host (``ensure_slot`` moves no byte); the pictures equal the
+    JAX package's host decode."""
+    from xvc_tpu_torch.codec import picture_decoder
+    from xvc_tpu_torch.gpu import dsp, flat_recon
+
+    from .test_torch_recon import jax_host_decode
+    made = []
+    generate = picture_decoder.PictureDecoder.generate_alternative_rec_pic
+
+    def spy(self, *args, **kw):
+        alt = generate(self, *args, **kw)
+        made.append(str(self.device) in flat_recon._slot_map(alt))
+        return alt
+
+    uploaded = []
+    ensure = flat_recon._ensure_slot
+
+    def ensure_spy(rec_pic, device):
+        before = dsp.STATS["uploads"]
+        slot = ensure(rec_pic, device)
+        uploaded.append(dsp.STATS["uploads"] - before)
+        return slot
+
+    monkeypatch.setattr(picture_decoder.PictureDecoder,
+                        "generate_alternative_rec_pic", spy)
+    monkeypatch.setattr(flat_recon, "_ensure_slot", ensure_spy)
+    bs = read_data(SPLICE + ".xvc")
+    pics = decode_all(bs)
+    want = jax_host_decode(bs)
+    assert [(p.poc, p.conforming, p.bytes) for p in pics] == \
+        [(p.poc, p.conforming, p.bytes) for p in want]
+    assert made == [True]
+    assert uploaded and not any(uploaded)
+
+
+@pytest.mark.parametrize("size", [(48, 32), (80, 60)])
+def test_resized_threaded_decode_equals_sequential(monkeypatch, size):
+    """Output resizing of a random-access stream (its highest-layer
+    pictures keep their buffer's old border, read through the ring) with
+    two picture threads equals the sequential decode and the JAX
+    package's."""
+    from .encode_clips import jax_session_decode
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    bs = read_data("ra64x48.xvc")
+    kw = dict(output_width=size[0], output_height=size[1])
+    seq = decode_all(bs, **kw)
+    thr = decode_all(bs, threads=2, **kw)
+    want = jax_session_decode(bs, **kw)
+    for pics in (thr, want):
+        assert [(p.poc, p.conforming, p.bytes) for p in pics] == \
+            [(p.poc, p.conforming, p.bytes) for p in seq]
+    assert len(seq) == 10

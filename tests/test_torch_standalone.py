@@ -5,7 +5,9 @@ never jax and nothing of xvc_tpu.
   ``xvc_tpu``, every module of the package imports, ai64x48 (the flat
   path) and ld64x48 (LIC: the replay path with its host tail) decode on
   the CPU device to their goldens, ai64x48 resized to 32x24 on output
-  (the resampler) with two picture threads to its golden, and a speed-3
+  (the resampler) with two picture threads to its golden, the 96x64 /
+  64x48 splice (its alternative picture rescaled into a frame-store slot)
+  with its three tail pictures flagged as in the reference, and a speed-3
   encode (the split DP,
   the transform-RD prepass and the native encoder) decodes back to the
   encoder's reconstruction; a source scan finds no import of either in
@@ -83,6 +85,13 @@ while (pic := ses.get_picture()) is not None:
     pics.append(pic)
 with open(os.path.join(data_dir, "ai64x48_out_down32x24.yuv"), "rb") as f:
     assert b"".join(p.bytes for p in pics) == f.read()
+# the alternative reconstruction of an open-GOP splice, written to its
+# frame-store slot in one call (gpu/resample.resample_to_store): the three
+# tail pictures that read it fail their checksum, as in the reference
+with open(os.path.join(data_dir, "splice96x64to64x48.xvc"), "rb") as f:
+    pics = decode_stream(f.read(), device="cpu")
+assert len(pics) == 17 and [p.poc for p in pics if not p.conforming] == \
+    [5, 6, 7]
 # an encode at speed 3 (the split DP and the transform-RD prepass on the
 # device, the native CTU search), decoded back
 import numpy as np

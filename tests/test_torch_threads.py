@@ -106,16 +106,17 @@ def test_threaded_restriction_switch(threads):
 
 
 def _spy_alternatives(monkeypatch):
-    """Count the planes the alternative reconstruction rescales."""
+    """Count the planes the alternative reconstruction rescales (one call
+    a picture, every plane in it)."""
     calls = []
-    orig = resample.resample_pic_plane
+    orig = resample.resample_pic
 
-    def spy(dst, comp, src, device=None):
-        calls.append((src.width[comp], src.height[comp], dst.width[comp],
-                      dst.height[comp]))
-        return orig(dst, comp, src, device)
+    def spy(dst, src, device=None, border_padded=False):
+        calls.extend((src.width[c], src.height[c], dst.width[c],
+                      dst.height[c]) for c in range(3))
+        return orig(dst, src, device, border_padded)
 
-    monkeypatch.setattr(resample, "resample_pic_plane", spy)
+    monkeypatch.setattr(resample, "resample_pic", spy)
     return calls
 
 

@@ -99,14 +99,21 @@ class FrameStore:
         self.free.extend(range(old_n, new_n))
         self.n = new_n
 
-    def put(self, dev_planes):
-        """dev_planes: {comp: (Hp, Wp) device plane}.  Returns the slot."""
+    def reserve(self):
+        """A free slot, the superstacks grown if there is none.  Its
+        writer takes the superstacks (``stacks()``) and enqueues its writes
+        before it lets go of the lock, so a later growth copies them."""
         with _STORE_LOCK:
             while self.released:
                 self.release(self.released.pop())
             if not self.free:
                 self._grow(self.n * 2)
-            slot = self.free.pop()
+            return self.free.pop()
+
+    def put(self, dev_planes):
+        """dev_planes: {comp: (Hp, Wp) device plane}.  Returns the slot."""
+        with _STORE_LOCK:
+            slot = self.reserve()
             self.luma[slot].copy_(dev_planes[0])
             if self.chroma_shape is not None and 1 in dev_planes:
                 self.chroma[slot, 0].copy_(dev_planes[1])

@@ -8,8 +8,8 @@ launches its kernel (``count_launch``, under a lock: the workers of a
 threaded decode launch side by side), and nowhere else, so a run can
 show that its main path went through the kernels.  ``deblock_edges``
 counts one call of ``xvc_deblock_edges``, which enqueues the map paint
-and the edge derivation back to back; ``resample`` one call of
-``xvc_resample``, which enqueues a plane's horizontal and vertical pass.
+and the edge derivation back to back; ``resample`` one launch of
+``xvc_resample_picture``, both passes of every plane of a picture.
 """
 import threading
 

@@ -48,8 +48,7 @@ SIGNATURES = {
     "xvc_intra_luma_scan": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P],
-    "xvc_resample": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _P],
+    "xvc_resample_picture": [_P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -21,7 +21,12 @@ end-to-end time.  Disabled spans record nothing and cost one test of a
 flag.
 
 The spans the port records: the decode's (``decode.*``, ``flat.*``,
-``recon.*``, ``deblock.*``) and the encoder's, per picture:
+``recon.*``, ``deblock.*``; inside ``decode.post`` the resampler's
+``resample.window`` (the host side of a window: the ring of a picture
+whose border was not padded, or a host cut), ``resample.upload``,
+``resample.kernel`` (its launch) and ``resample.download``, and
+``output.pack`` (the host planes of an output cast into its bytes)) and
+the encoder's, per picture:
 ``encode.txrd_prepass`` (the transform-RD prepass), with, per block
 size, ``encode.txrd_prepass.extract`` (the host's block and reference
 extraction), ``.upload``, ``.device`` (prediction, SATD and the ``txrd``
