@@ -13,7 +13,8 @@ Phases:
   2  kernels: MC and ITX (the group kernels, and the picture kernels
      that derive every job of a picture from its record table), the
      deblock edge decisions, luma walk and chroma
-     pass, SATD and the intra luma and chroma scans on the card against
+     pass, SATD (also at the per-CU pre-pass's shape, one CU's 67
+     predictions) and the intra luma and chroma scans on the card against
      their plain PyTorch versions on the same inputs (numpy seed,
      main-path shapes; for the scans and the deblock kernels also the
      real inputs of pictures of hd720_ld, captured during a decode),
@@ -116,7 +117,23 @@ Phases:
      launch a picture, in turns with the decode at its own size;
      hd720_ld and fhd1080_ra with 4 picture threads
      beside sequential decodes in turns, each to its _dec.sha256, with
-     the threaded decode's idle share.
+     the threaded decode's idle share;
+  8  the Python CU encoder (xvc_tpu_torch/codec/cu_encoder.py, the
+     route the JAX package takes for tpu_intra_lookahead and
+     XVC_INTRA_PREPASS=jax) through xvc_tpu_torch.api.EncoderSession on
+     the card: crops at (0, 0) of pictures of hd720_ld as the card
+     decodes them (their hashes checked), all-intra, qp 32, speed mode 2:
+     cif_la (352x288, 1 picture, tpu_intra_lookahead: the lookahead's
+     four SATD launches rank every CU's modes) and qcif_pp (176x144, 2
+     pictures, XVC_INTRA_PREPASS=jax: one SATD launch per CU the per-CU
+     pre-pass evaluates); each stream must equal the JAX package's
+     (tests/data/bench/python_cu_enc.json) and decode on the card,
+     conforming, to the encoder's reconstruction; the satd and deblock
+     kernels must be launched (counts set to 0 just before each encode
+     and read just after).  It prints ms per picture, the lookahead's and
+     the per-CU pre-pass's launches and seconds a picture, the deblock
+     launches and the device's idle share.  Then the seconds of each
+     phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -217,6 +234,27 @@ HD720_S3 = dict(width=1280, height=720, frames=4, qp=32, seed=20261017)
 # show no kernel-vs-plain difference, fewer than this share of prepass
 # blocks unlike hd720_s3_cands.npz, bytes within 1% and every picture's
 # PSNR within 0.05 dB of the JAX stream's
+# phase 8: the Python CU encoder's clips, a copy of tests/encode_clips.py
+# PYTHON_CU and PYTHON_CU_SOURCE (tests/test_torch_python_cu.py holds the
+# two equal): crops at (0, 0) of the first pictures of hd720_ld as
+# decoded, all-intra, qp 32, speed mode 2; cif_la with the lookahead,
+# qcif_pp under XVC_INTRA_PREPASS=jax (the per-CU device pre-pass)
+PYTHON_CU = {
+    "cif_la": dict(width=352, height=288, pictures=1,
+                   settings="tpu_intra_lookahead 1", env={}),
+    "qcif_pp": dict(width=176, height=144, pictures=2, settings="",
+                    env={"XVC_INTRA_PREPASS": "jax"}),
+}
+PYTHON_CU_SOURCE = ("hd720_ld", 1280, 720)
+# phase 8 traces cif_la's encode itself under torch.profiler (some 700
+# device operations: the profiler costs it nothing measurable), and
+# qcif_pp's on a second encode (about 900,000 device operations a
+# picture, which the profiler slows by about a quarter)
+PYTHON_CU_TRACED_APART = ("qcif_pp",)
+PYTHON_CU_KERNELS = ("satd", "deblock_edges", "deblock_luma",
+                     "deblock_chroma")
+# phase 2: the per-CU pre-pass's SATD shapes (one CU's 67 predictions)
+PER_CU_SIZES = (4, 8, 16, 32)
 CARVE_OUT_BLOCKS = 0.001
 CARVE_OUT_BYTES = 0.01
 CARVE_OUT_DB = 0.05
@@ -334,6 +372,33 @@ def session_encode(session, yuv, frames):
     for i in range(frames):
         nals += session.encode(yuv[i * fs:(i + 1) * fs])
     return nals + session.flush()
+
+
+def crop_pictures(pictures, src_w, src_h, w, h):
+    """The 4:2:0 8-bit bytes of the top-left w x h crop of each picture
+    (a copy of tests/encode_clips.py crop_pictures)."""
+    import numpy as np
+    out = []
+    for pic in pictures:
+        buf = np.frombuffer(pic, np.uint8)
+        y = buf[:src_w * src_h].reshape(src_h, src_w)
+        cw, ch = src_w // 2, src_h // 2
+        u = buf[src_w * src_h:][:cw * ch].reshape(ch, cw)
+        v = buf[src_w * src_h + cw * ch:][:cw * ch].reshape(ch, cw)
+        out += [np.ascontiguousarray(y[:h, :w]).tobytes(),
+                np.ascontiguousarray(u[:h // 2, :w // 2]).tobytes(),
+                np.ascontiguousarray(v[:h // 2, :w // 2]).tobytes()]
+    return b"".join(out)
+
+
+def python_cu_params(api, name):
+    """EncoderParameters of a PYTHON_CU clip (a copy of
+    tests/encode_clips.py python_cu_params)."""
+    clip = PYTHON_CU[name]
+    return api.EncoderParameters(
+        width=clip["width"], height=clip["height"], qp=32, speed_mode=2,
+        num_ref_pics=0, sub_gop_length=1, checksum_mode=1,
+        explicit_encoder_settings=clip["settings"])
 
 
 def cuda_ms(torch, fn, iters=20, fresh=None):
@@ -1439,6 +1504,32 @@ def phase_kernels(torch, dev, parent):
                                 res["satd"]["plain_ms"],
                                 res["satd"]["bound_ms"],
                                 res["satd"]["bound_by"]))
+    # the per-CU pre-pass's shape: one CU, its 67 predictions (B = 1),
+    # fused, 8 and 10 bit with the extremes; timed on the 10-bit case
+    per_cu = {}
+    for n in PER_CU_SIZES:
+        for bd in (8, 10):
+            diff = satd_case(rng, (1, 67, n, n), bd)
+            orig = rng.randint(0, 1 << bd, (1, n, n)).astype(np.int32)
+            o, p = T(orig), T(orig[:, None] - diff)
+            got = satd.satd_pred(o, p, bd)
+            want = satd.satd_plain(o[:, None] - p, bd)
+            torch.cuda.synchronize()
+            if max_err(torch, got, want):
+                raise AssertionError("satd mismatch at the per-CU shape %r"
+                                     % ((n, bd),))
+        per_cu[n] = dict(
+            ms=cuda_ms(torch, lambda: satd.satd_pred(o, p, 10)),
+            plain_ms=cuda_ms(torch, lambda: satd.satd_plain(
+                o[:, None] - p, 10), 5),
+            **{k: v for k, v in satd_bound(diff, n).items()
+               if k in ("bound_ms", "bound_by")})
+    res["satd"]["per_cu"] = per_cu
+    log("phase 2: satd bit-exact at the per-CU shape [1, 67, n, n], n = "
+        "%s, 8 and 10 bit; fused kernel / plain / bound ms: %s" % (
+            list(PER_CU_SIZES), {n: "%.4f / %.4f / %.6f" % (
+                r["ms"], r["plain_ms"], r["bound_ms"])
+                for n, r in per_cu.items()}))
     phase_txrd_kernel(torch, dev, res, parent)
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         real = capture_inputs(f.read())
@@ -2347,9 +2438,13 @@ def phase_decode(torch, dev):
 def device_busy(torch, fn):
     """torch.profiler over one call of fn (a decode or an encode): the
     seconds it took on the host's clock (profiler on), the seconds of
-    device work in it (kernels and copies) and the number of device
-    operations; the last two None where the profiler recorded no device
-    time."""
+    device work in it (the durations of the profiler's device events,
+    kernels and copies, summed) and the number of device operations; the
+    last two None where the profiler recorded no device time.  The raw
+    events are read directly: ``key_averages()`` counts each kernel's time
+    twice (under its own name and as the self device time of the operator
+    that launched it), and its parse of the 10^6 events of an encode takes
+    minutes."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2358,15 +2453,12 @@ def device_busy(torch, fn):
         fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    busy_us, ops = 0.0, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            busy_us += us
-            ops += ev.count
-    return (seconds, busy_us / 1e6, ops) if ops else (seconds, None, None)
+    busy_ns, ops = 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if str(ev.device_type()).endswith("CUDA"):
+            busy_ns += ev.duration_ns()
+            ops += 1
+    return (seconds, busy_ns / 1e9, ops) if ops else (seconds, None, None)
 
 
 def phase_stage_profile(torch, name):
@@ -2808,6 +2900,141 @@ def phase_encode(torch, dev):
     return out
 
 
+def phase_python_cu(torch, dev):
+    """The Python CU encoder on the card (PYTHON_CU): crops of the first
+    pictures of hd720_ld as the card decodes them (their hashes checked)
+    through xvc_tpu_torch.api.EncoderSession, each clip under its
+    environment; each stream held to the JAX package's
+    (tests/data/bench/python_cu_enc.json) and decoded on the card to the
+    encoder's reconstruction; ms per picture, the launches of the encode
+    (set to 0 just before it, read just after) split into the lookahead's
+    and the per-CU pre-pass's SATD launches, their seconds (spans
+    encode.intra_lookahead.device, encode.intra_prepass), the deblock
+    launches, and the device's idle share under torch.profiler, of that
+    encode or of a second one (PYTHON_CU_TRACED_APART)."""
+    from xvc_tpu_torch import api, kernels, profiling
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.nal import write_nal_units
+    stream, src_w, src_h = PYTHON_CU_SOURCE
+    with open(os.path.join(DATA, "bench", stream + ".xvc"), "rb") as f:
+        decoded = decode_stream(f.read(), device=dev)
+    hashes, _ = read_hashes(os.path.join(DATA, "bench",
+                                         stream + "_dec.sha256"))
+    need = max(c["pictures"] for c in PYTHON_CU.values())
+    if [hashlib.sha256(p.bytes).hexdigest() for p in decoded[:need]] != \
+            hashes[:need]:
+        raise AssertionError("%s: the card's decode differs from its hash "
+                             "list" % stream)
+    with open(os.path.join(DATA, "bench", "python_cu_enc.json")) as f:
+        refs = json.load(f)
+    out = {}
+    for name, clip in PYTHON_CU.items():
+        w, h, n = clip["width"], clip["height"], clip["pictures"]
+        yuv = crop_pictures([p.bytes for p in decoded[:n]], src_w, src_h,
+                            w, h)
+        fs = w * h * 3 // 2
+
+        def encode():
+            ses = api.EncoderSession(python_cu_params(api, name),
+                                     device=dev)
+            nals = []
+            for i in range(n):
+                nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+            return ses, nals + ses.flush()
+
+        saved = {k: os.environ.get(k) for k in clip["env"]}
+        os.environ.update(clip["env"])
+        apart = name in PYTHON_CU_TRACED_APART
+        try:
+            profiling.reset()
+            profiling.enable()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            result = []
+            t0 = time.perf_counter()
+            if apart:
+                result.append(encode())
+            else:
+                traced_s, busy_s, ops = device_busy(
+                    torch, lambda: result.append(encode()))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            spans = profiling.report()
+            profiling.enable(False)
+            if apart:
+                traced_s, busy_s, ops = device_busy(torch, encode)
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        ses, nals = result[0]
+        data = write_nal_units(nals)
+        if hashlib.sha256(data).hexdigest() != refs[name]["sha256"]:
+            raise AssertionError("%s: the stream differs from the JAX "
+                                 "package's (%d bytes against %d)" % (
+                                     name, len(data), refs[name]["bytes"]))
+        for k in PYTHON_CU_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError("kernel %s was not launched by the %s "
+                                     "encode" % (k, name))
+        pics = decode_stream(data, device=dev)
+        if len(pics) != n or not all(p.conforming for p in pics) or \
+                [p.bytes for p in pics] != ses.rec_pictures:
+            raise AssertionError("%s: the card's decode differs from the "
+                                 "encoder's reconstruction" % name)
+
+        def span_of(key):
+            row = spans.get(key, {"seconds": 0.0, "calls": 0})
+            return row["seconds"], row["calls"]
+
+        pre_s, pre_calls = span_of("encode.intra_prepass")
+        look_dev_s, look_calls = span_of("encode.intra_lookahead.device")
+        look_s, _ = span_of("encode.intra_lookahead")
+        row = dict(
+            width=w, height=h, pictures=n, seconds=dt,
+            ms_per_picture=dt * 1e3 / n, bytes=len(data), equal=True,
+            launches={k: v for k, v in launches.items() if v},
+            per_picture=dict(
+                lookahead_satd_launches=look_calls / n,
+                lookahead_seconds=look_s / n,
+                lookahead_device_seconds=look_dev_s / n,
+                prepass_satd_launches=pre_calls / n,
+                prepass_seconds=pre_s / n,
+                deblock_launches={k: launches[k] / n for k in
+                                  PYTHON_CU_KERNELS[1:]}),
+            satd_launches_unattributed=launches["satd"] - pre_calls -
+            look_calls,
+            spans=spans, traced_apart=apart, traced_encode_seconds=traced_s,
+            device_busy_seconds=busy_s, device_operations=ops,
+            device_idle_share=None if busy_s is None else
+            1.0 - busy_s / traced_s)
+        if row["satd_launches_unattributed"]:
+            raise AssertionError("%s: satd launches outside the lookahead "
+                                 "and the per-CU pre-pass: %r" % (
+                                     name, launches))
+        out[name] = row
+        log("phase 8: %s (%dx%d, %d picture(s), the Python CU encoder on "
+            "the card): %.1f ms/picture, %d bytes equal to the JAX "
+            "package's stream; decoded on the card, conforming and equal "
+            "to the encoder's reconstruction; per picture: lookahead %d "
+            "satd launches, %.4f s (device %.4f s), per-CU pre-pass %d "
+            "satd launches, %.4f s, deblock launches %s; idle share %s "
+            "(%s encode under torch.profiler: %.3f s, device busy %s s in "
+            "%s operations); spans (s): %s" % (
+                name, w, h, n, row["ms_per_picture"], len(data),
+                look_calls / n, look_s / n, look_dev_s / n, pre_calls / n,
+                pre_s / n, row["per_picture"]["deblock_launches"],
+                row["device_idle_share"], "a second" if apart else "this",
+                traced_s, busy_s, ops,
+                {k: v["seconds"] for k, v in spans.items()}))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -2849,18 +3076,31 @@ def main():
                 "Compiling entry function" in line:
             log("  ptxas: " + line.strip())
 
-    res = phase_kernels(torch, dev, parent)
-    dec, pic0 = phase_decode(torch, dev)
-    stages = {name: phase_stage_profile(torch, name) for name in PROFILED}
-    goldens = phase_goldens(dev)
-    look = phase_lookahead(torch, dev, pic0)
-    enc = phase_encode(torch, dev)
-    resampling = phase_resampling(torch)
+    phase_seconds = {"1": max(build_s, native_s)}
+
+    def phase(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[key] = time.perf_counter() - t0
+        return out
+
+    res = phase("2", phase_kernels, torch, dev, parent)
+    dec, pic0 = phase("3", phase_decode, torch, dev)
+    stages = phase("3 stage profiles", lambda: {
+        name: phase_stage_profile(torch, name) for name in PROFILED})
+    goldens = phase("4", phase_goldens, dev)
+    look = phase("5", phase_lookahead, torch, dev, pic0)
+    enc = phase("6", phase_encode, torch, dev)
+    resampling = phase("7", phase_resampling, torch)
+    python_cu = phase("8", phase_python_cu, torch, dev)
+    log("phase seconds: %s" % (
+        {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
         if module in sys.modules:
             raise AssertionError("%s was imported" % module)
 
     log(json.dumps({"build_seconds": build_s,
+                    "phase_seconds": phase_seconds,
                     "native_build_seconds": native_s, "decode": dec,
                     "picture_kernels": {
                         n: dict(per_picture=res[n]["per_picture"],
@@ -2871,10 +3111,12 @@ def main():
                     "resample": {k: res["resample"][k] for k in (
                         "per_plane", "per_picture", "synthetic_cases")},
                     "lookahead": look, "encode": enc,
+                    "python_cu": python_cu,
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",
                         "log2_cpu_card_differ", "log2_table_card_differ")},
                     "satd_fused_ms": res["satd"]["fused_ms"],
+                    "satd_per_cu": res["satd"]["per_cu"],
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
                                    "operations": r["bound_ops"]}

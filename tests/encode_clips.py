@@ -3,7 +3,11 @@ card tests, which run without JAX, share them with the CPU tests).
 
 ``make_hd720_s3`` is the recipe of hd720_s3, the encode clip of
 chip_smoke.py phase 6 (the script carries its own copy;
-tests/test_torch_encode.py holds the two equal).
+tests/test_torch_encode.py holds the two equal).  ``PYTHON_CU`` and
+``crop_pictures`` are the recipe of phase 8's clips, and
+``make_python_cu_refs`` records the JAX package's streams of them
+(tests/data/bench/python_cu_enc.json; the script's copy is held equal by
+tests/test_torch_python_cu.py).
 """
 import os
 
@@ -175,3 +179,90 @@ def make_resized_hashes(name, bench_dir):
         pics = jax_session_decode(f.read(), **params)
     with open(os.path.join(bench_dir, name + "_dec.sha256"), "w") as f:
         f.write("\n".join(hash_lines(pics)) + "\n")
+
+
+# The Python CU encoder's clips (chip_smoke.py phase 8, which carries its
+# own copy of this table and of ``crop_pictures``): crops at (0, 0) of the
+# first pictures of tests/data/bench/hd720_ld.xvc as decoded, 8-bit 4:2:0,
+# all-intra (num_ref_pics 0, sub-GOP 1), qp 32, speed mode 2, checksum
+# mode 1.  cif_la: 352x288, one picture, with tpu_intra_lookahead; qcif_pp:
+# 176x144, two pictures, under XVC_INTRA_PREPASS=jax (the per-CU device
+# SATD pre-pass).  CIF and not 1280x720: the Python CU encoder spends
+# seconds of host Python a CTU.
+PYTHON_CU = {
+    "cif_la": dict(width=352, height=288, pictures=1,
+                   settings="tpu_intra_lookahead 1", env={}),
+    "qcif_pp": dict(width=176, height=144, pictures=2, settings="",
+                    env={"XVC_INTRA_PREPASS": "jax"}),
+}
+PYTHON_CU_SOURCE = ("hd720_ld", 1280, 720)
+
+
+def crop_pictures(pictures, src_w, src_h, w, h):
+    """The 4:2:0 8-bit bytes of the top-left w x h crop of each picture
+    (``pictures``: the packed 4:2:0 bytes of src_w x src_h pictures)."""
+    out = []
+    for pic in pictures:
+        buf = np.frombuffer(pic, np.uint8)
+        y = buf[:src_w * src_h].reshape(src_h, src_w)
+        cw, ch = src_w // 2, src_h // 2
+        u = buf[src_w * src_h:][:cw * ch].reshape(ch, cw)
+        v = buf[src_w * src_h + cw * ch:][:cw * ch].reshape(ch, cw)
+        out += [np.ascontiguousarray(y[:h, :w]).tobytes(),
+                np.ascontiguousarray(u[:h // 2, :w // 2]).tobytes(),
+                np.ascontiguousarray(v[:h // 2, :w // 2]).tobytes()]
+    return b"".join(out)
+
+
+def python_cu_params(module, name):
+    """EncoderParameters of a PYTHON_CU clip for ``module`` (xvc_tpu.api
+    or xvc_tpu_torch.api)."""
+    clip = PYTHON_CU[name]
+    return module.EncoderParameters(
+        width=clip["width"], height=clip["height"], qp=32, speed_mode=2,
+        num_ref_pics=0, sub_gop_length=1, checksum_mode=1,
+        explicit_encoder_settings=clip["settings"])
+
+
+def make_python_cu_refs(bench_dir):
+    """Write ``<bench_dir>/python_cu_enc.json``: for each PYTHON_CU clip,
+    the sha256 and byte count of the JAX package's length-prefixed stream
+    (its EncoderSession, under the clip's environment), every NAL's sha256
+    and each picture's PSNR.  About five minutes on one CPU core."""
+    import hashlib
+    import json
+    from xvc_tpu import api as japi
+    from xvc_tpu.nal import write_nal_units
+    stream, src_w, src_h = PYTHON_CU_SOURCE
+    with open(os.path.join(bench_dir, stream + ".xvc"), "rb") as f:
+        decoded = [p.bytes for p in jax_session_decode(f.read())]
+    refs = {"source": list(PYTHON_CU_SOURCE),
+            "clips": {n: {k: v for k, v in c.items()}
+                      for n, c in PYTHON_CU.items()}}
+    for name, clip in PYTHON_CU.items():
+        w, h, n = clip["width"], clip["height"], clip["pictures"]
+        yuv = crop_pictures(decoded[:n], src_w, src_h, w, h)
+        saved = {k: os.environ.get(k) for k in clip["env"]}
+        os.environ.update(clip["env"])
+        try:
+            ses = japi.EncoderSession(python_cu_params(japi, name))
+            fs = w * h * 3 // 2
+            nals = []
+            for i in range(n):
+                nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+            nals += ses.flush()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        data = write_nal_units(nals)
+        refs[name] = dict(
+            sha256=hashlib.sha256(data).hexdigest(), bytes=len(data),
+            nal_sha256=[hashlib.sha256(x).hexdigest() for x in nals],
+            psnr=[list(map(float, s.psnr)) for s in ses.nal_stats
+                  if s.nal_unit_type != SEGMENT_HEADER])
+    with open(os.path.join(bench_dir, "python_cu_enc.json"), "w") as f:
+        json.dump(refs, f, indent=1)
+        f.write("\n")

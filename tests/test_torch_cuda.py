@@ -12,8 +12,9 @@ tests/data/c4*_ra64x48_dec.sha256), damaged
 streams against the same session on the CPU device (no sticky CUDA
 error), the lookahead on the card against the same call on the CPU
 device, the resampler's kernel against its plain version, output
-conversion against the goldens, and threaded decodes against sequential
-ones.
+conversion against the goldens, threaded decodes against sequential
+ones, and the encoders (speed 3 on the native encoder, the lookahead on
+the Python CU encoder) against the CPU device.
 """
 import hashlib
 
@@ -407,6 +408,73 @@ def test_satd_pred_kernel_matches_plain(cuda, n):
     want = satd.satd_plain(torch.from_numpy(orig[:, None] - preds), 10)
     assert tuple(got.shape) == (77, 67)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_satd_pred_kernel_at_the_per_cu_shape(cuda, n, bd):
+    """One CU's 67 predictions (B = 1), the shape the Python CU encoder's
+    per-CU pre-pass gives the kernel, with the full-range extremes; and
+    the whole per-CU call (prediction and SATD) against the CPU device."""
+    from xvc_tpu_torch.codec.intra_search import device_prepass_satd
+    rng = np.random.RandomState(10 * n + bd)
+    top_bit = 1 << bd
+    orig = rng.randint(0, top_bit, (1, n, n)).astype(np.int32)
+    preds = rng.randint(0, top_bit, (1, 67, n, n)).astype(np.int32)
+    orig[0, 0, 0], preds[0, 0, 0, 0] = top_bit - 1, 0
+    o, p = _to(cuda, orig, preds)
+    kernels.reset_launches()
+    got = satd.satd_pred(o, p, bd)
+    assert kernels.LAUNCHES["satd"] == 1
+    want = satd.satd_plain(torch.from_numpy(orig[:, None] - preds), bd)
+    assert tuple(got.shape) == (1, 67)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    top = rng.randint(0, top_bit, 2 * n + 1).astype(np.int32)
+    left = rng.randint(0, top_bit, 2 * n).astype(np.int32)
+    kernels.reset_launches()
+    card = device_prepass_satd(orig[0], top, left, bd, cuda)
+    assert kernels.LAUNCHES["satd"] == 1
+    np.testing.assert_array_equal(
+        card, device_prepass_satd(orig[0], top, left, bd, "cpu"))
+
+
+@pytest.mark.parametrize("route", ["lookahead", "prepass"])
+def test_python_cu_encode_on_card_matches_cpu(cuda, route, monkeypatch):
+    """A 64x64 all-intra picture through the Python CU encoder on the
+    card, with tpu_intra_lookahead (the lookahead's four SATD launches
+    rank the modes) or under XVC_INTRA_PREPASS=jax (one SATD launch per
+    CU the per-CU pre-pass evaluates): the CPU device's NALs and
+    reconstruction, the deblock kernels launched, and its decode on the
+    card equal to the reconstruction."""
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.nal import write_nal_units
+    from .encode_clips import txrd_clip
+    w = h = 64
+    yuv = txrd_clip(w, h, 1)
+    settings = "tpu_intra_lookahead 1"
+    if route == "prepass":
+        monkeypatch.setenv("XVC_INTRA_PREPASS", "jax")
+        settings = ""
+
+    def enc(dev):
+        ses = api.EncoderSession(api.EncoderParameters(
+            width=w, height=h, qp=32, speed_mode=2, num_ref_pics=0,
+            sub_gop_length=1, checksum_mode=1,
+            explicit_encoder_settings=settings), device=dev)
+        return ses.encode(yuv) + ses.flush(), ses.rec_pictures
+
+    want, want_rec = enc("cpu")
+    kernels.reset_launches()
+    got, rec = enc(cuda)
+    assert got == want and rec == want_rec
+    if route == "lookahead":
+        assert kernels.LAUNCHES["satd"] == 4
+    else:
+        assert kernels.LAUNCHES["satd"] > 16
+    for name in ("deblock_edges", "deblock_luma", "deblock_chroma"):
+        assert kernels.LAUNCHES[name] > 0, name
+    pics = decode_stream(write_nal_units(got), device=cuda)
+    assert len(pics) == 1 and pics[0].conforming and pics[0].bytes == rec[0]
 
 
 @pytest.mark.parametrize("mode_step", [1, 4])

@@ -8,7 +8,9 @@ byte.
   tests/test_txrd_prepass.py; with restricted mode A, where the prepass
   returns None;
 - EncoderSession: the same NALs, per-NAL statistics and reconstruction;
-- the settings the port rejects raise NotImplementedError;
+- the settings the port rejects raise NotImplementedError, and those it
+  takes to its Python CU encoder (tpu_intra_lookahead,
+  XVC_INTRA_PREPASS=jax) give the JAX package's bytes;
 - hd720_s3, chip_smoke.py's encode clip: its recipe
   (tests/encode_clips.py ``make_hd720_s3``, and chip_smoke.py's own copy
   of it), its committed references
@@ -119,7 +121,8 @@ def _settings(module_settings, speed, prepass=None, restricted=0):
 
 
 # (clip, width, height, frames, speed, tpu_txrd_prepass (None: the
-# preset's), restricted mode, sub_gop_length, num_ref_pics)
+# preset's), restricted mode, sub_gop_length, num_ref_pics[, bit depth,
+# chroma format, low delay])
 ENCODES = {
     "wavefront_s2": ("wavefront", 192, 192, 2, 2, None, 0, 2, 1),
     "wavefront_s3": ("wavefront", 192, 192, 2, 3, None, 0, 2, 1),
@@ -128,12 +131,42 @@ ENCODES = {
     "txrd_s2_prepass2": ("txrd", 128, 96, 2, 2, 2, 0, 1, 0),
     "txrd_s3_unaligned": ("txrd", 44, 36, 2, 3, None, 0, 1, 1),
     "restricted_a_s3": ("txrd", 64, 48, 2, 3, None, 1, 1, 1),
+    "b10_low_delay_s3": ("txrd", 64, 48, 3, 3, None, 0, 1, 1, 10,
+                         k.ChromaFormat.YUV420, True),
+    "b12_intra_s3": ("txrd", 64, 48, 2, 3, None, 0, 1, 0, 12,
+                     k.ChromaFormat.YUV420, False),
+    "yuv444_low_delay_s3": ("txrd", 64, 48, 3, 3, None, 0, 1, 1, 8,
+                            k.ChromaFormat.YUV444, True),
+    "random_access_gop4_s3": ("txrd", 64, 48, 5, 3, None, 0, 4, 2, 8,
+                              k.ChromaFormat.YUV420, False),
 }
 
 
-def _clip(name, w, h, f):
-    return wavefront_clip(w, h, f) if name == "wavefront" else \
+def _clip(name, w, h, f, bitdepth=8, chroma_format=k.ChromaFormat.YUV420):
+    """The 8-bit 4:2:0 clip ``name``, its chroma resampled to
+    ``chroma_format`` by repetition or decimation and its samples shifted
+    up to ``bitdepth`` (16-bit words above 8)."""
+    raw = wavefront_clip(w, h, f) if name == "wavefront" else \
         txrd_clip(w, h, f)
+    if bitdepth == 8 and chroma_format == k.ChromaFormat.YUV420:
+        return raw
+    planes = np.frombuffer(raw, np.uint8).reshape(f, -1)
+    out = []
+    for pic in planes:
+        y = pic[:w * h].reshape(h, w)
+        u, v = (pic[w * h + i * (w * h // 4):][:w * h // 4]
+                .reshape(h // 2, w // 2) for i in (0, 1))
+        if chroma_format == k.ChromaFormat.YUV444:
+            u, v = (c.repeat(2, 0).repeat(2, 1) for c in (u, v))
+        elif chroma_format == k.ChromaFormat.YUV422:
+            u, v = (c.repeat(2, 0) for c in (u, v))
+        comps = [y] if chroma_format == k.ChromaFormat.MONOCHROME else \
+            [y, u, v]
+        for c in comps:
+            c = c.astype(np.uint16) << (bitdepth - 8)
+            out.append(c.astype("<u2" if bitdepth > 8 else np.uint8)
+                       .tobytes())
+    return b"".join(out)
 
 
 @pytest.mark.parametrize("case", sorted(ENCODES))
@@ -143,10 +176,13 @@ def test_encode_stream_equals_the_jax_package_s(case):
     conforming, equal to the encoder's reconstruction of its last
     picture."""
     clip, w, h, f, speed, prepass, restricted, sub_gop, refs = \
-        ENCODES[case]
-    yuv = _clip(clip, w, h, f)
+        ENCODES[case][:9]
+    bitdepth, chroma_format, low_delay = \
+        (ENCODES[case][9:] or (8, k.ChromaFormat.YUV420, False))
+    yuv = _clip(clip, w, h, f, bitdepth, chroma_format)
     kw = dict(qp=32, sub_gop_length=sub_gop, num_ref_pics=refs,
-              checksum_mode=1)
+              checksum_mode=1, bitdepth=bitdepth,
+              chroma_format=chroma_format, low_delay=low_delay)
     want = write_nal_units(jax_encode_stream(
         yuv, w, h, f, settings=_settings(JaxSettings, speed, prepass,
                                          restricted), **kw))
@@ -175,37 +211,116 @@ def test_session_equals_the_jax_package_s():
     assert ses.rec_pictures == jses.rec_pictures and \
         len(ses.rec_pictures) == f
     assert ses.total_sse == jses.total_sse
+    _assert_same_stats(stats, jstats)
+    pics = decode_stream(write_nal_units(got), device="cpu")
+    assert [p.bytes for p in pics] == ses.rec_pictures
+
+
+def _assert_same_stats(stats, jstats):
+    assert len(stats) == len(jstats)
     for a, b in zip(stats, jstats):
         assert (a.nal_unit_type, a.poc, a.doc, a.soc, a.tid, a.qp, a.sse,
                 a.l0, a.l1, a.bytes) == \
             (b.nal_unit_type, b.poc, b.doc, b.soc, b.tid, b.qp, b.sse,
              b.l0, b.l1, b.bytes)
         assert np.array_equal(a.psnr, b.psnr)
-    pics = decode_stream(write_nal_units(got), device="cpu")
-    assert [p.bytes for p in pics] == ses.rec_pictures
 
 
-REJECTED = {
-    "threads": dict(threads=2),
-    "tile_rows": dict(explicit_encoder_settings="tile_rows 2"),
-    "tpu_intra_lookahead": dict(
-        explicit_encoder_settings="tpu_intra_lookahead 1"),
-    "multihost_gop": dict(explicit_encoder_settings="multihost_gop 1"),
+# EncoderSession, which takes one picture at a time, for the chroma
+# formats encode_stream misreads (ROADMAP F4): (chroma format, frames,
+# sub_gop_length, num_ref_pics, low delay), 64x48 at speed 3
+SESSIONS = {
+    "yuv422_random_access": (k.ChromaFormat.YUV422, 5, 4, 2, 0),
+    "monochrome_low_delay": (k.ChromaFormat.MONOCHROME, 3, 1, 1, 1),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REJECTED))
+@pytest.mark.parametrize("case", sorted(SESSIONS))
+def test_session_chroma_formats_equal_the_jax_package_s(case):
+    chroma_format, f, sub_gop, refs, low_delay = SESSIONS[case]
+    w, h = 64, 48
+    yuv = _clip("txrd", w, h, f, 8, chroma_format)
+    params = dict(width=w, height=h, qp=32, speed_mode=3,
+                  chroma_format=chroma_format, low_delay=low_delay,
+                  num_ref_pics=refs, sub_gop_length=sub_gop,
+                  checksum_mode=1)
+    fs = len(yuv) // f
+    out = []
+    for ses in (japi.EncoderSession(japi.EncoderParameters(**params)),
+                api.EncoderSession(api.EncoderParameters(**params),
+                                   device="cpu")):
+        nals = []
+        for i in range(f):
+            nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+        nals += ses.flush()
+        out.append((nals, ses.nal_stats, ses.total_sse, ses.rec_pictures))
+    (jnals, jstats, jsse, jrec), (nals, stats, sse, rec) = out
+    assert nals == jnals
+    assert sse == jsse and rec == jrec and len(rec) == f
+    _assert_same_stats(stats, jstats)
+    pics = decode_stream(write_nal_units(nals), device="cpu")
+    assert [p.bytes for p in pics] == rec
+
+
+# Settings the JAX package codes with its Python CU encoder.  The port
+# refuses, when the session is set up, those that need a part of it that
+# is not ported (the ROADMAP queue 1 item that would lift each refusal),
+# and encodes the others byte for byte as the JAX package does.
+REJECTED = {
+    "threads": (dict(threads=2), "item 1"),
+    "tile_rows": (dict(explicit_encoder_settings="tile_rows 2"), "item 4"),
+    "multihost_gop": (dict(explicit_encoder_settings="multihost_gop 1"),
+                      "item 7"),
+    "python_path_num_ref_pics_1": (dict(
+        num_ref_pics=1, low_delay=1, sub_gop_length=1,
+        explicit_encoder_settings="tpu_intra_lookahead 1"), "item 3"),
+}
+ENCODED = {
+    "tpu_intra_lookahead": dict(
+        num_ref_pics=0, sub_gop_length=1, speed_mode=2, checksum_mode=1,
+        explicit_encoder_settings="tpu_intra_lookahead 1"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REJECTED) + sorted(ENCODED))
 def test_settings_that_need_the_python_cu_encoder_raise(name):
-    with pytest.raises(NotImplementedError):
-        api.EncoderSession(api.EncoderParameters(
-            width=64, height=48, **REJECTED[name]), device="cpu")
+    """A refused setting raises NotImplementedError naming its ROADMAP
+    item; an encoded one gives the JAX package's NALs (64x48, one
+    picture)."""
+    w, h = 64, 48
+    if name in REJECTED:
+        kw, item = REJECTED[name]
+        with pytest.raises(NotImplementedError, match=item):
+            api.EncoderSession(api.EncoderParameters(
+                width=w, height=h, **kw), device="cpu")
+        return
+    yuv = txrd_clip(w, h, 1)
+    kw = ENCODED[name]
+    want, _ = session_encode(japi.EncoderSession(japi.EncoderParameters(
+        width=w, height=h, **kw)), yuv, w, h, 1)
+    got, _ = session_encode(api.EncoderSession(api.EncoderParameters(
+        width=w, height=h, **kw), device="cpu"), yuv, w, h, 1)
+    assert got == want
 
 
 @pytest.mark.parametrize("switch", ["XVC_ME", "XVC_INTRA_PREPASS"])
 def test_jax_device_switches_raise(switch, monkeypatch):
+    """XVC_ME=jax (device motion estimation, the Python CU encoder's
+    inter half) is refused; under XVC_INTRA_PREPASS=jax both packages
+    code an all-intra clip with their Python CU encoders and the per-CU
+    device SATD pre-pass, to the same bytes."""
     monkeypatch.setenv(switch, "jax")
-    with pytest.raises(NotImplementedError):
-        Encoder(8, device="cpu")
+    if switch == "XVC_ME":
+        with pytest.raises(NotImplementedError, match="item 3"):
+            Encoder(8, device="cpu")
+        return
+    w, h, f = 32, 32, 2
+    yuv = txrd_clip(w, h, f)
+    kw = dict(qp=32, sub_gop_length=1, num_ref_pics=0, checksum_mode=1,
+              speed_mode=2)
+    want = write_nal_units(jax_encode_stream(yuv, w, h, f, **kw))
+    got = write_nal_units(encode_stream(yuv, w, h, f, device="cpu", **kw))
+    assert got == want
 
 
 def test_encoder_defaults_to_the_card():

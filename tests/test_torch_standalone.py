@@ -9,9 +9,10 @@ never jax and nothing of xvc_tpu.
   64x48 splice (its alternative picture rescaled into a frame-store slot)
   with its three tail pictures flagged as in the reference, and a speed-3
   encode (the split DP,
-  the transform-RD prepass and the native encoder) decodes back to the
-  encoder's reconstruction; a source scan finds no import of either in
-  the package or in chip_smoke.py.
+  the transform-RD prepass and the native encoder) and an all-intra
+  encode with tpu_intra_lookahead (the Python CU encoder) decode back to
+  the encoder's reconstruction; a source scan finds no import of either
+  in the package or in chip_smoke.py.
 - tests/data/bench/<stream>_dec.sha256 of the six bench streams, the
   references chip_smoke.py compares the card's pictures with, equal the
   JAX package's host decode of each stream (drained with the blocking
@@ -114,6 +115,19 @@ from xvc_tpu_torch.nal import write_nal_units
 pics = decode_stream(write_nal_units(nals), device="cpu")
 assert len(pics) == f and all(p.conforming for p in pics)
 assert [p.bytes for p in pics] == ses.rec_pictures
+# the Python CU encoder (all-intra, with the lookahead's mode ranking and
+# the picture's deblocking on the device), decoded back
+for mod in ("codec.cu_encoder", "codec.intra_search", "syntax.writer",
+            "cabac.entropy_encoder", "native.engines"):
+    assert "xvc_tpu_torch." + mod in names, mod
+ses = api.EncoderSession(api.EncoderParameters(
+    width=w, height=h, speed_mode=2, num_ref_pics=0, sub_gop_length=1,
+    checksum_mode=1, explicit_encoder_settings="tpu_intra_lookahead 1"),
+    device="cpu")
+nals = ses.encode(yuv[:fs]) + ses.flush()
+pics = decode_stream(write_nal_units(nals), device="cpu")
+assert len(pics) == 1 and pics[0].conforming
+assert pics[0].bytes == ses.rec_pictures[0]
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("STANDALONE-OK", len(names))

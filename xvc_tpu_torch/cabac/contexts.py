@@ -4,8 +4,10 @@ Behavioral equivalent of the reference context system
 (ref: src/xvc_common_lib/cabac.{h,cc}).  Contexts live in one flat uint8
 array; a "context" is an integer index into it, which maps directly onto
 the native C engine.  Copy of the layout and initialization half of
-``xvc_tpu/cabac/contexts.py``; context selection happens in the native
-parse.
+``xvc_tpu/cabac/contexts.py``, and of the context selection of the
+syntax elements the Python CU encoder's intra half counts
+(``syntax/writer.py``); the parse and the residual coder select their
+contexts natively.
 """
 import numpy as np
 
@@ -134,13 +136,20 @@ INIT_VALUES = {
     "transform_select_idx": [[_D] * 4] * 3,
 }
 
+# intra mode -> predictor-context map (ref: cabac.cc:446-461)
+_MODE_TO_CTX_EXT = np.array(
+    [1, 1] + [2] * 33 + [3] * 32, dtype=np.int32)
+_MODE_TO_CTX = np.array(
+    [1, 1] + [2] * 17 + [3] * 16, dtype=np.int32)
+
 # (qp, pic_type, alt_residual) -> initialized states; the workers of a
 # threaded decode may fill one key twice, with equal states, and copy out
 _RESET_CACHE = {}
 
 
 class CabacContexts:
-    """Flat context-state array, initialized per picture."""
+    """Flat context-state array, initialized per picture, and the
+    selection of the split and intra-mode contexts."""
 
     def __init__(self, restrictions):
         self.restr = restrictions
@@ -211,3 +220,48 @@ class CabacContexts:
         init("transform_select_flag", iv["transform_select_flag"][s])
         init("transform_select_idx", iv["transform_select_idx"][s])
         _RESET_CACHE[key] = st.copy()
+
+    # ---- context selection (returns integer index into self.state) ----
+
+    def get_split_binary_ctx(self, cu):
+        left, above = cu.get_cu_left(), cu.get_cu_above()
+        depth = (cu.depth << 1) + cu.binary_depth
+        offset = 0
+        if left is not None:
+            offset += 1 if ((left.depth << 1) + left.binary_depth) > depth \
+                else 0
+        if above is not None:
+            offset += 1 if ((above.depth << 1) + above.binary_depth) > depth \
+                else 0
+        return OFFSETS["cu_split_binary"] + offset
+
+    def get_split_flag_ctx(self, cu, pic_max_depth):
+        offset = 0
+        left, above = cu.get_cu_left(), cu.get_cu_above()
+        if not self.restr.disable_cabac_split_flag_ctx:
+            if left is not None:
+                offset += 1 if left.depth > cu.depth else 0
+            if above is not None:
+                offset += 1 if above.depth > cu.depth else 0
+        if not self.restr.disable_ext_cabac_alt_split_flag_ctx:
+            min_depth = pic_max_depth
+            max_depth = 0
+            for tmp in (left, above):
+                if tmp is not None:
+                    min_depth = min(min_depth, tmp.depth)
+                    max_depth = max(max_depth, tmp.depth)
+                else:
+                    min_depth = 0
+                    max_depth = pic_max_depth
+            min_depth = max(0, min_depth - 1)
+            max_depth = min(pic_max_depth, max_depth + 1)
+            if cu.depth < min_depth:
+                offset = 3
+            elif cu.depth >= max_depth + 1:
+                offset = 4
+        return OFFSETS["cu_split_quad_flag"] + offset
+
+    def get_intra_predictor_ctx(self, intra_mode):
+        if self.restr.disable_ext2_intra_67_modes:
+            return OFFSETS["intra_pred_luma"] + int(_MODE_TO_CTX[intra_mode])
+        return OFFSETS["intra_pred_luma"] + int(_MODE_TO_CTX_EXT[intra_mode])

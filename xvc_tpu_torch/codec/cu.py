@@ -4,18 +4,45 @@ Behavioral equivalent of the reference CU data model and picture data
 (ref: src/xvc_common_lib/coding_unit.{h,cc}, picture_data.{h,cc},
 reference_picture_lists.{h,cc}).  Copy of ``CodingUnit``,
 ``PictureData``, ``RefEntry`` and ``ReferencePictureLists`` of
-``xvc_tpu/codec/cu.py``, trimmed to what decoding reads: the flat path
-reconstructs from the native parse's record table alone; the replay path
-(``gpu/recon.py``) also rebuilds the CU tree (``native/pic.py``
-``_replay_tree``) for its host tail, whose neighbour queries go through
-the 4x4-granular CU table below (``PictureData::GetCuAt`` semantics,
-including the +1 padded stride that guards below/right lookups).  CU
-fields that only the parse or the encoder read (skip, merge, MVD,
-transform selection, coefficients, qp) are left out; tiles are not on
-the port's path.
+``xvc_tpu/codec/cu.py``, trimmed to what the port reads.  The flat
+decode path reconstructs from the native parse's record table alone; the
+replay path (``gpu/recon.py``) also rebuilds the CU tree (``native/pic.py``
+``_replay_tree``) for its host tail, and the Python CU encoder
+(``codec/cu_encoder.py``) builds and searches one.  Neighbour queries go
+through the 4x4-granular CU table below (``PictureData::GetCuAt``
+semantics, including the +1 padded stride that guards below/right
+lookups).  The CU fields of the encoder's intra half (skip and merge
+flags, transform selection, coefficients, qp) are set on the encoder's
+CUs only (``PictureData.init(..., encoder=True)``); the inter half's
+(MVD, MVP index, the inter neighbour walks) and tiles are not ported.
 """
+import numpy as np
+
 from .. import constants as k
 from ..ops.quant import Qp
+
+
+# Transform type maps for transform-select (ref: coding_unit.cc:360-385)
+_INTRA_TX_MAP = (
+    (k.TransformType.DST7, k.TransformType.DCT8),
+    (k.TransformType.DST7, k.TransformType.DST1),
+    (k.TransformType.DST7, k.TransformType.DCT5),
+)
+_INTER_TX_MAP = (k.TransformType.DCT8, k.TransformType.DST7)
+_INTRA_VER_MAP = (
+    2, 1, 0, 1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    2, 2, 2, 2, 2, 1, 0, 1, 0, 1, 0)
+_INTRA_HOR_MAP = (
+    2, 1, 0, 1, 0, 1, 0, 1, 2, 2, 2, 2, 2, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    0, 0, 0, 0, 0, 1, 0, 1, 0, 1, 0)
+_INTRA_EXT_VER_MAP = (
+    2, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 2, 2,
+    2, 2, 2, 2, 2, 2, 2, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0)
+_INTRA_EXT_HOR_MAP = (
+    2, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0)
 
 
 class CodingUnit:
@@ -24,7 +51,34 @@ class CodingUnit:
         "split", "sub_cus", "pred_mode", "intra_mode_luma",
         "intra_mode_chroma", "inter_dir", "use_affine", "use_lic", "mv",
         "ref_idx", "cbf",
+        # the encoder's
+        "qp", "skip_flag", "merge_flag", "root_cbf", "transform_skip",
+        "dc_only", "tx_type", "tx_select_idx", "coeff",
     )
+
+    def reset_prediction_state(self):
+        """The reference's prediction state of a fresh CU, in containers
+        of its own (the encoder mutates them)."""
+        self.intra_mode_luma = k.INTRA_MODE_INVALID
+        self.intra_mode_chroma = k.INTRA_MODE_INVALID
+        self.inter_dir = k.InterDir.L0
+        self.skip_flag = False
+        self.merge_flag = False
+        self.use_affine = False
+        self.use_lic = False
+        # mv[list][corner] = (x, y) in 1/16-pel
+        self.mv = [[(0, 0)] * 4, [(0, 0)] * 4]
+        self.ref_idx = [0, 0]
+        self.root_cbf = False
+        self.cbf = [False, False, False]
+        self.transform_skip = [False, False, False]
+        self.dc_only = [False, False, False]
+        # tx_type[plane][dir]; plane 0=luma 1=chroma
+        self.tx_type = [[k.TransformType.DEFAULT, k.TransformType.DEFAULT],
+                        [k.TransformType.DEFAULT, k.TransformType.DEFAULT]]
+        self.tx_select_idx = -1
+        # coeff[comp] = int32 ndarray (h, w), allocated lazily
+        self.coeff = [None, None, None]
 
     # ---- geometry ----
     def pos(self, comp):
@@ -38,6 +92,25 @@ class CodingUnit:
             return self.width, self.height
         return (self.width >> self.pic.chroma_shift_x,
                 self.height >> self.pic.chroma_shift_y)
+
+    @property
+    def binary_depth(self):
+        quad_size_log2 = (k.CTU_SIZE >> self.depth).bit_length() - 1
+        return ((quad_size_log2 - (self.width.bit_length() - 1)) +
+                (quad_size_log2 - (self.height.bit_length() - 1)))
+
+    def is_binary_split_valid(self):
+        max_split_depth = self.pic.max_binary_split_depth
+        max_split_size = self.pic.get_max_binary_split_size(self.cu_tree)
+        return (self.binary_depth < max_split_depth and
+                self.width <= max_split_size and
+                self.height <= max_split_size and
+                (self.width > k.MIN_BINARY_SPLIT_SIZE or
+                 self.height > k.MIN_BINARY_SPLIT_SIZE))
+
+    def is_fully_within_picture(self):
+        return (self.pos_x + self.width <= self.pic.width and
+                self.pos_y + self.height <= self.pic.height)
 
     def is_intra(self):
         return self.pred_mode == k.PredictionMode.INTRA
@@ -57,6 +130,47 @@ class CodingUnit:
             return None
         return self.pic.get_cu_at(self.cu_tree, self.pos_x,
                                   self.pos_y - k.MIN_BLOCK_SIZE)
+
+    def get_cu_above_if_same_ctu(self):
+        if (self.pos_y % k.CTU_SIZE) == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree, self.pos_x,
+                                  self.pos_y - k.MIN_BLOCK_SIZE)
+
+    def get_cu_above_left(self):
+        if self.pos_x == 0 or self.pos_y == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree,
+                                  self.pos_x - k.MIN_BLOCK_SIZE,
+                                  self.pos_y - k.MIN_BLOCK_SIZE)
+
+    def get_cu_above_corner(self):
+        if self.pos_y == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree,
+                                  self.pos_x + self.width - k.MIN_BLOCK_SIZE,
+                                  self.pos_y - k.MIN_BLOCK_SIZE)
+
+    def get_cu_above_right(self):
+        if self.pos_y == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree, self.pos_x + self.width,
+                                  self.pos_y - k.MIN_BLOCK_SIZE)
+
+    def get_cu_left_corner(self):
+        if self.pos_x == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree,
+                                  self.pos_x - k.MIN_BLOCK_SIZE,
+                                  self.pos_y + self.height -
+                                  k.MIN_BLOCK_SIZE)
+
+    def get_cu_left_below(self):
+        if self.pos_x == 0:
+            return None
+        return self.pic.get_cu_at(self.cu_tree,
+                                  self.pos_x - k.MIN_BLOCK_SIZE,
+                                  self.pos_y + self.height)
 
     def get_cu_size_above_right(self, comp):
         """(ref: coding_unit.cc:304-319)"""
@@ -85,6 +199,69 @@ class CodingUnit:
             i -= k.MIN_BLOCK_SIZE
         return 0
 
+    def get_predicted_qp(self):
+        tmp = self.get_cu_left()
+        if tmp is not None:
+            return tmp.qp.get_qp_raw(0)
+        tmp = self.get_cu_above()
+        if tmp is not None:
+            return tmp.qp.get_qp_raw(0)
+        return self.pic.pic_qp.get_qp_raw(0)
+
+    def derive_sibling_split_restriction(self, parent_split):
+        if self.pic.is_intra_pic():
+            return k.SplitRestriction.NONE
+        if (parent_split == k.SplitType.VERTICAL and
+                self.split == k.SplitType.HORIZONTAL):
+            if self.width >= k.MIN_CU_SIZE and self.binary_depth == 1:
+                return k.SplitRestriction.NO_HORIZONTAL
+            return k.SplitRestriction.NONE
+        if (parent_split == k.SplitType.HORIZONTAL and
+                self.split == k.SplitType.VERTICAL):
+            return k.SplitRestriction.NO_VERTICAL
+        return k.SplitRestriction.NONE
+
+    # ---- transform ----
+    def can_transform_skip(self, comp):
+        w, h = self.size(comp)
+        return w * h <= k.TRANSFORM_SKIP_MAX_AREA
+
+    def get_transform_type(self, comp, idx):
+        return self.tx_type[0 if comp == 0 else 1][idx]
+
+    def set_transform_from_select_idx(self, comp, select_idx, restrictions):
+        if comp != 0:
+            return
+        self.tx_select_idx = select_idx
+        if restrictions.disable_ext2_transform_select:
+            d = k.TransformType.DEFAULT
+            self.tx_type = [[d, d], [d, d]]
+        elif select_idx < 0:
+            d = k.TransformType.DCT2
+            self.tx_type = [[d, d], [d, d]]
+        else:
+            if self.is_intra():
+                mode = self.intra_mode_luma
+                if not restrictions.disable_ext2_intra_67_modes:
+                    t0 = _INTRA_TX_MAP[_INTRA_EXT_VER_MAP[mode]][
+                        select_idx >> 1]
+                    t1 = _INTRA_TX_MAP[_INTRA_EXT_HOR_MAP[mode]][
+                        select_idx & 1]
+                else:
+                    t0 = _INTRA_TX_MAP[_INTRA_VER_MAP[mode]][select_idx >> 1]
+                    t1 = _INTRA_TX_MAP[_INTRA_HOR_MAP[mode]][select_idx & 1]
+            else:
+                t0 = _INTER_TX_MAP[select_idx >> 1]
+                t1 = _INTER_TX_MAP[select_idx & 1]
+            self.tx_type[0] = [t0, t1]
+            self.tx_type[1] = [k.TransformType.DCT2, k.TransformType.DCT2]
+
+    def get_coeff(self, comp):
+        if self.coeff[comp] is None:
+            w, h = self.size(comp)
+            self.coeff[comp] = np.zeros((h, w), dtype=np.int32)
+        return self.coeff[comp]
+
     # ---- intra ----
     def get_intra_mode(self, comp):
         if comp == 0:
@@ -96,6 +273,54 @@ class CodingUnit:
                                          self.pos_x, self.pos_y)
             return luma_cu.intra_mode_luma
         return self.intra_mode_chroma
+
+    # ---- inter ----
+    def has_mv(self, ref_list):
+        return (self.inter_dir == k.InterDir.BI or
+                (ref_list == 0 and self.inter_dir == k.InterDir.L0) or
+                (ref_list == 1 and self.inter_dir == k.InterDir.L1))
+
+    def get_ref_poc(self, ref_list):
+        if not self.has_mv(ref_list):
+            return -1
+        return self.pic.ref_pic_lists.get_ref_poc(ref_list,
+                                                  self.ref_idx[ref_list])
+
+    # ---- split (the encoder's search) ----
+    def do_split(self, split_type):
+        self.split = split_type
+        sub_w, sub_h = self.width >> 1, self.height >> 1
+        p = self.pic
+        if split_type == k.SplitType.QUAD:
+            d = self.depth + 1
+            self.sub_cus = [
+                p.create_cu(self.cu_tree, d, self.pos_x, self.pos_y,
+                            sub_w, sub_h),
+                p.create_cu(self.cu_tree, d, self.pos_x + sub_w, self.pos_y,
+                            sub_w, sub_h),
+                p.create_cu(self.cu_tree, d, self.pos_x, self.pos_y + sub_h,
+                            sub_w, sub_h),
+                p.create_cu(self.cu_tree, d, self.pos_x + sub_w,
+                            self.pos_y + sub_h, sub_w, sub_h),
+            ]
+        elif split_type == k.SplitType.HORIZONTAL:
+            self.sub_cus = [
+                p.create_cu(self.cu_tree, self.depth, self.pos_x, self.pos_y,
+                            self.width, sub_h),
+                p.create_cu(self.cu_tree, self.depth, self.pos_x,
+                            self.pos_y + sub_h, self.width, sub_h),
+            ]
+        elif split_type == k.SplitType.VERTICAL:
+            self.sub_cus = [
+                p.create_cu(self.cu_tree, self.depth, self.pos_x, self.pos_y,
+                            sub_w, self.height),
+                p.create_cu(self.cu_tree, self.depth, self.pos_x + sub_w,
+                            self.pos_y, sub_w, self.height),
+            ]
+
+    def un_split(self):
+        self.sub_cus = []
+        self.split = k.SplitType.NONE
 
 
 class RefEntry:
@@ -200,10 +425,11 @@ class PictureData:
     """High-level state of one picture.  CU-level state lives in the
     native parse's record table (``_parse_records``) and, for a picture
     initialised with ``tree=True``, in the CU tree the replay rebuilds
-    from it.  The native encoder keeps its CU state in C++; the picture
-    encoder reads the header-level fields here (``init`` with
-    ``pic_qp``), and the encoded picture's motion field for the TMVP of
-    later pictures (``_xvcn_mvfield``, ``native/enc.py``)."""
+    from it or the Python CU encoder searches.  The native encoder keeps
+    its CU state in C++; the picture encoder reads the header-level
+    fields here (``init`` with ``pic_qp``), and the encoded picture's
+    motion field for the TMVP of later pictures (``_xvcn_mvfield``,
+    ``native/enc.py``)."""
 
     def __init__(self, chroma_format, width, height, bitdepth):
         self.chroma_format = chroma_format
@@ -242,19 +468,27 @@ class PictureData:
         self.qps = None
         self.pic_qp = None
         self.max_binary_split_depth = 0
+        self.restrictions = None
+        self.encoder = False
         self.ref_pic_lists = ReferencePictureLists()
         self.force_bipred_l1_mvd_zero = False
         self.tmvp_valid = False
         self.tmvp_ref_list = 0
         self.tmvp_ref_idx = 0
 
-    def init(self, segment, tree=False, pic_qp=None):
+    def init(self, segment, tree=False, pic_qp=None,
+             recalculate_lambda=False, encoder=False):
         """Derive the header-level fields of a new picture (CU trees,
         TMVP source, forced-zero L1 MVD); with ``tree`` also allocate the
         CTUs and the CU table of the CU tree the replay fills.  The
         encoder passes the picture's ``Qp`` (the light init of the JAX
-        package's native encode path)."""
+        package's native encode path); the Python CU encoder also passes
+        ``tree`` and ``encoder``, which gives every CU the encoder's
+        fields, and the qp table's lambdas follow ``recalculate_lambda``
+        (adaptive qp)."""
         r = segment.restrictions
+        self.restrictions = r
+        self.encoder = encoder
         self.pic_qp = pic_qp
         self.max_binary_split_depth = segment.max_binary_split_depth
         if (not r.disable_ext_two_cu_trees and self.is_intra_pic() and
@@ -279,7 +513,8 @@ class PictureData:
                     for x in range(self.ctu_num_x)]
         # the qp table is built on demand (the flat decode path only
         # touches a handful of raw qps)
-        self._qp_params = (segment.chroma_qp_offset_table,
+        self._qp_params = (recalculate_lambda,
+                           segment.chroma_qp_offset_table,
                            segment.chroma_qp_offset_u,
                            segment.chroma_qp_offset_v)
         self.qps = None
@@ -336,14 +571,32 @@ class PictureData:
                 else k.MAX_BINARY_SPLIT_SIZE_INTRA2)
 
     def _build_qps(self):
-        tab, off_u, off_v = self._qp_params
-        self.qps = [Qp(i, self.chroma_format, self.bitdepth, 0.0, tab,
-                       off_u, off_v)
-                    for i in range(k.MAX_ALLOWED_QP + 1)]
+        recalculate_lambda, tab, off_u, off_v = self._qp_params
+        pic_qp = self.pic_qp
+        self.qps = []
+        for i in range(k.MAX_ALLOWED_QP + 1):
+            # a decoded picture has no lambda
+            lambda_tmp = 0.0
+            if recalculate_lambda:
+                lambda_tmp = 0.57 * 2.0 ** ((i - 12) / 3.0)
+            elif pic_qp is not None:
+                lambda_tmp = pic_qp.get_lambda() * \
+                    2.0 ** ((i - pic_qp.get_qp_raw(0)) / 3.0)
+            self.qps.append(Qp(i, self.chroma_format, self.bitdepth,
+                               lambda_tmp, tab, off_u, off_v))
+
+    def get_qp_obj(self, raw_qp):
+        if self.qps is None:
+            self._build_qps()
+        return self.qps[min(max(raw_qp, 0), k.MAX_ALLOWED_QP)]
 
     # ---- the CU tree (pictures initialised with tree=True) ----
     def get_components(self, cu_tree):
         return self.cu_tree_components[int(cu_tree)]
+
+    def get_max_depth(self, cu_tree):
+        return (k.MAX_CU_DEPTH if cu_tree == k.CuTree.PRIMARY
+                else k.MAX_CU_DEPTH_CHROMA)
 
     def get_ctu(self, cu_tree, rsaddr):
         return self.ctus[int(cu_tree)][rsaddr]
@@ -372,6 +625,10 @@ class PictureData:
         cu.split = k.SplitType.NONE
         cu.sub_cus = []
         cu.pred_mode = k.PredictionMode.INTRA
+        if self.encoder:
+            cu.qp = self.pic_qp
+            cu.reset_prediction_state()
+            return cu
         cu.intra_mode_luma = k.INTRA_MODE_INVALID
         cu.intra_mode_chroma = k.INTRA_MODE_INVALID
         cu.inter_dir = k.InterDir.L0

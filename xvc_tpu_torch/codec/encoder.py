@@ -3,14 +3,16 @@
 Behavioral equivalent of the reference encoder session
 (ref: src/xvc_enc_lib/encoder.cc).  Copy of ``xvc_tpu/codec/encoder.py``
 on a torch device: ``Encoder(..., device=None)`` runs the encoder's
-device stages on the card unless ``device`` names another, and codes
-every picture with the native encoder.  Picture-level threads, the
-cross-host GOP pipeline and CTU tile rows are not ported (they need the
-JAX package's thread pool, its process mesh or its Python CU encoder)
-and raise ``NotImplementedError``, as do the settings and switches that
-route the JAX package's encode through its Python CU encoder
-(``tpu_intra_lookahead``, and the JAX package's switches ``XVC_ME=jax``
-and ``XVC_INTRA_PREPASS=jax``: the port has no switches of its own).
+device stages on the card unless ``device`` names another.  Each picture
+is coded by the native encoder or, where the JAX package takes its
+Python CU encoder (``native/enc.usable_for``: ``tpu_intra_lookahead``,
+``XVC_INTRA_PREPASS=jax``, ``XVC_ENC_NATIVE=0``), by the port's copy of
+its intra half.  What is not ported raises ``NotImplementedError`` when
+the session is set up, never mid-stream: picture-level threads (ROADMAP
+queue 1 item 1), the Python CU encoder's inter half, so device motion
+estimation (``XVC_ME=jax``) and Python-path sessions with reference
+pictures (item 3), CTU tile rows (item 4) and the cross-host GOP
+pipeline (item 7).
 """
 import os
 
@@ -48,12 +50,12 @@ class Encoder:
         if num_threads > 0:
             raise NotImplementedError(
                 "picture-level encode threads are not ported (one picture "
-                "at a time on one device)")
-        for name in ("XVC_ME", "XVC_INTRA_PREPASS"):
-            if os.environ.get(name, "").lower() == "jax":
-                raise NotImplementedError(
-                    "%s=jax asks for the JAX package's device stages of its "
-                    "Python CU encoder, which the port does not have" % name)
+                "at a time on one device; ROADMAP queue 1 item 1)")
+        if os.environ.get("XVC_ME", "").lower() == "jax":
+            raise NotImplementedError(
+                "XVC_ME=jax asks for the device motion estimation of the "
+                "Python CU encoder's inter half, which is not ported "
+                "(ROADMAP queue 1 item 3)")
         self.device = resolve_device(device)
         self.segment_header = seg.SegmentHeader()
         self.segment_header.codec_identifier = k.XVC_CODEC_IDENTIFIER
@@ -93,6 +95,16 @@ class Encoder:
 
     def set_num_ref_pics(self, num):
         self.segment_header.num_ref_pics = num
+        self._check_python_path()
+
+    def _check_python_path(self):
+        """The port's Python CU encoder codes intra pictures only."""
+        if self.segment_header.num_ref_pics > 0 and \
+                not native_enc.usable_for(self.settings):
+            raise NotImplementedError(
+                "this session takes the Python CU encoder (see "
+                "native/enc.usable_for), whose inter half is not ported: "
+                "it needs num_ref_pics 0 (ROADMAP queue 1 item 3)")
 
     def set_chroma_format(self, fmt):
         self.segment_header.chroma_format = fmt
@@ -132,10 +144,14 @@ class Encoder:
     def set_encoder_settings(self, settings):
         """(ref: encoder.cc:202-230)"""
         assert self.poc == 0
-        native_enc.usable_for(settings)
+        if settings.tile_rows >= 2:
+            raise NotImplementedError(
+                "tile_rows >= 2 (CTU tile rows) is not ported (ROADMAP "
+                "queue 1 item 4)")
         if settings.multihost_gop:
             raise NotImplementedError(
-                "multihost_gop (the cross-host GOP pipeline) is not ported")
+                "multihost_gop (the cross-host GOP pipeline) is not ported "
+                "(ROADMAP queue 1 item 7)")
         self.settings = settings
         sh = self.segment_header
         sh.num_ref_pics = settings.default_num_ref_pics
@@ -166,6 +182,7 @@ class Encoder:
             if not hasattr(restr, name):
                 raise ValueError("unknown restriction flag: %r" % (name,))
             setattr(restr, name, True)
+        self._check_python_path()
 
     # ---- encoding ----
     def encode(self, pic_bytes, user_data=0):

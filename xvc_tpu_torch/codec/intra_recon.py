@@ -1,9 +1,9 @@
-"""Intra block prediction of the replay path's host tail.
+"""Intra block prediction of the Python CU encoder's RD search and of
+the replay path's host tail.
 
 Behavioral equivalent of the reference intra predictor's Predict /
 FillReferenceState (ref: src/xvc_common_lib/intra_prediction.cc).  Copy
-of ``IntraReconstructor`` of ``xvc_tpu/codec/intra_recon.py`` without
-the encoder's reference-sample scope; tiles are not on the port's path,
+of ``xvc_tpu/codec/intra_recon.py``; tiles are not on the port's path,
 so the picture top is the only virtual top.
 """
 import numpy as np
@@ -21,32 +21,69 @@ class IntraReconstructor:
         self.restr = restrictions
         self._lm_cache_key = None
         self._lm_cache = None
+        self._ref_scope = None   # {comp: (top, left, ftop, fleft)}
+        self._ref_scope_cu = None
+
+    def begin_ref_scope(self, cu):
+        """Cache reference samples per component while the encoder's
+        mode loops evaluate one CU (the reference computes the ref
+        state once per CU: FillReferenceState, then Predict per mode —
+        ref: intra_prediction.h:46-53).  Only valid while no OTHER CU's
+        reconstruction changes; the caller scopes it around one CU's
+        mode search."""
+        self._ref_scope = {}
+        self._ref_scope_cu = cu
+
+    def end_ref_scope(self):
+        self._ref_scope = None
+        self._ref_scope_cu = None
 
     def _refs(self, cu, comp, rec_pic):
+        scope = self._ref_scope if self._ref_scope_cu is cu else None
+        if scope is not None and comp in scope:
+            return scope[comp]
         cx, cy = cu.pos(comp)
         width, height = cu.size(comp)
+        plane = rec_pic.plane_view(comp)
         has_left = cx > 0
         has_above = cy > 0
         size_below_left = cu.get_cu_size_below_left(comp) if has_left else 0
         size_above_right = cu.get_cu_size_above_right(comp) if has_above \
             else 0
-        return ip.compute_ref_samples(
-            width, height, rec_pic.plane_view(comp), cx, cy, has_left,
-            has_above, has_left and has_above, size_below_left,
-            size_above_right, self.bitdepth, self.restr)
+        top, left = ip.compute_ref_samples(
+            width, height, plane, cx, cy, has_left, has_above,
+            has_left and has_above, size_below_left, size_above_right,
+            self.bitdepth, self.restr)
+        entry = [top, left, None, None]
+        if scope is not None:
+            scope[comp] = entry
+        return entry
+
+    def get_ref_samples(self, cu, comp, rec_pic):
+        """(top, left) reference samples for this CU (scope-cached)."""
+        entry = self._refs(cu, comp, rec_pic)
+        return entry[0], entry[1]
 
     def predict_intra_mode(self, cu, comp, mode, rec_pic):
         restr = self.restr
         if mode == k.INTRA_MODE_LM_CHROMA:
             return self._pred_lm_chroma(cu, comp, rec_pic)
         width, height = cu.size(comp)
-        top, left = self._refs(cu, comp, rec_pic)
+        entry = self._refs(cu, comp, rec_pic)
+        top, left = entry[0], entry[1]
         if restr.disable_intra_planar and mode == 0:
             mode = 1
-        ftop, fleft = top, left
-        if comp == 0 and ip.use_filtered_ref_samples(cu.width, cu.height,
-                                                     mode, restr):
-            ftop, fleft = ip.filter_ref_samples(width, height, top, left)
+        use_filt = False
+        if comp == 0:
+            use_filt = ip.use_filtered_ref_samples(cu.width, cu.height,
+                                                   mode, restr)
+        if use_filt:
+            if entry[2] is None:
+                entry[2], entry[3] = ip.filter_ref_samples(width, height,
+                                                           top, left)
+            ftop, fleft = entry[2], entry[3]
+        else:
+            ftop, fleft = top, left
         post_filter = comp == 0 and width <= 16 and height <= 16
         if mode == 0:
             return ip.pred_planar(width, height, ftop, fleft)

@@ -1,13 +1,18 @@
-"""Per-picture encoding: QP/lambda derivation, device stages, the native
-CTU search, checksum, PSNR.
+"""Per-picture encoding: QP/lambda derivation, device stages, the CTU
+search, deblocking, checksum, PSNR.
 
 Behavioral equivalent of the reference picture encoder
 (ref: src/xvc_enc_lib/picture_encoder.cc).  Copy of
-``xvc_tpu/codec/picture_encoder.py`` with its native branch only: the
-device stages (the transform-RD prepass, ``gpu/txrd_prepass.py``, and
-the split DP, ``gpu/lookahead.py`` + ``gpu/wavefront_rdo.py``) run on the
-encoder's torch device and hand their maps to the native encoder
-(``native/enc.py``), which codes the whole picture.
+``xvc_tpu/codec/picture_encoder.py`` without tiles: the device stages
+(the transform-RD prepass, ``gpu/txrd_prepass.py``, and the split DP,
+``gpu/lookahead.py`` + ``gpu/wavefront_rdo.py``) run on the encoder's
+torch device.  The picture is then coded by the native encoder
+(``native/enc.py``), which takes their maps, or, where the JAX package
+takes its Python CU encoder (``native/enc.usable_for``), by the port's
+(``cu_encoder.py``): with the whole-picture intra lookahead
+(``tpu_intra_lookahead``, ``gpu/lookahead.py``) and the per-CU SATD
+pre-pass on the device, and the picture's deblocking on the device
+(``gpu/deblock.py``, built from the CU tree).
 """
 import math
 
@@ -16,31 +21,19 @@ import numpy as np
 from .. import constants as k
 from .. import segment as seg
 from ..bitio import BitWriter
+from ..gpu import dsp
+from ..gpu.deblock import deblock_picture
+from ..gpu.flat_recon import _intra_restrictions_default
+from ..native import enc as native_enc
 from ..ops import metrics as met
+from ..ops.deblock import DeblockingFilter
 from ..ops.quant import Qp
-from ..profiling import span
-from ..restrictions import Restrictions
+from ..profiling import add_span_time, span
+from ..syntax.writer import SyntaxWriter
 from . import checksum as cksum
 from .cu import PictureData
+from .cu_encoder import CuEncoder
 from .yuv import YuvPicture
-
-# the default intra toolset: the batched device predictor
-# (gpu/intra_batch.py) implements it alone (xvc_tpu/codec/intra_search.py
-# _intra_restrictions_default)
-_DEFAULT_INTRA_FLAGS = (
-    "disable_intra_ref_padding", "disable_intra_ref_sample_filter",
-    "disable_intra_dc_post_filter", "disable_intra_ver_hor_post_filter",
-    "disable_intra_planar", "disable_ext2_intra_67_modes",
-    "disable_ext2_intra_6_predictors",
-    "disable_ext_intra_unrestricted_predictor")
-
-
-_DEFAULT_RESTR = Restrictions()
-
-
-def _intra_restrictions_default(restr):
-    return all(getattr(restr, f, None) == getattr(_DEFAULT_RESTR, f, None)
-               for f in _DEFAULT_INTRA_FLAGS)
 
 
 class PictureEncoder:
@@ -117,7 +110,13 @@ class PictureEncoder:
         base_qp = Qp(scaled_qp, pd.chroma_format, pd.bitdepth, pic_lambda,
                      settings.chroma_qp_offset_table,
                      settings.chroma_qp_offset_u, settings.chroma_qp_offset_v)
-        pd.init(segment, pic_qp=base_qp)
+        use_native = native_enc.usable_for(settings)
+        if use_native:
+            pd.init(segment, pic_qp=base_qp)
+        else:
+            pd.init(segment, tree=True, pic_qp=base_qp,
+                    recalculate_lambda=settings.adaptive_qp > 0,
+                    encoder=True)
         allow_lic = self._determine_allow_lic(pd, segment.restrictions)
         pd.lic_active = allow_lic
 
@@ -140,25 +139,12 @@ class PictureEncoder:
             # top-down recursion
             with span("encode.split_dp"):
                 split_dp = self._compute_split_dp(pd, segment, base_qp)
-        # Whole-picture CTU RDO + entropy write in one native call
-        # (native/csrc/xvcn_enc.inc).
-        split_buf = None
-        if split_dp is not None:
-            from ..gpu.wavefront_rdo import pack_force_maps
-            split_buf = pack_force_maps(split_dp, pd.width, pd.height)
-        cand_buf = None
-        if txrd_cands is not None:
-            from ..gpu.txrd_prepass import pack_intra_cands
-            cand_k = next(iter(txrd_cands.values())).shape[2]
-            cand_buf = pack_intra_cands(txrd_cands, pd.width,
-                                        pd.height, cand_k)
-        from ..native import enc as native_enc
-        with span("encode.native"):
-            payload = native_enc.encode_picture(
-                self, segment, settings, base_qp,
-                split_force=split_buf, intra_cands=cand_buf,
-                intra_cands_k=(cand_k if cand_buf is not None else 0))
-        bit_writer.write_bytes(payload)
+        if use_native:
+            self._encode_native(segment, settings, base_qp, bit_writer,
+                                split_dp, txrd_cands)
+        else:
+            self._encode_python(segment, settings, base_qp, bit_writer,
+                                split_dp, txrd_cands)
 
         if pd.tid == 0 or not pd.highest_layer:
             self.rec_pic.pad_border()
@@ -169,6 +155,78 @@ class PictureEncoder:
             self.pic_hash = b""
         self._calculate_stats(base_qp)
         return bit_writer.get_bytes()
+
+    def _encode_native(self, segment, settings, base_qp, bit_writer,
+                       split_dp, txrd_cands):
+        """Whole-picture CTU RDO + entropy write + deblocking in one
+        native call (native/csrc/xvcn_enc.inc)."""
+        pd = self.pic_data
+        split_buf = None
+        if split_dp is not None:
+            from ..gpu.wavefront_rdo import pack_force_maps
+            split_buf = pack_force_maps(split_dp, pd.width, pd.height)
+        cand_buf = None
+        if txrd_cands is not None:
+            from ..gpu.txrd_prepass import pack_intra_cands
+            cand_k = next(iter(txrd_cands.values())).shape[2]
+            cand_buf = pack_intra_cands(txrd_cands, pd.width,
+                                        pd.height, cand_k)
+        with span("encode.native"):
+            payload = native_enc.encode_picture(
+                self, segment, settings, base_qp,
+                split_force=split_buf, intra_cands=cand_buf,
+                intra_cands_k=(cand_k if cand_buf is not None else 0))
+        bit_writer.write_bytes(payload)
+
+    def _encode_python(self, segment, settings, base_qp, bit_writer,
+                       split_dp, txrd_cands):
+        """The Python CU encoder's CTU loop into ``bit_writer``, then the
+        picture's deblocking on the device."""
+        pd = self.pic_data
+        cu_encoder = CuEncoder(self.orig_pic, self.rec_pic, pd, settings,
+                               self.device)
+        cu_encoder.split_dp = split_dp
+        cu_encoder.intra_search.txrd_cands = txrd_cands
+        if settings.tpu_intra_lookahead:
+            from ..gpu.lookahead import frame_intra_lookahead
+            stats = {}
+            with span("encode.intra_lookahead"):
+                cu_encoder.intra_search.lookahead = frame_intra_lookahead(
+                    self.orig_pic.plane_view(0), pd.bitdepth,
+                    segment.restrictions, device=self.device, stats=stats)
+            for st in stats.values():  # one device step a block size
+                add_span_time("encode.intra_lookahead.extract",
+                              st["extract_s"])
+                add_span_time("encode.intra_lookahead.device",
+                              st["device_s"])
+        with span("encode.python"):
+            writer = SyntaxWriter(base_qp, pd.get_prediction_type(),
+                                  bit_writer, segment.restrictions)
+            for rsaddr in range(pd.get_number_of_ctus()):
+                cu_encoder.encode_ctu(rsaddr, writer)
+            writer.finish()
+        if pd.deblock:
+            with span("encode.deblock"):
+                self._deblock_on_device(segment)
+
+    def _deblock_on_device(self, segment):
+        """Deblock the reconstruction on the device: the visible planes
+        go up (one upload), the edges are derived from the CU tree and
+        filtered there, and the planes come back (one download)."""
+        pd, rec = self.pic_data, self.rec_pic
+        comps = range(pd.max_num_components)
+        batch = dsp.DevBatch()
+        handles = [batch.add(rec.plane_view(c).astype(np.int16))
+                   for c in comps]
+        batch.upload(self.device)
+        planes = {c: batch.get(h) for c, h in zip(comps, handles)}
+        filt = DeblockingFilter(pd, rec, pd.beta_offset, pd.tc_offset,
+                                segment.restrictions)
+        deblock_picture(filt, planes, self.device)
+        flat, offs = dsp.gather_flat([planes[c] for c in comps])
+        for c, (off, shape) in zip(comps, offs):
+            rec.plane_view(c)[:] = \
+                flat[off:off + int(np.prod(shape))].reshape(shape)
 
     def _compute_txrd_prepass(self, pd, segment, base_qp, settings):
         """Device transform-RD intra candidate maps (or None when the

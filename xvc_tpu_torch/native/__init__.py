@@ -8,14 +8,18 @@ tail (``xvcn_intra_*``, ``xvcn_mc_unipred``).  It also holds the
 encoder's CTU rate-distortion search and entropy write of a whole
 picture (``xvcn_encode_picture_intra``, ``csrc/xvcn_enc.inc`` and
 ``csrc/xvcn_enc_inter.inc``; ``native/enc.py``), which consumes the
-device stages' force maps and intra candidates.  It is compiled with g++
+device stages' force maps and intra candidates, and the block-level
+helpers of the Python CU encoder (``native/engines.py``: the CABAC
+writer, residual coding and counting, RDO quantization; the metric,
+forward transform, fused reconstruction and intra SATD prepass its
+search calls).  It is compiled with g++
 the first time it is needed, into ``build/xvc_tpu_torch/`` at the root
 of the checkout (never next to the sources), and cached there under a
 hash of the sources.
 
 ``csrc/`` is a copy of ``xvc_tpu/native/xvcn.cpp``, ``xvcn_pic.inc``,
 ``xvcn_enc.inc`` and ``xvcn_enc_inter.inc``.  A build failure raises:
-there is no Python parse or CU encoder to fall back to.
+there is no Python parse or pure-Python block coder to fall back to.
 """
 import ctypes
 import hashlib
@@ -44,6 +48,41 @@ FAMILY_ORDER = [
     "coeff_last_pos_x_luma", "coeff_last_pos_x_chroma",
     "coeff_last_pos_y_luma", "coeff_last_pos_y_chroma",
 ]
+
+
+# Restriction-flag bit order of the residual coder; must match enum
+# RestrBit in xvcn.cpp.
+RESTR_FLAG_ORDER = [
+    "disable_ext2_cabac_alt_residual_ctx",
+    "disable_cabac_coeff_sig_ctx",
+    "disable_cabac_coeff_greater1_ctx",
+    "disable_cabac_coeff_greater2_ctx",
+    "disable_cabac_coeff_last_pos_ctx",
+    "disable_cabac_subblock_csbf_ctx",
+    "disable_ext_cabac_alt_last_pos_ctx",
+    "disable_transform_cbf",
+    "disable_transform_subblock_csbf",
+    "disable_transform_last_position",
+    "disable_transform_residual_greater_than_flags",
+    "disable_transform_residual_greater2",
+    "disable_transform_sign_hiding",
+    "disable_transform_adaptive_exp_golomb",
+]
+
+
+def restr_bits(restr) -> int:
+    """The residual coder's restriction mask (cached on ``restr``)."""
+    bits = getattr(restr, "_xvcn_mask", None)
+    if bits is None:
+        bits = 0
+        for i, name in enumerate(RESTR_FLAG_ORDER):
+            if getattr(restr, name):
+                bits |= 1 << i
+        try:
+            restr._xvcn_mask = bits
+        except AttributeError:
+            pass
+    return bits
 
 
 def family_offsets() -> np.ndarray:
@@ -79,6 +118,63 @@ def build() -> str:
                            % res.stderr[-2000:])
     os.replace(tmp, so_path)
     return so_path
+
+
+def _bind_block_coder(handle):
+    """The exports the Python CU encoder calls (native/engines.py and
+    its search)."""
+    c = ctypes
+    p = c.c_void_p
+    handle.xvcn_enc_create.restype = c.c_void_p
+    handle.xvcn_enc_create.argtypes = [c.c_int, c.c_int, c.c_int64]
+    handle.xvcn_enc_destroy.argtypes = [p]
+    handle.xvcn_enc_get_frac_bits.restype = c.c_uint64
+    handle.xvcn_enc_get_frac_bits.argtypes = [p]
+    handle.xvcn_enc_set_frac_bits.argtypes = [p, c.c_uint64]
+    handle.xvcn_enc_get_out_len.restype = c.c_int64
+    handle.xvcn_enc_get_out_len.argtypes = [p]
+    handle.xvcn_enc_copy_out.argtypes = [p, p]
+    handle.xvcn_enc_encode_bin.argtypes = [p, p, c.c_int, c.c_int]
+    handle.xvcn_enc_encode_bypass.argtypes = [p, c.c_int]
+    handle.xvcn_enc_encode_bypass_bins.argtypes = [p, c.c_uint32, c.c_int]
+    handle.xvcn_enc_encode_bin_trm.argtypes = [p, c.c_int]
+    handle.xvcn_enc_finish.argtypes = [p]
+    handle.xvcn_write_coefficients.restype = c.c_int
+    handle.xvcn_write_coefficients.argtypes = [
+        p, p, p, c.c_uint64, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        p, c.c_int]
+    handle.xvcn_quant_rdo.restype = c.c_int
+    handle.xvcn_quant_rdo.argtypes = [
+        p, p, c.c_uint64, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.c_int, c.c_int, c.c_int, c.c_int64, c.c_int64, c.c_int,
+        c.c_int64, p, p, c.c_int]
+    handle.xvcn_metric.restype = c.c_int64
+    handle.xvcn_metric.argtypes = [
+        c.c_int, p, c.c_int64, p, c.c_int64, c.c_int, c.c_int, c.c_int,
+        c.c_int, c.c_double]
+    handle.xvcn_fwd_transform.argtypes = [
+        p, c.c_int, c.c_int, p, p, c.c_int, c.c_int, c.c_int, p]
+    handle.xvcn_intra_prepass_satd.argtypes = [
+        p, p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.c_int, c.c_int, p, c.c_int64, c.c_int, c.c_int, p]
+    handle.xvcn_recon_dist.restype = c.c_int64
+    handle.xvcn_recon_dist.argtypes = [
+        p, c.c_int, c.c_int,               # levels, h, w
+        c.c_int, c.c_int, c.c_int,         # dq scale/shift, kind
+        p, p,                              # m1, m2
+        c.c_int, c.c_int, c.c_int,         # shift1/2, zo
+        c.c_int, c.c_int, c.c_int,         # skip sh/sc, dc sh
+        p, c.c_int64,                      # pred, stride
+        p, c.c_int64,                      # orig, stride
+        p, c.c_int64,                      # rec, stride
+        p, c.c_int, c.c_int, c.c_int,      # resi, bd, metric, qp
+        c.c_double]
+    for name in ("xvcn_enc_destroy", "xvcn_enc_set_frac_bits",
+                 "xvcn_enc_copy_out", "xvcn_enc_encode_bin",
+                 "xvcn_enc_encode_bypass", "xvcn_enc_encode_bypass_bins",
+                 "xvcn_enc_encode_bin_trm", "xvcn_enc_finish",
+                 "xvcn_fwd_transform", "xvcn_intra_prepass_satd"):
+        getattr(handle, name).restype = None
 
 
 _lock = threading.Lock()
@@ -119,6 +215,7 @@ def lib():
             # the encoder (native/enc.py)
             handle.xvcn_encode_picture_intra.restype = c.c_int
             handle.xvcn_encode_picture_intra.argtypes = [c.c_void_p]
+            _bind_block_coder(handle)
             for name in ("xvcn_intra_filter_ref", "xvcn_intra_pred_dc",
                          "xvcn_intra_pred_planar", "xvcn_intra_pred_angular",
                          "xvcn_mc_unipred"):

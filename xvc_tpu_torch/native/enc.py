@@ -10,12 +10,12 @@ the native parse.  The device stages hand it their results as two packed
 int8 buffers: the split DP's force maps (``gpu/wavefront_rdo.py``) and
 the transform-RD prepass's intra candidates (``gpu/txrd_prepass.py``).
 
-Copy of ``xvc_tpu/native/enc.py``.  The JAX package keeps a Python CU
-encoder beside this one and routes some settings to it; the port has
-none, so ``usable_for`` raises for those settings instead (the encoder
-calls it when it takes its settings).
+Copy of ``xvc_tpu/native/enc.py``.  ``usable_for`` is the JAX package's
+routing rule: the sessions it keeps off the native encoder are coded by
+the Python CU encoder (``codec/cu_encoder.py``).
 """
 import ctypes as c
+import os
 
 import numpy as np
 
@@ -112,18 +112,19 @@ class XvcnEncPicParams(c.Structure):
 
 
 def usable_for(settings):
-    """Raise ``NotImplementedError`` for settings the native encoder does
-    not cover (the JAX package's Python CU encoder takes them there): the
-    device lookahead's mode-candidate reordering (``tpu_intra_lookahead``)
-    and CTU tile rows."""
-    if settings.tpu_intra_lookahead:
-        raise NotImplementedError(
-            "tpu_intra_lookahead reorders the Python CU encoder's mode "
-            "candidates; the port has only the native encoder")
-    if settings.tile_rows >= 2:
-        raise NotImplementedError(
-            "tile_rows >= 2 is coded by the Python CU encoder; the port "
-            "has only the native encoder")
+    """Whether the native encoder codes a session's pictures, as in the
+    JAX package (``xvc_tpu/native/enc.py`` ``usable_for``).  The Python CU
+    encoder takes the device lookahead's mode-candidate reordering
+    (``tpu_intra_lookahead``), the per-CU device SATD pre-pass
+    (``XVC_INTRA_PREPASS=jax``, the JAX package's switch under its own
+    name) and ``XVC_ENC_NATIVE=0``.  CTU tile rows and device motion
+    estimation (``XVC_ME=jax``), which the JAX package also routes there,
+    are refused by the encoder (``codec/encoder.py``)."""
+    if os.environ.get("XVC_ENC_NATIVE", "1") == "0":
+        return False
+    if os.environ.get("XVC_INTRA_PREPASS", "").lower() == "jax":
+        return False
+    return not settings.tpu_intra_lookahead
 
 
 def _surface_base(pic, comp):

@@ -9,10 +9,13 @@ Copy of the tables and the per-CU attribute records of
 ``xvc_tpu/ops/deblock.py``.  The filter itself runs on the device
 (``gpu/deblock.py``), the edge decisions and the per-4x4 CU map
 included; ``DeblockingFilter`` only carries the picture, the offsets and
-the restrictions to it and builds the attribute table from the parse
-records.
+the restrictions to it and builds the attribute table: from the parse
+records of a decoded picture, or from the CU tree of a picture the
+Python CU encoder coded.
 """
 import numpy as np
+
+from .. import constants as k
 
 
 TC_TABLE = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1,
@@ -45,9 +48,13 @@ class DeblockingFilter:
         vectorized from the native parse's flat CU records
         (native/pic.py parse_picture), and the number of leaves.  A tree
         without leaves gives one row of zeros and 0.  The per-4x4 CU map
-        is painted from columns 0-3 on the device (gpu/deblock.py)."""
+        is painted from columns 0-3 on the device (gpu/deblock.py).  A
+        picture without parse records (one the Python CU encoder coded)
+        gives the same rows from its CU tree's leaves."""
         pic = self.pic
-        rec = pic._parse_records
+        rec = getattr(pic, "_parse_records", None)
+        if rec is None:
+            return self._attrs_from_tree(cu_tree)
         leaf = (rec[:, 6] == 0) & (rec[:, 0] == int(cu_tree))
         lr = rec[leaf]
         n = lr.shape[0]
@@ -76,3 +83,33 @@ class DeblockingFilter:
         attrs[:, 10] = np.where(is_intra, 0, lr[:, 35])
         attrs[:, 11:27] = lr[:, 41:57]
         return attrs, n
+
+    def _attrs_from_tree(self, cu_tree):
+        """``build_cu_attrs`` of a picture's CU tree, leaf by leaf in
+        coding order (ref: xvc_tpu/ops/deblock.py _build_cu_maps)."""
+        rows = []
+
+        def visit(cu):
+            if cu is None:
+                return
+            if cu.split != k.SplitType.NONE:
+                for sub in cu.sub_cus:
+                    visit(sub)
+                return
+            intra = cu.is_intra()
+            row = [cu.pos_x, cu.pos_y, cu.width, cu.height,
+                   1 if intra else 0, 1 if cu.cbf[0] else 0,
+                   cu.qp.get_qp_raw(0), cu.qp.get_qp_raw(1),
+                   0 if intra else cu.get_ref_poc(0),
+                   0 if intra else cu.get_ref_poc(1),
+                   0 if intra else cu.ref_idx[0]]
+            for lst in (0, 1):
+                for mv in cu.mv[lst]:
+                    row += [int(mv[0]), int(mv[1])]
+            rows.append(row)
+
+        for ctu in self.pic.ctus[int(cu_tree)]:
+            visit(ctu)
+        if not rows:
+            return np.zeros((1, 27), np.int32), 0
+        return np.array(rows, np.int32), len(rows)

@@ -35,7 +35,14 @@ kernel) and ``.download``;
 on the device), ``encode.native`` (the native CTU search and write) and,
 from the native encoder's own timers, ``encode.native.me``,
 ``encode.native.intra_search``, ``encode.native.txrd`` (nested in the two
-searches), ``encode.native.write`` and ``encode.native.deblock``.
+searches), ``encode.native.write`` and ``encode.native.deblock``; or,
+where the Python CU encoder codes the picture, ``encode.intra_lookahead``
+(``tpu_intra_lookahead``'s maps, with ``.extract``, the host's block and
+reference extraction, and ``.device``, upload, step and download, once a
+block size), ``encode.python`` (its CTU search and write, in which
+``encode.intra_prepass`` is one per-CU device pre-pass call: upload,
+prediction, SATD, download) and ``encode.deblock`` (the picture's
+deblocking on the device, with its ``deblock.*`` spans).
 
 Run as a script it decodes a stream on the card and prints the table:
 

@@ -1,0 +1,76 @@
+"""Coefficient scan order tables and derivation.
+
+(ref: src/xvc_common_lib/transform.cc:47-76 scan tables,
+ transform.cc:1614-1680 scan-order derivation and subblock scan.)
+Copy of ``xvc_tpu/scan.py`` without the tables of its Python residual
+coder (the port codes residuals natively): the Python CU encoder's
+quantizer and residual writer read it (``codec/rdo_quant.py``,
+``syntax/writer.py``).
+"""
+from functools import lru_cache
+
+from . import constants as k
+
+# 4x4 coefficient scan table per ScanOrder (diag, hor, ver)
+SCAN_COEFF_4X4 = (
+    (0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10, 7, 14, 11, 15),
+    (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15),
+    (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15),
+)
+
+
+@lru_cache(maxsize=None)
+def derive_subblock_scan(scan_order, width, height):
+    """Subblock scan table: scan index -> raster subblock index."""
+    n = width * height
+    table = [0] * n
+    pos_x = pos_y = 0
+    if scan_order == k.ScanOrder.DIAGONAL:
+        for i in range(n):
+            table[i] = pos_y * width + pos_x
+            if pos_x == width - 1 or pos_y == 0:
+                pos_y += pos_x + 1
+                pos_x = 0
+                if pos_y >= height:
+                    pos_x += pos_y - (height - 1)
+                    pos_y = height - 1
+            else:
+                pos_x += 1
+                pos_y -= 1
+    elif scan_order == k.ScanOrder.HORIZONTAL:
+        for i in range(n):
+            table[i] = pos_y * width + pos_x
+            if pos_x == width - 1:
+                pos_x = 0
+                pos_y += 1
+            else:
+                pos_x += 1
+    else:  # vertical
+        for i in range(n):
+            table[i] = pos_y * width + pos_x
+            if pos_y == height - 1:
+                pos_x += 1
+                pos_y = 0
+            else:
+                pos_y += 1
+    return tuple(table)
+
+
+def determine_scan_order(cu, comp_is_luma, intra_mode, restrictions):
+    """(ref: transform.cc:1614-1637)"""
+    size_threshold = 16
+    angle_threshold = 10 if not restrictions.disable_ext2_intra_67_modes else 5
+    if (cu.pred_mode != k.PredictionMode.INTRA or
+            restrictions.disable_transform_adaptive_scan_order):
+        return k.ScanOrder.DIAGONAL
+    if cu.width >= size_threshold or cu.height >= size_threshold:
+        return k.ScanOrder.DIAGONAL
+    if restrictions.disable_ext2_intra_67_modes:
+        vertical_mode, horizontal_mode = 26, 10
+    else:
+        vertical_mode, horizontal_mode = 50, 18
+    if abs(intra_mode - vertical_mode) < angle_threshold:
+        return k.ScanOrder.HORIZONTAL
+    if abs(intra_mode - horizontal_mode) < angle_threshold:
+        return k.ScanOrder.VERTICAL
+    return k.ScanOrder.DIAGONAL
