@@ -13,8 +13,16 @@ Phases:
   2  kernels: MC and ITX (the group kernels, and the picture kernels
      that derive every job of a picture from its record table), the
      deblock edge decisions, luma walk and chroma
-     pass, SATD (also at the per-CU pre-pass's shape, one CU's 67
-     predictions) and the intra luma and chroma scans on the card against
+     pass, SATD (also at the shape the per-CU pre-pass gave it before
+     intra_satd, one CU's 67 predictions), the all-mode intra SATD
+     (intra_satd: every mode predicted on chip and its SATD summed; B = 1
+     at the per-CU sizes, B = 77 at every size with mode steps 1, 4 and
+     8 at 8-14 bit, the real blocks of picture 0 of hd720_ld at the
+     lookahead's and the split DP's shapes, each timed beside its plain
+     version, its bound and the parent's path on the same inputs: the
+     batched predictor and satd.cu; and the whole per-CU call, host ms
+     and device operations, beside the parent's call) and the intra luma
+     and chroma scans on the card against
      their plain PyTorch versions on the same inputs (numpy seed,
      main-path shapes; for the scans and the deblock kernels also the
      real inputs of pictures of hd720_ld, captured during a decode),
@@ -28,7 +36,9 @@ Phases:
      the time per step, at pictures 0 and 3 and on the interleaved
      tiled case; with --parent TREE also the scan kernels of the
      checkout TREE (a parent commit, say) on the same inputs, in a child
-     process (and TREE's transform-RD stages, below); the picture
+     process (and TREE's transform-RD stages, below, and TREE's
+     make_intra_satd_fn and per-CU call on intra_satd's timed inputs);
+     the picture
      kernels on the record tables of every picture of hd720_ld and of
      one picture of each other bench stream (parsed on
      the CPU, the frame store from a seed) and on every picture of the
@@ -80,8 +90,8 @@ Phases:
   5  lookahead path: the luma plane of picture 0 of phase 3 (1280x720,
      8 bit) through xvc_tpu_torch.gpu.lookahead.frame_intra_lookahead on
      the card, sizes 4/8/16/32, 67 modes; the maps must equal the same
-     call on the CPU device (plain versions) bit for bit, and the SATD
-     kernel's launch count over that call must be above 0;
+     call on the CPU device (plain versions) bit for bit, and the
+     intra_satd kernel's launch count over that call must be above 0;
   6  encode path: hd720_s3 (1280x720, 4 pictures, 1 intra and 3 inter,
      low delay, qp 32, made from a seed by make_hd720_s3, a copy of the
      recipe in tests/encode_clips.py) through
@@ -96,7 +106,8 @@ Phases:
      blocks unlike the JAX package's and those where the kernel and its
      plain version differ (0 required); both streams decode on the card,
      conforming and equal to the encoder's reconstruction; then ms per
-     picture, the launches of satd and txrd per encode (set to 0 just
+     picture, the launches of satd, intra_satd and txrd per encode (set
+     to 0 just
      before each timed encode, read just after), the stage profile
      (spans encode.txrd_prepass and its extract / upload / device /
      download per picture, encode.split_dp, encode.native.*), the
@@ -124,16 +135,17 @@ Phases:
      the card: crops at (0, 0) of pictures of hd720_ld as the card
      decodes them (their hashes checked), all-intra, qp 32, speed mode 2:
      cif_la (352x288, 1 picture, tpu_intra_lookahead: the lookahead's
-     four SATD launches rank every CU's modes) and qcif_pp (176x144, 2
-     pictures, XVC_INTRA_PREPASS=jax: one SATD launch per CU the per-CU
-     pre-pass evaluates); each stream must equal the JAX package's
-     (tests/data/bench/python_cu_enc.json) and decode on the card,
-     conforming, to the encoder's reconstruction; the satd and deblock
-     kernels must be launched (counts set to 0 just before each encode
-     and read just after).  It prints ms per picture, the lookahead's and
-     the per-CU pre-pass's launches and seconds a picture, the deblock
-     launches and the device's idle share.  Then the seconds of each
-     phase.
+     four intra_satd launches rank every CU's modes) and qcif_pp
+     (176x144, 2 pictures, XVC_INTRA_PREPASS=jax: one intra_satd launch
+     per CU the per-CU pre-pass evaluates); each stream must equal the
+     JAX package's (tests/data/bench/python_cu_enc.json) and decode on
+     the card, conforming, to the encoder's reconstruction; the
+     intra_satd and deblock kernels must be launched and satd not
+     (counts set to 0 just before each encode and read just after).  It
+     prints ms per picture, the lookahead's and the per-CU pre-pass's
+     launches and seconds a picture, ms and device operations a per-CU
+     call, the deblock launches and the device's idle share.  Then the
+     seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -171,6 +183,8 @@ KERNELS = {
                        "xvc_tpu/tpu/deblock_jax.py:295"),
     "satd": ("xvc_tpu_torch/kernels/csrc/satd.cu",
              "xvc_tpu/tpu/pallas_satd.py:62"),
+    "intra_satd": ("xvc_tpu_torch/kernels/csrc/intra_satd.cu",
+                   "xvc_tpu/tpu/analysis.py:27"),
     "intra_luma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
                    "xvc_tpu/tpu/intra_scan.py:51"),
     "intra_chroma": ("xvc_tpu_torch/kernels/csrc/intra_scan.cu",
@@ -221,11 +235,11 @@ GOLDENS = {"ai16x16": 2, "ai352x288": 2, "ai44x36": 2, "ai64x48": 3,
            "scal16to24": 17, "sp_cksum0": 6, "sp_fast": 6,
            "sp_leadpics": 6, "sp_placebo": 6, "sp_tunepsnr": 6}
 HASHED = (("c422_ra64x48", 5), ("c444_ra64x48", 5))
-LOOKAHEAD_KERNELS = ("satd",)
+LOOKAHEAD_KERNELS = ("intra_satd",)
 # phase 6: the kernels an encode at speed 3 must launch (the SATD of the
-# prepass and of the split DP's lookahead; the prepass's txrd, from the
-# SATD screen to the kept modes)
-ENCODE_KERNELS = ("satd", "txrd")
+# prepass's predictions; the all-mode intra SATD of the split DP's
+# lookahead; the prepass's txrd, from the SATD screen to the kept modes)
+ENCODE_KERNELS = ("satd", "intra_satd", "txrd")
 # hd720_s3, the encode clip of phase 6: a copy of tests/test_torch_encode.py
 # HD720_S3 and make_hd720_s3 (a test holds the two equal)
 HD720_S3 = dict(width=1280, height=720, frames=4, qp=32, seed=20261017)
@@ -251,10 +265,16 @@ PYTHON_CU_SOURCE = ("hd720_ld", 1280, 720)
 # qcif_pp's on a second encode (about 900,000 device operations a
 # picture, which the profiler slows by about a quarter)
 PYTHON_CU_TRACED_APART = ("qcif_pp",)
-PYTHON_CU_KERNELS = ("satd", "deblock_edges", "deblock_luma",
+PYTHON_CU_KERNELS = ("intra_satd", "deblock_edges", "deblock_luma",
                      "deblock_chroma")
-# phase 2: the per-CU pre-pass's SATD shapes (one CU's 67 predictions)
+# phase 2: the per-CU pre-pass's shapes (one CU, its 67 modes)
 PER_CU_SIZES = (4, 8, 16, 32)
+# phase 2: the all-mode intra SATD's real shapes, (n, mode step) on the
+# luma of picture 0 of hd720_ld: lookahead720's four sizes, then the
+# split DP's lookahead (16 and 32 at step 4, 64 at step 8); the first is
+# the row of the kernels line
+INTRA_SATD_LOOKAHEAD = ((4, 1), (8, 1), (16, 1), (32, 1))
+INTRA_SATD_SPLIT_DP = ((16, 4), (32, 4), (64, 8))
 CARVE_OUT_BLOCKS = 0.001
 CARVE_OUT_BYTES = 0.01
 CARVE_OUT_DB = 0.05
@@ -681,6 +701,15 @@ def satd_bound(diff, n):
     return bound(diff.nbytes + blocks * 4, blocks * per_block)
 
 
+def intra_satd_bound(blocks, n, modes):
+    """Every block's orig, top and left read once (int32), its M costs
+    written; some 20 integer operations a predicted sample (its two taps
+    or the planar sum, the difference, its share of the butterflies and
+    of |.|)."""
+    return bound(blocks * (n * n + 4 * n + 1 + modes) * 4,
+                 20 * blocks * modes * n * n)
+
+
 def txrd_bound(torch, orig, preds, satd, n, bd, keep, p):
     """What the txrd kernel must do on these inputs.  Bytes: orig and
     satd read once, the 8 picked n x n tiles of preds (not the other
@@ -814,7 +843,8 @@ def capture_inputs(data):
     """Decode ``data`` on the card and keep copies of what the luma and
     chroma scans of SCAN_PICTURES were given (before they wrote), of
     what every ``edge_params`` call of the first two pictures was given,
-    and of those pictures' planes before deblocking."""
+    and of those pictures' planes before deblocking; and the bytes of
+    picture 0 as decoded."""
     from xvc_tpu_torch.codec import picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
     from xvc_tpu_torch.gpu import deblock, flat_recon
@@ -861,7 +891,7 @@ def capture_inputs(data):
     deblock.edge_params, picture_decoder.deblock_picture = rec_e, rec_d
     flat_recon.FlatReconstructor.run = rec_r
     try:
-        decode_stream(data)
+        got["picture0"] = decode_stream(data)[0].bytes
     finally:
         scan.intra_scan, scan.intra_chroma_scan = orig_l, orig_c
         deblock.edge_params, picture_decoder.deblock_picture = orig_e, orig_d
@@ -1533,6 +1563,7 @@ def phase_kernels(torch, dev, parent):
     phase_txrd_kernel(torch, dev, res, parent)
     with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
         real = capture_inputs(f.read())
+    phase_intra_satd_kernel(torch, dev, res, real["picture0"], parent)
     phase_deblock_kernels(torch, dev, res, real, rng)
     phase_scan_kernels(torch, dev, res, real, parent)
     phase_picture_kernels(torch, dev, res)
@@ -1586,6 +1617,226 @@ def time_txrd(torch, real):
                 return tx.txrd_rank(coeff, cand, keep, step, p)
         out[n] = (cuda_ms(torch, fn), bool(torch.equal(fn(), want)))
     return out
+
+
+def time_intra_satd_steps(torch, inputs):
+    """Milliseconds per call on the card of ``make_intra_satd_fn`` of the
+    package that is imported (this tree's: the intra_satd kernel; before
+    it: the batched predictor and satd.cu) on each entry of ``inputs``
+    (key -> (orig, top, left, n, bitdepth, mode_step, want), CPU
+    tensors), and whether it gives ``want``."""
+    from xvc_tpu_torch.gpu import analysis
+    dev = torch.device("cuda", 0)
+    out = {}
+    for key, (orig, top, left, n, bd, step, want) in inputs.items():
+        args = [t.to(dev) for t in (orig, top, left)]
+        fn = analysis.make_intra_satd_fn(n, bd, step)
+        equal = bool(torch.equal(fn(*args).cpu(), want))
+        out[key] = (cuda_ms(torch, lambda: fn(*args)), equal)
+    return out
+
+
+def time_per_cu_calls(torch, inputs):
+    """The per-CU pre-pass call of the package that is imported
+    (``intra_search.device_prepass_satd``) on the card for each n of
+    ``inputs`` (n -> (orig, top, left, bitdepth, want), CPU tensors):
+    host milliseconds a call (mean of 200 after a warm-up; the call ends
+    with its result on the host), its device operations under
+    torch.profiler (one call), and whether it gives ``want``."""
+    import numpy as np
+    from xvc_tpu_torch.codec.intra_search import device_prepass_satd
+    dev = torch.device("cuda", 0)
+    out = {}
+    for n, (orig, top, left, bd, want) in inputs.items():
+        o, t, l = (a.numpy() for a in (orig, top, left))
+        call = lambda: device_prepass_satd(o, t, l, bd, dev)
+        got = call()
+        out[n] = (host_ms(torch, call), device_ops(torch, call),
+                  bool(np.array_equal(got, want.numpy())))
+    return out
+
+
+def host_ms(torch, fn, iters=200):
+    """Mean host milliseconds a call of fn (which waits for its own
+    result), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ops(torch, fn):
+    """The device operations (kernels and copies) of one call of fn:
+    torch.profiler's raw device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if str(ev.device_type()).endswith("CUDA"))
+
+
+def phase_intra_satd_kernel(torch, dev, res, picture0, parent):
+    """The all-mode intra SATD kernel (intra_satd: every mode predicted on
+    chip, its SATD summed) against its plain version on the card, bit for
+    bit: B = 1 at the per-CU sizes (8 and 10 bit, a block of random lines
+    with the extremes and one of sorted lines, each alone); B = 77 at
+    every size with mode steps 1, 4 and 8 at 8, 10, 12 and 14 bit; the
+    real blocks of the luma of picture 0 of hd720_ld (``picture0``, as
+    decoded) at lookahead720's sizes and the split DP's.  Each real shape
+    and the per-CU shapes timed: the kernel (CUDA events, and device time
+    from torch.profiler), its plain version, the parent's path on the
+    same inputs (the batched predictor and satd.cu's fused entry, the
+    weights resident), its bound and, with ``parent``, that checkout's
+    make_intra_satd_fn; and the whole per-CU call (host ms, device
+    operations) beside the parent's call, emulated here (three uploads,
+    the predictor, satd.cu, a download) and, with ``parent``, that
+    checkout's own."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import analysis, intra_batch, satd
+    from xvc_tpu_torch.gpu import intra_satd as isa
+    from xvc_tpu_torch.restrictions import Restrictions
+    rng = np.random.RandomState(SEED + 13)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = [0]
+
+    def check(args, n, bd, step, what):
+        got = isa.intra_satd(*args, n, bd, step)
+        want = isa.intra_satd_plain(*args, n, bd, step)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("intra_satd differs from its plain version "
+                                 "on %s: %d of %d blocks" % (
+                                     what, int((got != want).any(1).sum()),
+                                     got.shape[0]))
+        cases[0] += 1
+        return want
+
+    for n in PER_CU_SIZES:
+        for bd in (8, 10):
+            blocks = isa.synthetic_inputs(rng, 2, n, bd)
+            for b in (0, 1):
+                check([T(a[b:b + 1]) for a in blocks], n, bd, 1,
+                      "B=1 n=%d %d bit block %d" % (n, bd, b))
+    for n in isa.SIZES:
+        for step in (1, 4, 8):
+            for bd in (8, 10, 12, 14):
+                check([T(a) for a in isa.synthetic_inputs(rng, 77, n, bd)],
+                      n, bd, step, "B=77 n=%d step %d %d bit" % (n, step,
+                                                                 bd))
+    H, W = 720, 1280
+    luma = np.frombuffer(picture0, np.uint8, count=H * W).reshape(H, W)
+    timed, extracted = {}, {}
+    for n, step in INTRA_SATD_LOOKAHEAD + INTRA_SATD_SPLIT_DP:
+        if n not in extracted:
+            extracted[n] = [T(a) for a in analysis.extract_blocks(
+                luma, n, 8, Restrictions())]
+        args = extracted[n]
+        key = "%s_n%d" % ("lookahead" if step == 1 else "split_dp_step%d"
+                          % step, n)
+        timed[key] = (args, n, 8, step,
+                      check(args, n, 8, step, "hd720_ld picture 0 " + key))
+    for n in PER_CU_SIZES:
+        args = [T(a) for a in isa.synthetic_inputs(rng, 1, n, 10)]
+        timed["per_cu_n%d" % n] = (args, n, 10, 1,
+                                   isa.intra_satd_plain(*args, n, 10, 1))
+    per_shape = {}
+    for key, (args, n, bd, step, want) in timed.items():
+        call = lambda: isa.intra_satd(*args, n, bd, step)
+        weights = isa.weights_on(n, step, dev)
+        post = n <= 16 and step == 1
+        parent_path = lambda: satd.satd_pred(
+            args[0], intra_batch.predict_all_modes(
+                n, args[1], args[2], weights, bd, post), bd)
+        if not torch.equal(parent_path(), want):
+            raise AssertionError("the parent's path differs on " + key)
+        per_shape[key] = dict(
+            blocks=args[0].shape[0], n=n, mode_step=step, bitdepth=bd,
+            modes=want.shape[1], ms=cuda_ms(torch, call),
+            device_ms=device_ms(torch, call, "intra_satd"),
+            plain_ms=cuda_ms(torch, lambda: isa.intra_satd_plain(
+                *args, n, bd, step), 3),
+            parent_path_ms=cuda_ms(torch, parent_path, 5),
+            **intra_satd_bound(args[0].shape[0], n, want.shape[1]))
+        del weights
+    if parent is not None:
+        inputs = {key: tuple(t.cpu() for t in args) + (n, bd, step,
+                                                       want.cpu())
+                  for key, (args, n, bd, step, want) in timed.items()}
+        for key, (ms, equal) in time_of_tree(torch, parent,
+                                             "time_intra_satd_steps",
+                                             inputs):
+            if not equal:
+                raise AssertionError("%s's make_intra_satd_fn differs on %s"
+                                     % (parent, key))
+            per_shape[key]["parent_ms"] = ms
+    # the whole per-CU call, this tree's and the parent's
+    calls = {}
+    for n in PER_CU_SIZES:
+        args, _, bd, _, want = timed["per_cu_n%d" % n]
+        calls[n] = tuple(a[0].cpu() for a in args) + (bd, want[0].cpu())
+    mine = time_per_cu_calls(torch, calls)
+    per_cu_call = {}
+    for n, (orig, top, left, bd, want) in calls.items():
+        o, t, l = (a.numpy() for a in (orig, top, left))
+        weights = isa.weights_on(n, 1, dev)
+
+        def emulated():
+            up = [torch.from_numpy(np.ascontiguousarray(
+                a[None], dtype=np.int32)).to(dev) for a in (o, t, l)]
+            preds = intra_batch.predict_all_modes(n, up[1], up[2], weights,
+                                                  bd, n <= 16)
+            return satd.satd_pred(up[0], preds, bd).cpu().numpy()[0]
+
+        if not np.array_equal(emulated(), want.numpy()) or not mine[n][2]:
+            raise AssertionError("per-CU call n=%d differs" % n)
+        per_cu_call[n] = dict(
+            ms=mine[n][0], device_ops=mine[n][1],
+            parent_emulated_ms=host_ms(torch, emulated),
+            parent_emulated_device_ops=device_ops(torch, emulated))
+        if mine[n][1] > 3:
+            raise AssertionError("the per-CU call n=%d makes %d device "
+                                 "operations" % (n, mine[n][1]))
+    if parent is not None:
+        for n, (ms, ops, equal) in time_of_tree(torch, parent,
+                                                "time_per_cu_calls", calls):
+            if not equal:
+                raise AssertionError("%s's per-CU call differs at n=%s"
+                                     % (parent, n))
+            per_cu_call[int(n)].update(parent_ms=ms, parent_device_ops=ops)
+    row = per_shape["lookahead_n4"]
+    res["intra_satd"] = dict(
+        max_abs_err=0, cases=cases[0], shape="lookahead720 n=4: orig "
+        "[57600, 4, 4], top [57600, 9], left [57600, 8] int32, 67 modes",
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], bound_bytes=row["bound_bytes"],
+        bound_ops=row["bound_ops"], per_shape=per_shape,
+        per_cu_call=per_cu_call)
+    log("phase 2: intra_satd bit-exact over %d cases (B = 1 at n = %s, B = "
+        "77 at every n, mode steps 1/4/8, 8-14 bit, hd720_ld picture 0 at "
+        "the lookahead's and the split DP's shapes); kernel / device / "
+        "plain / parent's path%s / bound ms: %s" % (
+            cases[0], list(PER_CU_SIZES),
+            " / parent tree's" if parent is not None else "",
+            {k: "%.4f / %s / %.4f / %.4f%s / %.6f (%s)" % (
+                r["ms"], "%.4f" % r["device_ms"] if r["device_ms"] else None,
+                r["plain_ms"], r["parent_path_ms"],
+                " / %.4f" % r["parent_ms"] if "parent_ms" in r else "",
+                r["bound_ms"], r["bound_by"])
+             for k, r in per_shape.items()}))
+    log("phase 2: the per-CU call (device_prepass_satd) on the card, host "
+        "ms a call and device operations: %s" % (
+            {n: "%.4f ms, %d ops; the parent's call emulated %.4f ms, %s "
+                "ops%s" % (
+                    r["ms"], r["device_ops"], r["parent_emulated_ms"],
+                    r["parent_emulated_device_ops"],
+                    "; %s's own %.4f ms, %d ops" % (
+                        parent, r["parent_ms"], r["parent_device_ops"])
+                    if "parent_ms" in r else "")
+             for n, r in per_cu_call.items()},))
 
 
 # Run in a child process: a timing function of this file (argv[4]) with
@@ -2540,7 +2791,7 @@ def phase_lookahead(torch, dev, pic):
     1280x720 8-bit picture."""
     import numpy as np
     from xvc_tpu_torch import kernels
-    from xvc_tpu_torch.gpu import analysis, intra_batch
+    from xvc_tpu_torch.gpu import analysis, intra_batch, intra_satd
     from xvc_tpu_torch.gpu.lookahead import SIZES, frame_intra_lookahead
     from xvc_tpu_torch.restrictions import Restrictions
     H, W = 720, 1280
@@ -2571,15 +2822,16 @@ def phase_lookahead(torch, dev, pic):
                 not np.array_equal(maps[n], want[n]) or maps[n].min() < 0:
             raise AssertionError("lookahead map n=%d differs from the CPU "
                                  "device's" % n)
-    # the device step alone, and its prediction half (tensors resident,
-    # CUDA events); the rest of the step is the SATD kernel
+    # the device step alone (the intra_satd kernel), and the batched
+    # predictor the parent's step ran before its SATD, on the same inputs
+    # (tensors resident, CUDA events)
     step_ms, predict_ms = {}, {}
     for n in SIZES:
         args = [torch.from_numpy(a).to(dev)
                 for a in analysis.extract_blocks(luma, n, 8, restr)]
         fn = analysis.make_intra_satd_fn(n, 8)
         step_ms[n] = cuda_ms(torch, lambda: fn(*args), 5)
-        weights = analysis.weights_on(n, 1, dev)
+        weights = intra_satd.weights_on(n, 1, dev)
         predict_ms[n] = cuda_ms(torch, lambda: intra_batch.predict_all_modes(
             n, args[1], args[2], weights, 8, n <= 16), 5)
         del args
@@ -2591,14 +2843,14 @@ def phase_lookahead(torch, dev, pic):
         cpu_device_seconds=cpu_s)
     log("phase 5: lookahead 1280x720, sizes %s, 67 modes: maps equal the "
         "CPU device's; %.1f ms in all, host extraction %.1f ms, device "
-        "(upload + step + download) %.1f ms, device step alone %s ms (of "
-        "which prediction %s ms), peak %d bytes, satd launches %d (the "
-        "same call on the CPU device %.1f s)" % (
+        "(upload + step + download) %.1f ms, device step alone %s ms (the "
+        "parent's batched predictor alone %s ms), peak %d bytes, "
+        "intra_satd launches %d (the same call on the CPU device %.1f s)" % (
             list(SIZES), dt * 1e3, sum(out["extract_ms"].values()),
             sum(out["device_ms"].values()),
             {n: round(t, 3) for n, t in step_ms.items()},
             {n: round(t, 3) for n, t in predict_ms.items()}, peak,
-            launches["satd"], cpu_s))
+            launches["intra_satd"], cpu_s))
     return out
 
 
@@ -2634,7 +2886,7 @@ def encode_stage_rows(torch, dev):
     the prepass's largest shape (the fused entry, [57600, 67, 4, 4])
     beside its plain version, each with its bound."""
     import numpy as np
-    from xvc_tpu_torch.gpu import analysis, intra_batch, satd
+    from xvc_tpu_torch.gpu import intra_batch, intra_satd, satd
     from xvc_tpu_torch.gpu import txrd_prepass as tx
     from xvc_tpu_torch.gpu import wavefront_rdo as wf
     from xvc_tpu_torch.gpu.lookahead import frame_intra_lookahead
@@ -2675,7 +2927,7 @@ def encode_stage_rows(torch, dev):
                        for a in tx._extract_grid_fast(
                            np.asarray(luma[0], np.int32), 4))
     preds = intra_batch.predict_all_modes(
-        4, top, left, analysis.weights_on(4, 1, dev), 8, True)
+        4, top, left, intra_satd.weights_on(4, 1, dev), 8, True)
     rows["satd_prepass"] = dict(
         shape="fused, orig [57600, 4, 4], preds [57600, 67, 4, 4] int32",
         ms=cuda_ms(torch, lambda: satd.satd_pred(orig, preds, 8)),
@@ -2822,8 +3074,8 @@ def phase_encode(torch, dev):
                    psnr=psnr, launches=launches)
         if key == "speed3" and nals != checked:
             raise AssertionError("two speed-3 encodes on the card differ")
-        for name in ENCODE_KERNELS if prepass else \
-                [n for n in ENCODE_KERNELS if n != "txrd"]:
+        # the split DP alone launches no prepass kernel (satd, txrd)
+        for name in ENCODE_KERNELS if prepass else ("intra_satd",):
             if launches[name] <= 0:
                 raise AssertionError("kernel %s was not launched by the %s "
                                      "encode" % (name, key))
@@ -2908,10 +3160,11 @@ def phase_python_cu(torch, dev):
     (tests/data/bench/python_cu_enc.json) and decoded on the card to the
     encoder's reconstruction; ms per picture, the launches of the encode
     (set to 0 just before it, read just after) split into the lookahead's
-    and the per-CU pre-pass's SATD launches, their seconds (spans
-    encode.intra_lookahead.device, encode.intra_prepass), the deblock
-    launches, and the device's idle share under torch.profiler, of that
-    encode or of a second one (PYTHON_CU_TRACED_APART)."""
+    and the per-CU pre-pass's intra_satd launches (no satd launch), their
+    seconds (spans encode.intra_lookahead.device, encode.intra_prepass),
+    ms a per-CU call, the deblock launches, and the device's idle share
+    and operations under torch.profiler, of that encode or of a second
+    one (PYTHON_CU_TRACED_APART)."""
     from xvc_tpu_torch import api, kernels, profiling
     from xvc_tpu_torch.codec.decoder import decode_stream
     from xvc_tpu_torch.nal import write_nal_units
@@ -3000,35 +3253,41 @@ def phase_python_cu(torch, dev):
             ms_per_picture=dt * 1e3 / n, bytes=len(data), equal=True,
             launches={k: v for k, v in launches.items() if v},
             per_picture=dict(
-                lookahead_satd_launches=look_calls / n,
+                lookahead_launches=look_calls / n,
                 lookahead_seconds=look_s / n,
                 lookahead_device_seconds=look_dev_s / n,
-                prepass_satd_launches=pre_calls / n,
+                prepass_calls=pre_calls / n,
                 prepass_seconds=pre_s / n,
                 deblock_launches={k: launches[k] / n for k in
                                   PYTHON_CU_KERNELS[1:]}),
-            satd_launches_unattributed=launches["satd"] - pre_calls -
-            look_calls,
+            prepass_ms_a_call=pre_s * 1e3 / pre_calls if pre_calls else None,
+            device_operations_a_prepass_call=ops / pre_calls
+            if pre_calls and ops else None,
+            intra_satd_launches_unattributed=launches["intra_satd"] -
+            pre_calls - look_calls,
             spans=spans, traced_apart=apart, traced_encode_seconds=traced_s,
             device_busy_seconds=busy_s, device_operations=ops,
             device_idle_share=None if busy_s is None else
             1.0 - busy_s / traced_s)
-        if row["satd_launches_unattributed"]:
-            raise AssertionError("%s: satd launches outside the lookahead "
-                                 "and the per-CU pre-pass: %r" % (
-                                     name, launches))
+        if row["intra_satd_launches_unattributed"] or launches["satd"]:
+            raise AssertionError("%s: intra_satd launches outside the "
+                                 "lookahead and the per-CU pre-pass, or satd "
+                                 "launches: %r" % (name, launches))
         out[name] = row
         log("phase 8: %s (%dx%d, %d picture(s), the Python CU encoder on "
             "the card): %.1f ms/picture, %d bytes equal to the JAX "
             "package's stream; decoded on the card, conforming and equal "
             "to the encoder's reconstruction; per picture: lookahead %d "
-            "satd launches, %.4f s (device %.4f s), per-CU pre-pass %d "
-            "satd launches, %.4f s, deblock launches %s; idle share %s "
-            "(%s encode under torch.profiler: %.3f s, device busy %s s in "
-            "%s operations); spans (s): %s" % (
+            "intra_satd launches, %.4f s (device %.4f s), per-CU pre-pass "
+            "%d calls (one intra_satd launch each), %.4f s (%s ms a call, "
+            "%s device operations of the traced encode a call), deblock "
+            "launches %s; idle share %s (%s encode under torch.profiler: "
+            "%.3f s, device busy %s s in %s operations); spans (s): %s" % (
                 name, w, h, n, row["ms_per_picture"], len(data),
                 look_calls / n, look_s / n, look_dev_s / n, pre_calls / n,
-                pre_s / n, row["per_picture"]["deblock_launches"],
+                pre_s / n, row["prepass_ms_a_call"],
+                row["device_operations_a_prepass_call"],
+                row["per_picture"]["deblock_launches"],
                 row["device_idle_share"], "a second" if apart else "this",
                 traced_s, busy_s, ops,
                 {k: v["seconds"] for k, v in spans.items()}))
@@ -3117,6 +3376,8 @@ def main():
                         "log2_cpu_card_differ", "log2_table_card_differ")},
                     "satd_fused_ms": res["satd"]["fused_ms"],
                     "satd_per_cu": res["satd"]["per_cu"],
+                    "intra_satd": {k: res["intra_satd"][k] for k in (
+                        "per_shape", "per_cu_call", "cases")},
                     "timed_shapes": {n: r["shape"] for n, r in res.items()},
                     "bounds": {n: {"bytes": r["bound_bytes"],
                                    "operations": r["bound_ops"]}
@@ -3147,6 +3408,8 @@ def main():
     launches = {n: dec["hd720_ld"]["launches"][n]
                 for n in DECODE_KERNELS + OFF_DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})
+    # satd's path is now the speed-3 encode's transform-RD prepass
+    launches["satd"] = enc["speed3"]["launches"]["satd"]
     launches["txrd"] = enc["speed3"]["launches"]["txrd"]
     launches["resample"] = resampling[SPLICE]["launches"]["resample"]
     # library_ms: no single PyTorch call computes any of these functions
@@ -3154,7 +3417,8 @@ def main():
     # per-block bases, the jobs of a picture derived from its parse
     # records, table-driven edge decisions over a painted
     # map, the sequential edge walk, the gated two-sample chroma update,
-    # Hadamard + |.| sum, the sequential intra scans, a top-8 screen with
+    # Hadamard + |.| sum, every intra mode predicted with its SATD summed,
+    # the sequential intra scans, a top-8 screen with
     # a per-block integer transform, quantization and a rate proxy summed
     # per candidate with a keep-best selection); but resample's, the JAX
     # formulation as two float64 torch.matmul calls on dense tap matrices

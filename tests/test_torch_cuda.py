@@ -414,8 +414,9 @@ def test_satd_pred_kernel_matches_plain(cuda, n):
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_satd_pred_kernel_at_the_per_cu_shape(cuda, n, bd):
     """One CU's 67 predictions (B = 1), the shape the Python CU encoder's
-    per-CU pre-pass gives the kernel, with the full-range extremes; and
-    the whole per-CU call (prediction and SATD) against the CPU device."""
+    per-CU pre-pass gave the kernel, with the full-range extremes; and
+    the whole per-CU call, which now launches intra_satd instead (one
+    launch, no satd), against the CPU device."""
     from xvc_tpu_torch.codec.intra_search import device_prepass_satd
     rng = np.random.RandomState(10 * n + bd)
     top_bit = 1 << bd
@@ -433,7 +434,8 @@ def test_satd_pred_kernel_at_the_per_cu_shape(cuda, n, bd):
     left = rng.randint(0, top_bit, 2 * n).astype(np.int32)
     kernels.reset_launches()
     card = device_prepass_satd(orig[0], top, left, bd, cuda)
-    assert kernels.LAUNCHES["satd"] == 1
+    assert kernels.LAUNCHES["intra_satd"] == 1
+    assert kernels.LAUNCHES["satd"] == 0
     np.testing.assert_array_equal(
         card, device_prepass_satd(orig[0], top, left, bd, "cpu"))
 
@@ -441,9 +443,10 @@ def test_satd_pred_kernel_at_the_per_cu_shape(cuda, n, bd):
 @pytest.mark.parametrize("route", ["lookahead", "prepass"])
 def test_python_cu_encode_on_card_matches_cpu(cuda, route, monkeypatch):
     """A 64x64 all-intra picture through the Python CU encoder on the
-    card, with tpu_intra_lookahead (the lookahead's four SATD launches
-    rank the modes) or under XVC_INTRA_PREPASS=jax (one SATD launch per
-    CU the per-CU pre-pass evaluates): the CPU device's NALs and
+    card, with tpu_intra_lookahead (the lookahead's four intra_satd
+    launches rank the modes) or under XVC_INTRA_PREPASS=jax (one
+    intra_satd launch per CU the per-CU pre-pass evaluates; no satd
+    launch on either route): the CPU device's NALs and
     reconstruction, the deblock kernels launched, and its decode on the
     card equal to the reconstruction."""
     from xvc_tpu_torch import api
@@ -468,13 +471,94 @@ def test_python_cu_encode_on_card_matches_cpu(cuda, route, monkeypatch):
     got, rec = enc(cuda)
     assert got == want and rec == want_rec
     if route == "lookahead":
-        assert kernels.LAUNCHES["satd"] == 4
+        assert kernels.LAUNCHES["intra_satd"] == 4
     else:
-        assert kernels.LAUNCHES["satd"] > 16
+        assert kernels.LAUNCHES["intra_satd"] > 16
+    assert kernels.LAUNCHES["satd"] == 0
     for name in ("deblock_edges", "deblock_luma", "deblock_chroma"):
         assert kernels.LAUNCHES[name] > 0, name
     pics = decode_stream(write_nal_units(got), device=cuda)
     assert len(pics) == 1 and pics[0].conforming and pics[0].bytes == rec[0]
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12, 14])
+@pytest.mark.parametrize("mode_step", [1, 4, 8])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_intra_satd_kernel_matches_plain(cuda, n, mode_step, bd):
+    """The all-mode intra SATD kernel against its plain version on the
+    card, 77 blocks (random and sorted lines, the extremes), bit for
+    bit, one launch."""
+    from xvc_tpu_torch.gpu import intra_satd
+    t = _to(cuda, *intra_satd.synthetic_inputs(
+        np.random.RandomState(100 * n + 10 * mode_step + bd), 77, n, bd))
+    kernels.reset_launches()
+    got = intra_satd.intra_satd(*t, n, bd, mode_step)
+    assert kernels.LAUNCHES["intra_satd"] == 1
+    want = intra_satd.intra_satd_plain(*t, n, bd, mode_step)
+    assert tuple(got.shape) == (77, intra_satd.num_modes(mode_step))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_intra_satd_kernel_at_the_per_cu_shape(cuda, n, bd):
+    """B = 1, as the per-CU pre-pass launches it: a sorted block and a
+    random one, each alone, against the plain version."""
+    from xvc_tpu_torch.gpu import intra_satd
+    orig, top, left = intra_satd.synthetic_inputs(
+        np.random.RandomState(7 * n + bd), 2, n, bd)
+    for b in (0, 1):
+        t = _to(cuda, orig[b:b + 1], top[b:b + 1], left[b:b + 1])
+        np.testing.assert_array_equal(
+            intra_satd.intra_satd(*t, n, bd).cpu().numpy(),
+            intra_satd.intra_satd_plain(*t, n, bd, 1).cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_per_cu_call_is_one_launch_between_two_copies(cuda, n):
+    """One device_prepass_satd call on the card: one intra_satd launch,
+    no satd launch, and at most 3 device operations (the upload, the
+    kernel, the download) in a torch.profiler window; the CPU device's
+    costs."""
+    from torch.profiler import ProfilerActivity, profile
+    from xvc_tpu_torch.codec.intra_search import device_prepass_satd
+    from xvc_tpu_torch.gpu import intra_satd
+    orig, top, left = intra_satd.synthetic_inputs(
+        np.random.RandomState(n), 1, n, 10)
+    args = (orig[0], top[0], left[0], 10)
+    want = device_prepass_satd(*args, "cpu")
+    device_prepass_satd(*args, cuda)  # first-use costs
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = device_prepass_satd(*args, cuda)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["intra_satd"] == 1
+    assert kernels.LAUNCHES["satd"] == 0
+    ops = [ev for ev in prof.profiler.kineto_results.events()
+           if str(ev.device_type()).endswith("CUDA")]
+    assert 1 <= len(ops) <= 3, [ev.name() for ev in ops]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_make_intra_satd_fn_on_card_never_predicts(cuda, monkeypatch):
+    """make_intra_satd_fn on the card goes to the kernel alone: with the
+    batched predictor made to raise, every size and mode step still
+    returns the CPU device's costs."""
+    from xvc_tpu_torch.gpu import analysis, intra_batch, intra_satd
+    cases = []
+    for n, step in ((4, 1), (8, 1), (16, 4), (32, 1), (64, 8)):
+        a = intra_satd.synthetic_inputs(np.random.RandomState(n), 9, n, 8)
+        cases.append((n, step, a, analysis.make_intra_satd_fn(n, 8, step)(
+            *_to("cpu", *a)).numpy()))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("predict_all_modes reached on the card")
+
+    monkeypatch.setattr(intra_batch, "predict_all_modes", refuse)
+    for n, step, a, want in cases:
+        got = analysis.make_intra_satd_fn(n, 8, step)(*_to(cuda, *a))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("mode_step", [1, 4])
@@ -486,7 +570,8 @@ def test_lookahead_on_card_matches_cpu(cuda, mode_step):
     kernels.reset_launches()
     got = lookahead.frame_intra_lookahead(frame, 8, Restrictions(),
                                           mode_step=mode_step, device=cuda)
-    assert kernels.LAUNCHES["satd"] == 4
+    assert kernels.LAUNCHES["intra_satd"] == 4
+    assert kernels.LAUNCHES["satd"] == 0
     assert sorted(got) == [4, 8, 16, 32]
     for n in got:
         np.testing.assert_array_equal(got[n], want[n])
@@ -1077,6 +1162,7 @@ def test_txrd_prepass_on_card_matches_cpu_and_repeats(cuda, intra):
                                         device=cuda)
             assert kernels.LAUNCHES["txrd"] == 4
             assert kernels.LAUNCHES["satd"] == 4
+            assert kernels.LAUNCHES["intra_satd"] == 0
             for n in want:
                 np.testing.assert_array_equal(got[n], want[n])
     finally:
@@ -1129,6 +1215,7 @@ def test_speed3_encode_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     got = enc(cuda)
     assert kernels.LAUNCHES["txrd"] > 0 and kernels.LAUNCHES["satd"] > 0
+    assert kernels.LAUNCHES["intra_satd"] > 0  # the split DP's lookahead
     assert got == want
     pics = decode_stream(got, device=cuda)
     assert len(pics) == 2 and all(p.conforming for p in pics)

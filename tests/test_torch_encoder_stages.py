@@ -36,7 +36,7 @@ from xvc_tpu.restrictions import Restrictions as JaxRestrictions
 from xvc_tpu.tpu import lookahead as jla
 from xvc_tpu.tpu import txrd_prepass as jtx
 from xvc_tpu.tpu import wavefront_rdo as jwf
-from xvc_tpu_torch.gpu import analysis, lookahead, txrd_prepass, \
+from xvc_tpu_torch.gpu import intra_satd, lookahead, txrd_prepass, \
     wavefront_rdo
 from xvc_tpu_torch.ops.quant import Qp
 from xvc_tpu_torch.restrictions import Restrictions
@@ -249,8 +249,8 @@ def test_lookahead_split_dp_sizes_equal_jax(frame_name, sizes, mode_step):
 
 
 def test_weights_of_the_64_maps_are_built_once():
-    a = analysis.weights_on(64, 8, torch.device("cpu"))
-    assert analysis.weights_on(64, 8, torch.device("cpu")) is a
+    a = intra_satd.weights_on(64, 8, torch.device("cpu"))
+    assert intra_satd.weights_on(64, 8, torch.device("cpu")) is a
     assert tuple(a.shape) == (9, 64 * 64, 2 * (4 * 64 + 1))
 
 
@@ -426,7 +426,7 @@ def test_txrd_plain_equals_the_jax_step(n, bd, intra, screen_step, keep):
     # the same through the three stages the step runs
     from xvc_tpu_torch.gpu import intra_batch, satd
     preds = intra_batch.predict_all_modes(
-        n, t[1], t[2], analysis.weights_on(n, screen_step, "cpu"), bd,
+        n, t[1], t[2], intra_satd.weights_on(n, screen_step, "cpu"), bd,
         n <= 16 and screen_step == 1)
     sat = satd.satd_pred(t[0], preds, bd)
     assert sat.shape[1] == (67 if screen_step == 1 else 19)

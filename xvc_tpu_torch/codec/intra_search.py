@@ -12,20 +12,23 @@ encoder's torch device:
   ``gpu/lookahead.py``: ``tpu_intra_lookahead``) rank the modes instead
   of the per-CU pre-pass where they cover the CU;
 - otherwise the per-CU pre-pass's all-mode SATD runs on the device
-  (``gpu/analysis.make_intra_satd_fn``: the batched predictor and
-  ``satd.cu``) wherever the JAX package's device pre-pass may
+  (``device_prepass_satd``: on the card one packed upload, one
+  ``intra_satd.cu`` launch and one download) wherever the JAX package's
+  device pre-pass may
   (``XVC_INTRA_PREPASS=jax``: square CUs of 4 to 32, 67 modes, the
   default intra toolset), and in the native library
   (``xvcn_intra_prepass_satd``, the JAX package's host route) for every
   other CU.  Both give the host metric's values, so the stream does not
   depend on the route.
 """
+import threading
+
 import numpy as np
 import torch
 
 from .. import constants as k
 from .. import native
-from ..gpu import analysis
+from ..gpu import intra_satd
 from ..gpu.flat_recon import _intra_restrictions_default
 from ..ops import intra_pred as ip
 from ..profiling import span
@@ -49,16 +52,56 @@ _NUM_INTRA_FAST_MODES_EXT = (
 _NUM_INTRA_FAST_MODES_NO_EXT = (0, 3, 8, 8, 3, 3, 3)
 
 
+# Each thread's staging buffers of the per-CU call on the card, by
+# (device, n): pinned host and device int32 blocks packed as
+# intra_satd.pack_block packs them, the pinned [67] result and the event
+# its download records.  A call reuses them only after waiting for its
+# own download, which follows its upload on the stream.
+_STAGING = threading.local()
+
+
+def _staging(device, n):
+    bufs = getattr(_STAGING, "bufs", None)
+    if bufs is None:
+        bufs = _STAGING.bufs = {}
+    key = (str(device), n)
+    got = bufs.get(key)
+    if got is None:
+        size = intra_satd.packed_size(n)
+        got = (torch.empty(size, dtype=torch.int32, pin_memory=True),
+               torch.empty(size, dtype=torch.int32, device=device),
+               torch.empty(intra_satd.num_modes(1), dtype=torch.int32,
+                           pin_memory=True),
+               torch.cuda.Event())
+        bufs[key] = got
+    return got
+
+
 def device_prepass_satd(orig, top, left, bitdepth, device):
     """All 67 modes' SATD of one n x n block on ``device``: the block
-    (orig [n, n]) and its reference lines (top [2n+1], left [2n]) go up,
-    the [67] costs come down (``gpu/analysis.make_intra_satd_fn``: the
-    batched predictor, then ``satd.cu`` on the card)."""
-    fn = analysis.make_intra_satd_fn(orig.shape[0], bitdepth)
+    (orig [n, n]) and its reference lines (top [2n+1], left [2n]) go up
+    packed, the [67] int32 costs come down.  On the card that is one
+    upload, one ``intra_satd`` launch and one download, waited for on an
+    event; on the CPU the same packed block through
+    ``intra_satd.intra_satd_plain``."""
+    n = orig.shape[0]
+    dev = torch.device(device)
     with span("encode.intra_prepass"):
-        costs = fn(*(torch.from_numpy(np.ascontiguousarray(
-            a[None], dtype=np.int32)).to(device) for a in (orig, top, left)))
-        return costs.cpu().numpy()[0]
+        if dev.type != "cuda":
+            packed = np.empty(intra_satd.packed_size(n), np.int32)
+            intra_satd.pack_block(orig, top, left, packed)
+            return intra_satd.intra_satd(
+                *intra_satd.block_views(torch.from_numpy(packed).to(dev), n),
+                n, bitdepth, 1).numpy()[0]
+        host, buf, result, done = _staging(dev, n)
+        intra_satd.pack_block(orig, top, left, host.numpy())
+        buf.copy_(host, non_blocking=True)
+        costs = intra_satd.intra_satd(*intra_satd.block_views(buf, n), n,
+                                      bitdepth, 1)
+        result.copy_(costs[0], non_blocking=True)
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+        return result.numpy().copy()
 
 
 class IntraSearch:

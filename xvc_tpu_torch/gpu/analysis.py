@@ -4,8 +4,9 @@ Port of ``xvc_tpu/tpu/analysis.py``, the encoder's intra SATD mode
 pre-pass (ref: src/xvc_enc_lib/intra_search.cc:188-303
 DetermineSlowIntraModes): instead of looping CU-by-CU and mode-by-mode on
 the host, a whole batch of NxN blocks is evaluated against all 67 intra
-modes at once: prediction as a single matrix product (``intra_batch.py``)
-and distortion through the SATD kernel (``satd.py``).
+modes at once (``intra_satd.py``: on the card one kernel that predicts
+every mode on chip and sums its SATD; on the CPU the batched predictor of
+``intra_batch.py`` and the SATD of ``satd.py``).
 
 The host-side helpers extract blocks and reference lines (open-loop,
 against the original frame: the standard encoder look-ahead
@@ -17,37 +18,20 @@ import torch
 from ..engine import resolve_device
 from ..ops import intra_pred as ip
 from ..restrictions import Restrictions
-from . import intra_batch as ib
-from . import satd as satd_mod
-
-_DEV_WEIGHTS = {}
-
-
-def weights_on(n, mode_step, device):
-    """``angular_weight_tensor(n)[::mode_step]`` on ``device`` (cached)."""
-    key = (n, mode_step, str(device))
-    w = _DEV_WEIGHTS.get(key)
-    if w is None:
-        w = torch.from_numpy(np.ascontiguousarray(
-            ib.angular_weight_tensor(n)[::mode_step])).to(device)
-        _DEV_WEIGHTS[key] = w
-    return w
+from . import intra_satd
 
 
 def make_intra_satd_fn(n, bitdepth, mode_step=1):
     """Returns fn(orig [B,n,n], top [B,2n+1], left [B,2n]) -> [B,M] int32
     SATD per mode, on the device of its int32 tensor arguments (M=67
-    when mode_step == 1, else 2 + ceil(65/mode_step)).
+    when mode_step == 1, else 2 + ceil(65/mode_step)): on the card one
+    ``intra_satd`` launch, on the CPU its plain version.
 
     mode_step > 1 evaluates planar/DC + every mode_step-th angular (no
     post filter): a cheap upper-bound cost subset."""
-    post_filter = n <= 16 and mode_step == 1
-
     def fn(orig, top, left):
-        weights = weights_on(n, mode_step, orig.device)
-        preds = ib.predict_all_modes(n, top, left, weights, bitdepth,
-                                     post_filter)
-        return satd_mod.satd_pred(orig, preds, bitdepth)
+        return intra_satd.intra_satd(orig, top, left, n, bitdepth,
+                                     mode_step)
 
     return fn
 

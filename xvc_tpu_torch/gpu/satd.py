@@ -12,9 +12,11 @@ n == 4 is one 4x4 Hadamard with ``(s + 1) >> 1``; the shift by
 On the card every entry launches ``kernels/csrc/satd.cu`` (an integer
 butterfly, exact in int32) and nothing else; on the CPU it runs
 ``satd_plain``, the same butterflies as PyTorch tensor operations.
-``satd_pred`` is the fused form the lookahead uses: it takes the
-original blocks and all their predictions and forms the difference in
-the kernel.
+``satd_pred`` is the fused form the transform-RD prepass uses: it takes
+the original blocks and all their predictions and forms the difference
+in the kernel.  The lookahead and the per-CU pre-pass, which need no
+predictions, take ``intra_satd.py`` (one kernel that predicts every mode
+on chip and shares this kernel's butterflies, ``csrc/satd.cuh``).
 """
 import torch
 

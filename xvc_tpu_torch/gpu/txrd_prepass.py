@@ -21,6 +21,10 @@ three launches on the card:
    quantization, distortion, rate, cost and the keep-best selection,
    ``kernels/csrc/txrd.cu`` on the card and ``txrd_plain`` on the CPU.
 
+The lookahead's all-mode SATD is one kernel that never writes its
+predictions (``intra_satd.py``); this prepass needs the picked
+predictions for its residuals, so it keeps steps 1 and 2 apart.
+
 ``txrd_plain`` keeps the stages apart: a stable ascending sort of the SATD
 (ties toward the lower index, as ``lax.top_k``), a gather, the forward
 transform as two float64 ``torch.matmul`` whose every product and partial
@@ -45,8 +49,8 @@ from ..engine import resolve_device
 from ..ops import quant as q
 from ..ops import transform as tx
 from ..profiling import span
-from . import analysis as an
 from . import intra_batch as ib
+from . import intra_satd
 from . import satd as satd_mod
 
 SIZES = (4, 8, 16, 32)
@@ -269,6 +273,18 @@ def _device_tables(n, bitdepth, device):
     return got
 
 
+def _device_weights(n, screen_step, device):
+    """The predictor's tap weights on ``device`` (cached with the tables:
+    the all-mode SATD's kernel needs none, this prepass predicts with
+    them)."""
+    key = ("weights", n, screen_step, str(device))
+    got = _DEV_TABLES.get(key)
+    if got is None:
+        got = intra_satd.weights_on(n, screen_step, device)
+        _DEV_TABLES[key] = got
+    return got
+
+
 def txrd_plain(orig, preds, satd, n, bitdepth, keep, screen_step, params):
     """Plain PyTorch version of the prepass kernel (same result bit for
     bit): the 8-candidate screen as a stable sort of ``satd``, the gather
@@ -367,7 +383,7 @@ def _txrd_step(orig, top, left, n, bitdepth, keep, is_intra_slice,
     predicts planar/DC + every screen_step-th angular mode only.  Returns
     [B, keep] int32 mode indices (true 0..66 numbering), best first;
     ``is_intra_slice`` is in ``params`` (the JAX step's argument order)."""
-    weights = an.weights_on(n, screen_step, orig.device)
+    weights = _device_weights(n, screen_step, orig.device)
     # the batched post filter edits fixed full-set mode positions, so it
     # is only applicable on the unstrided tensor
     post_filter = n <= 16 and screen_step == 1

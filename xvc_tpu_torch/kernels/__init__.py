@@ -15,7 +15,7 @@ import threading
 
 LAUNCHES = {"mc": 0, "itx": 0, "mc_picture": 0, "itx_picture": 0,
             "deblock_edges": 0, "deblock_luma": 0,
-            "deblock_chroma": 0, "satd": 0, "intra_luma": 0,
+            "deblock_chroma": 0, "satd": 0, "intra_satd": 0, "intra_luma": 0,
             "intra_chroma": 0, "txrd": 0, "resample": 0}
 _LOCK = threading.Lock()
 

@@ -3,8 +3,8 @@
 // Replaces, on the GPU: xvc_tpu/tpu/pallas_satd.py satd8_pallas (the
 // Pallas kernel: flattened 8x8 diff times the 64x64 Kronecker matrix
 // H8 (x) H8 in f32, |.| summed in int32) and the XLA einsum of
-// xvc_tpu/tpu/satd.py satd_square that the encoder's lookahead calls
-// (ref: src/xvc_enc_lib/sample_metric.cc Compute8x8Satd / Compute4x4Satd):
+// xvc_tpu/tpu/satd.py satd_square (ref: src/xvc_enc_lib/sample_metric.cc
+// Compute8x8Satd / Compute4x4Satd):
 //   n >= 8: the block is (n/8)^2 tiles of 8x8; each tile's sum of
 //           |H8 D H8| is normalised (s + 2) >> 2 before the tiles are
 //           added; the shift by bitdepth - 8 comes last, once per block;
@@ -29,50 +29,21 @@
 // n > 8 a warp owns one block and its lane groups walk the block's
 // tiles, adding the normalised tile sums, so no atomics and no second
 // pass are needed.  With `orig` given, the difference orig[b] - pred[b, m]
-// is formed in the kernel (the fused entry), and the [B, M, n, n]
-// difference never exists in memory.
+// is formed in the kernel (the fused entry, which the transform-RD
+// prepass calls on its predictions), and the [B, M, n, n] difference
+// never exists in memory.  The butterflies live in satd.cuh, shared with
+// intra_satd.cu, which predicts the modes itself (the lookahead and the
+// per-CU pre-pass).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "satd.cuh"
+
 namespace {
 
+using namespace xvc_hadamard;
+
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int absi(int x) { return x < 0 ? -x : x; }
-
-// In-register Hadamard butterfly over T values (order and signs of the
-// outputs differ from the matrix form; the sum of |.| does not).
-template <int T>
-__device__ __forceinline__ void hadamard_regs(int (&v)[T]) {
-#pragma unroll
-  for (int h = 1; h < T; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < T; i += 2 * h) {
-#pragma unroll
-      for (int j = i; j < i + h; ++j) {
-        const int a = v[j], b = v[j + h];
-        v[j] = a + b;
-        v[j + h] = a - b;
-      }
-    }
-  }
-}
-
-// The same butterfly across the T lanes of a group, for each of the T
-// register columns.
-template <int T>
-__device__ __forceinline__ void hadamard_lanes(int (&v)[T], int lane) {
-#pragma unroll
-  for (int mask = 1; mask < T; mask <<= 1) {
-    const bool upper = (lane & mask) != 0;
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      const int other = __shfl_xor_sync(kFull, v[j], mask);
-      v[j] = upper ? other - v[j] : v[j] + other;
-    }
-  }
-}
 
 // Row `row` of a TxT tile at element offset `off`: diff, or orig - pred.
 template <int T>
@@ -98,20 +69,6 @@ __device__ __forceinline__ void load_row(const int32_t* __restrict__ src,
   }
 }
 
-// Sum of |H D H| of the group's tile, in every lane of the group.
-template <int T>
-__device__ __forceinline__ int tile_sum(int (&v)[T], int lane) {
-  hadamard_regs<T>(v);
-  hadamard_lanes<T>(v, lane);
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < T; ++j) s += absi(v[j]);
-#pragma unroll
-  for (int mask = 1; mask < T; mask <<= 1)
-    s += __shfl_xor_sync(kFull, s, mask);
-  return s;
-}
-
 // n == T: one lane group per block.  src [nblocks, T, T]; with orig
 // [nblocks / M, T, T] the input is orig[i / M] - src[i].
 template <int T>
@@ -134,7 +91,7 @@ satd_single_tile(const int32_t* __restrict__ src,
   load_row<T>(src, orig, off, orig_off, valid, v);
   const int s = tile_sum<T>(v, lane);
   if (valid && row == 0)
-    out[blk] = (T == 4 ? (s + 1) >> 1 : (s + 2) >> 2) >> shift;
+    out[blk] = tile_norm<T>(s) >> shift;
 }
 
 // n > 8: one warp per block of (n/8)^2 tiles; lane group g takes tiles
@@ -159,7 +116,7 @@ satd_tiled(const int32_t* __restrict__ src, const int32_t* __restrict__ orig,
     const size_t in_blk = (size_t)(ty * 8 + row) * n + tx * 8;
     int v[8];
     load_row<8>(src, orig, base + in_blk, orig_base + in_blk, true, v);
-    acc += (tile_sum<8>(v, lane) + 2) >> 2;
+    acc += tile_norm<8>(tile_sum<8>(v, lane));
   }
   acc += __shfl_xor_sync(kFull, acc, 8);
   acc += __shfl_xor_sync(kFull, acc, 16);
