@@ -67,7 +67,11 @@ Phases:
      (library_ms), the whole per-picture call (with and without the
      border ring) and its spans, the alternative reconstruction, and the
      per-plane host-window calls (window cut, upload, kernel, download,
-     pack) of this tree and, with --parent TREE, of TREE;
+     pack) of this tree and, with --parent TREE, of TREE; the motion
+     search's SAD sweep (me_sad) on every CU shape from 4x4 to 64x64,
+     SAD and SAD_FAST, 8-16 bit, 1-754 candidates with the window's
+     corners among them, through the per-prefetch call, bit for bit
+     against its plain version (timed in phase 9);
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -144,8 +148,28 @@ Phases:
      (counts set to 0 just before each encode and read just after).  It
      prints ms per picture, the lookahead's and the per-CU pre-pass's
      launches and seconds a picture, ms and device operations a per-CU
-     call, the deblock launches and the device's idle share.  Then the
-     seconds of each phase.
+     call, the deblock launches and the device's idle share;
+  9  the Python CU encoder's inter half (xvc_tpu_torch/codec/inter_me.py)
+     under XVC_ME=jax through xvc_tpu_torch.api.EncoderSession on the
+     card: qcif_me (crops at (0, 0) of pictures 0-1 of hd720_ld as the
+     card decodes them, 176x144, low delay, one reference, speed mode 2,
+     the uni-prediction search range at 64) and ra64x48_me (pictures 0-4
+     of tests/data/ra64x48_in.yuv, random access, sub-GOP 4, two
+     references); each stream must equal the JAX package's
+     (tests/data/bench/python_cu_inter.json) and decode on the card,
+     conforming, to the encoder's reconstruction; the TZ search's
+     prefetches and device sweeps must equal the JAX package's counts
+     there, and me_sad's launches the device sweeps (counts set to 0
+     just before each encode and read just after).  It prints ms per
+     picture, prefetches per picture and their device and host shares,
+     candidates per device call, the device route's ms a call, device
+     operations and the idle share.  Then me_sad on every device sweep
+     of the qcif_me encode as the search gave it (box window, block,
+     offsets), held to its plain version and to the encode's SADs: the
+     kernel's time a sweep (CUDA events and device time) beside its
+     plain version and its bound (the window samples the blocks cover),
+     and the whole per-prefetch call's host ms and device operations.
+     Then the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -193,6 +217,8 @@ KERNELS = {
              "xvc_tpu/tpu/txrd_prepass.py:80"),
     "resample": ("xvc_tpu_torch/kernels/csrc/resample.cu",
                  "xvc_tpu/tpu/resample_jax.py:44"),
+    "me_sad": ("xvc_tpu_torch/kernels/csrc/me_sad.cu",
+               "xvc_tpu/tpu/me.py:30"),
 }
 # the kernels each path must launch, and those the decode must not (the
 # group kernels, whose jobs the picture kernels derive on the card)
@@ -267,6 +293,40 @@ PYTHON_CU_SOURCE = ("hd720_ld", 1280, 720)
 PYTHON_CU_TRACED_APART = ("qcif_pp",)
 PYTHON_CU_KERNELS = ("intra_satd", "deblock_edges", "deblock_luma",
                      "deblock_chroma")
+# phase 9: the Python CU encoder's inter clips, a copy of
+# tests/encode_clips.py PYTHON_CU_INTER (tests/test_torch_python_cu_inter.py
+# holds the two equal), both under XVC_ME=jax: qcif_me, crops of the first
+# two pictures of hd720_ld as decoded, low delay, the uni-prediction search
+# range at 64 so that the TZ sweeps fit the device window; ra64x48_me,
+# random access with two references
+PYTHON_CU_INTER = {
+    "qcif_me": dict(
+        source="bench/hd720_ld.xvc", width=176, height=144, pictures=2,
+        params=dict(num_ref_pics=1, sub_gop_length=1, low_delay=1,
+                    speed_mode=2),
+        settings="inter_search_range_uni_max 64 inter_search_range_uni_min 64",
+        env={"XVC_ME": "jax"}),
+    "ra64x48_me": dict(
+        source="ra64x48_in.yuv", width=64, height=48, pictures=5,
+        params=dict(num_ref_pics=2, sub_gop_length=4), settings="",
+        env={"XVC_ME": "jax"}),
+}
+# the device shares of the prefetches the JAX package's TZ search made on
+# the CPU, as measured when the slice was planned (a 176x144 low-delay
+# crop at range 64, default speed; ra64x48 pictures 0-4); printed beside
+# this run's
+PYTHON_CU_INTER_PLANNED_DEVICE_SHARE = {"qcif_me": 0.53, "ra64x48_me": 0.059}
+# the clip whose device sweeps time me_sad (its launches are the kernels
+# line's)
+ME_SWEEPS_CLIP = "qcif_me"
+PYTHON_CU_INTER_KERNELS = ("me_sad", "deblock_edges", "deblock_luma",
+                           "deblock_chroma")
+# phase 2: me_sad's cases, (w, h) of every CU shape with SAD and SAD_FAST,
+# the bit depth and the candidate count cycling over these (me_sad is
+# timed on the device sweeps of phase 9's qcif_me encode)
+ME_SIZES = (4, 8, 16, 32, 64)
+ME_BITDEPTHS = (8, 10, 12, 16)
+ME_COUNTS = (1, 44, 86, 754)
 # phase 2: the per-CU pre-pass's shapes (one CU, its 67 modes)
 PER_CU_SIZES = (4, 8, 16, 32)
 # phase 2: the all-mode intra SATD's real shapes, (n, mode step) on the
@@ -419,6 +479,15 @@ def python_cu_params(api, name):
         width=clip["width"], height=clip["height"], qp=32, speed_mode=2,
         num_ref_pics=0, sub_gop_length=1, checksum_mode=1,
         explicit_encoder_settings=clip["settings"])
+
+
+def python_cu_inter_params(api, name):
+    """EncoderParameters of a PYTHON_CU_INTER clip (a copy of
+    tests/encode_clips.py python_cu_inter_params)."""
+    clip = PYTHON_CU_INTER[name]
+    return api.EncoderParameters(
+        width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
+        explicit_encoder_settings=clip["settings"], **clip["params"])
 
 
 def cuda_ms(torch, fn, iters=20, fresh=None):
@@ -1568,6 +1637,7 @@ def phase_kernels(torch, dev, parent):
     phase_scan_kernels(torch, dev, res, real, parent)
     phase_picture_kernels(torch, dev, res)
     phase_resample_kernel(torch, dev, res, parent)
+    phase_me_sad_kernel(torch, dev, res)
     return res
 
 
@@ -1642,7 +1712,7 @@ def time_per_cu_calls(torch, inputs):
     ``inputs`` (n -> (orig, top, left, bitdepth, want), CPU tensors):
     host milliseconds a call (mean of 200 after a warm-up; the call ends
     with its result on the host), its device operations under
-    torch.profiler (one call), and whether it gives ``want``."""
+    torch.profiler (``device_ops``), and whether it gives ``want``."""
     import numpy as np
     from xvc_tpu_torch.codec.intra_search import device_prepass_satd
     dev = torch.device("cuda", 0)
@@ -1667,16 +1737,50 @@ def host_ms(torch, fn, iters=200):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ops(torch, fn):
-    """The device operations (kernels and copies) of one call of fn:
-    torch.profiler's raw device events."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ops(torch, fn, iters=5):
+    """The device operations (kernels and copies) of one call of fn (which
+    waits for its own result), from torch.profiler: 2 + ``iters`` calls
+    in one window, each in a range of its own, the first two not counted
+    (the first events of a window can be lost).  A device event counts
+    for the call whose range holds the CUDA runtime call that issued it
+    (by correlation id), or its own start where there is none.  The count
+    where every counted call saw the same number, not zero; else None
+    (events were lost: late in a long run a window can lose all of
+    them, so ``prefetch_call_ops`` counts in a child process)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for ev in prof.profiler.kineto_results.events()
-               if str(ev.device_type()).endswith("CUDA"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 + iters):
+            with record_function("device_ops.call"):
+                fn()
+                torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    ranges = sorted((ev.start_ns(), ev.end_ns()) for ev in events
+                    if ev.name() == "device_ops.call" and
+                    not str(ev.device_type()).endswith("CUDA"))[2:]
+    counts = [0] * len(ranges)
+    # the CUDA runtime calls on the host, by the correlation id their
+    # device operations carry
+    issued = {ev.correlation_id(): ev.start_ns() for ev in events
+              if not str(ev.device_type()).endswith("CUDA") and
+              ev.name().startswith("cuda")}
+    for ev in events:
+        if str(ev.device_type()).endswith("CUDA") and \
+                not getattr(ev, "is_user_annotation", bool)() and \
+                ev.name() != "device_ops.call":
+            t = issued.get(ev.correlation_id(), ev.start_ns())
+            for j, (a, b) in enumerate(ranges):
+                if a <= t <= b:
+                    counts[j] += 1
+    if len(ranges) != iters or len(set(counts)) != 1 or not counts[0]:
+        log("device_ops: the calls saw %r of the window's %d device "
+            "operations (events lost); not measured" % (
+                counts, sum(str(ev.device_type()).endswith("CUDA")
+                            for ev in events)))
+        return None
+    return counts[0]
 
 
 def phase_intra_satd_kernel(torch, dev, res, picture0, parent):
@@ -1797,7 +1901,7 @@ def phase_intra_satd_kernel(torch, dev, res, picture0, parent):
             ms=mine[n][0], device_ops=mine[n][1],
             parent_emulated_ms=host_ms(torch, emulated),
             parent_emulated_device_ops=device_ops(torch, emulated))
-        if mine[n][1] > 3:
+        if mine[n][1] is not None and mine[n][1] > 3:
             raise AssertionError("the per-CU call n=%d makes %d device "
                                  "operations" % (n, mine[n][1]))
     if parent is not None:
@@ -1829,11 +1933,11 @@ def phase_intra_satd_kernel(torch, dev, res, picture0, parent):
              for k, r in per_shape.items()}))
     log("phase 2: the per-CU call (device_prepass_satd) on the card, host "
         "ms a call and device operations: %s" % (
-            {n: "%.4f ms, %d ops; the parent's call emulated %.4f ms, %s "
+            {n: "%.4f ms, %s ops; the parent's call emulated %.4f ms, %s "
                 "ops%s" % (
                     r["ms"], r["device_ops"], r["parent_emulated_ms"],
                     r["parent_emulated_device_ops"],
-                    "; %s's own %.4f ms, %d ops" % (
+                    "; %s's own %.4f ms, %s ops" % (
                         parent, r["parent_ms"], r["parent_device_ops"])
                     if "parent_ms" in r else "")
              for n, r in per_cu_call.items()},))
@@ -1859,8 +1963,9 @@ print(json.dumps([[k, v] for k, v in times.items()]))
 
 def time_of_tree(torch, tree, name, inputs):
     """The timing function ``name`` of this file with the package of the
-    checkout ``tree``, in a child process, on the same inputs (saved
-    under build/).  Returns its result, keys as JSON gives them back."""
+    checkout ``tree`` (this one: ROOT), in a child process, on the same
+    inputs (saved under build/).  Returns its result, keys as JSON gives
+    them back."""
     path = os.path.join(ROOT, "build", "timed_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(inputs, path)
@@ -2360,6 +2465,184 @@ def phase_resample_kernel(torch, dev, res, parent):
                                "bound_ops")})
     log("phase 2: resample per picture (one launch, the frame store in, the "
         "packed output bytes out): %s" % json.dumps(pictures))
+
+
+def me_case(rng, w, h, bd, n):
+    """A 192x192 window, an h x w block and n offsets (the window's four
+    corners first), samples of ``bd`` bits with a run of extremes."""
+    import numpy as np
+    win_n = 192
+    win = rng.randint(0, 1 << bd, (win_n, win_n)).astype(np.int32)
+    orig = rng.randint(0, 1 << bd, (h, w)).astype(np.int32)
+    win[:h, :w] = (1 << bd) - 1
+    orig[::3] = 0
+    ys = rng.randint(0, win_n - h + 1, n)
+    xs = rng.randint(0, win_n - w + 1, n)
+    corners = [(0, 0), (0, win_n - w), (win_n - h, 0),
+               (win_n - h, win_n - w)]
+    for j, (y, x) in enumerate(corners[:n]):
+        ys[j], xs[j] = y, x
+    return win, orig, np.stack([ys, xs]).astype(np.int32)
+
+
+def me_sad_bound(win, orig, cands, fast, bd):
+    """me_sad's work on one sweep: the window samples the candidates'
+    blocks cover (each counted once; the even rows alone for SAD_FAST),
+    the block's rows the sum reads and the offsets, read once at the
+    packed element size, and the int32 sums written once; three
+    operations (difference, |.|, add) a sample of a candidate's block, and
+    the doubling and shift a candidate.  (bytes, operations)."""
+    import numpy as np
+    h, w = orig.shape
+    n = cands.shape[1]
+    rows = np.arange(0, h, 2 if fast else 1)
+    covered = np.zeros(win.shape, bool)
+    for y, x in cands.T:
+        covered[y + rows, x:x + w] = True
+    elem = 2 if bd <= 15 else 4
+    nbytes = (int(covered.sum()) + len(rows) * w + cands.size) * elem + 4 * n
+    return nbytes, n * (3 * len(rows) * w + 2)
+
+
+def phase_me_sad_kernel(torch, dev, res):
+    """The motion search's SAD sweep (me_sad) against its plain version on
+    the card, bit for bit: every CU shape from 4x4 to 64x64 with SAD and
+    SAD_FAST, at 8, 10, 12 and 16 bit (int16 and int32 packing) and 1,
+    44, 86 and 754 candidates, the window's corners among them, through
+    the per-prefetch call (``gpu/me.device_sads``: pinned staging, one
+    upload, one launch, one download).  me_sad is timed on the sweeps
+    of phase 9's qcif_me encode (``phase_me_sad_timing``)."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import me
+    rng = np.random.RandomState(SEED + 29)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = 0
+    i = 0
+    for w in ME_SIZES:
+        for h in ME_SIZES:
+            for fast in (False, True):
+                bd = ME_BITDEPTHS[i % 4]
+                n = ME_COUNTS[(i // 4) % 4]
+                i += 1
+                win, orig, cands = me_case(rng, w, h, bd, n)
+                got = me.device_sads(win, orig, cands, fast, bd, dev)
+                want = me.sad_sweep_plain(T(win), T(orig), T(cands), fast,
+                                          bd)
+                if not np.array_equal(got, want.cpu().numpy()):
+                    raise AssertionError("me_sad differs from its plain "
+                                         "version at %r" % (
+                                             (w, h, fast, bd, n),))
+                cases += 1
+    res["me_sad"] = dict(max_abs_err=0, cases=cases)
+    log("phase 2: me_sad bit-exact over %d cases (every CU shape, SAD and "
+        "SAD_FAST, 8-16 bit, 1-754 candidates, through the per-prefetch "
+        "call)" % cases)
+
+
+def record_sweeps(me, sweeps):
+    """Wrap ``me.device_sads`` so that every device sweep's inputs and
+    SADs are kept in ``sweeps``; returns the function that undoes it."""
+    real = me.device_sads
+
+    def recorded(window, orig, cands, fast, bitdepth, device):
+        sads = real(window, orig, cands, fast, bitdepth, device)
+        sweeps.append((window.copy(), orig.copy(), cands.copy(), fast,
+                       bitdepth, sads))
+        return sads
+
+    me.device_sads = recorded
+    return lambda: setattr(me, "device_sads", real)
+
+
+def prefetch_call_ops(torch, inputs):
+    """The device operations of one per-prefetch call (``device_sads``) on
+    ``inputs`` (window, orig, cands, fast, bitdepth), for a child process
+    (``time_of_tree``): late in a long run a profiler window can lose
+    every device event."""
+    from xvc_tpu_torch.gpu import me
+    dev = torch.device("cuda", 0)
+    win, orig, cands = (inputs[k].numpy() for k in ("window", "orig",
+                                                     "cands"))
+    call = lambda: me.device_sads(win, orig, cands, inputs["fast"],
+                                  inputs["bitdepth"], dev)
+    return {"device_operations": device_ops(torch, call)}
+
+
+def phase_me_sad_timing(torch, dev, res, sweeps):
+    """me_sad on the device sweeps of phase 9's qcif_me encode, as its TZ
+    search gave them (the box window, the block, the offsets): each
+    sweep's packed buffer on the card, the kernel held to its plain
+    version and to the SADs the encode got.  A sweep's kernel time (CUDA
+    events over every sweep, and device time from torch.profiler), plain
+    time and bound (``me_sad_bound``: the bytes and the operations of the
+    mean sweep) are means over the sweeps; the per-prefetch call
+    (``device_sads``: host ms, and its device operations in a child
+    process, ``prefetch_call_ops``) is timed on the sweep of median
+    candidate count."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import me
+    bufs, nbytes, ops, err = [], 0, 0, 0
+    for win, orig, cands, fast, bd, sads in sweeps:
+        dims = win.shape + orig.shape + (cands.shape[1],)
+        host = torch.empty(me.packed_size(*dims), dtype=me.packed_dtype(bd))
+        me.pack(win, orig, cands, host.numpy())
+        buf = host.to(dev)
+        out = torch.empty(dims[4], dtype=torch.int32, device=dev)
+        got = me.sad_sweep(buf, dims, fast, bd, out)
+        want = me.sad_sweep_plain(*me.unpack(buf, *dims), fast, bd)
+        err = max(err, max_err(torch, got, want))
+        if not np.array_equal(got.cpu().numpy(), sads):
+            raise AssertionError("me_sad differs from the SADs of the "
+                                 "encode on a %r sweep" % (dims,))
+        b, o = me_sad_bound(win, orig, cands, fast, bd)
+        nbytes += b
+        ops += o
+        bufs.append((buf, dims, fast, bd, out))
+    if err:
+        raise AssertionError("me_sad differs from its plain version on "
+                             "%s's sweeps" % ME_SWEEPS_CLIP)
+    k = len(bufs)
+    kernel = lambda: [me.sad_sweep(*b) for b in bufs]
+    plain = lambda: [me.sad_sweep_plain(*me.unpack(b[0], *b[1]), b[2], b[3])
+                     for b in bufs]
+    dev_ms = device_ms(torch, kernel, "sad", 3)
+    order = sorted(range(k), key=lambda j: sweeps[j][2].shape[1])
+    win, orig, cands, fast, bd, _ = sweeps[order[k // 2]]
+    call = lambda: me.device_sads(win, orig, cands, fast, bd, dev)
+    sizes = [s[0].size for s in sweeps]
+    counts = [s[2].shape[1] for s in sweeps]
+    res["me_sad"].update(
+        max_abs_err=err, sweeps=k,
+        shape="%s's %d device sweeps: %d-%d candidates (mean %.1f), box "
+        "windows of %d-%d samples (mean %.0f), blocks %s, %s" % (
+            ME_SWEEPS_CLIP, k, min(counts), max(counts), sum(counts) / k,
+            min(sizes), max(sizes), sum(sizes) / k,
+            sorted({"%dx%d" % s[1].shape[::-1] for s in sweeps}),
+            sorted({"SAD_FAST" if s[3] else "SAD" for s in sweeps})),
+        **bound(nbytes / k, ops / k),
+        ms=cuda_ms(torch, kernel, 5) / k,
+        device_ms=None if dev_ms is None else dev_ms / k,
+        plain_ms=cuda_ms(torch, plain, 3) / k, library_ms=None,
+        per_prefetch_call=dict(
+            candidates=cands.shape[1], window=list(win.shape),
+            block=list(orig.shape), host_ms=host_ms(torch, call),
+            device_operations=dict(time_of_tree(
+                torch, ROOT, "prefetch_call_ops", dict(
+                    window=torch.from_numpy(win),
+                    orig=torch.from_numpy(orig),
+                    cands=torch.from_numpy(cands), fast=fast,
+                    bitdepth=bd)))["device_operations"]))
+    r = res["me_sad"]
+    log("phase 9: me_sad on %s: kernel %.5f ms a sweep (device %s ms), "
+        "plain %.4f ms, bound %.7f ms (%s; %d bytes, %d operations a "
+        "sweep), bit-exact to its plain version and to the encode's SADs; "
+        "the per-prefetch call (%d candidates, a %dx%d window) %.4f ms on "
+        "the host, %s device operations a call" % (
+            r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+            r["bound_ms"], r["bound_by"], r["bound_bytes"], r["bound_ops"],
+            cands.shape[1], win.shape[0], win.shape[1],
+            r["per_prefetch_call"]["host_ms"],
+            r["per_prefetch_call"]["device_operations"]))
 
 
 def read_hashes(path):
@@ -3294,6 +3577,148 @@ def phase_python_cu(torch, dev):
     return out
 
 
+def phase_python_cu_inter(torch, dev):
+    """The Python CU encoder's inter half on the card (PYTHON_CU_INTER,
+    XVC_ME=jax): qcif_me from crops of the first pictures of hd720_ld as
+    the card decodes them (their hashes checked), ra64x48_me from
+    tests/data/ra64x48_in.yuv, through xvc_tpu_torch.api.EncoderSession;
+    each stream held to the JAX package's
+    (tests/data/bench/python_cu_inter.json), its TZ search's prefetches and
+    device sweeps to the JAX package's counts there, me_sad's launches
+    (set to 0 just before the encode, read just after) to the device
+    sweeps (gpu/me.STATS), and the stream decoded on the card to the
+    encoder's reconstruction.  Prints ms per picture, the prefetches per
+    picture and their device and host shares, candidates per device call,
+    the seconds and ms a call of the device route (span
+    encode.me_prefetch), and the device's operations and idle share of the
+    encode under torch.profiler.  Returns the rows and the device sweeps
+    of ME_SWEEPS_CLIP's encode (``record_sweeps``), on which me_sad is
+    timed."""
+    from xvc_tpu_torch import api, kernels, profiling
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.nal import write_nal_units
+    stream = "bench/hd720_ld.xvc"
+    with open(os.path.join(DATA, stream), "rb") as f:
+        decoded = decode_stream(f.read(), device=dev)
+    hashes, _ = read_hashes(os.path.join(DATA, "bench",
+                                         "hd720_ld_dec.sha256"))
+    with open(os.path.join(DATA, "bench", "python_cu_inter.json")) as f:
+        refs = json.load(f)
+    out, sweeps = {}, []
+    for name, clip in PYTHON_CU_INTER.items():
+        w, h, n = clip["width"], clip["height"], clip["pictures"]
+        fs = w * h * 3 // 2
+        if clip["source"] == stream:
+            if [hashlib.sha256(p.bytes).hexdigest()
+                    for p in decoded[:n]] != hashes[:n]:
+                raise AssertionError("hd720_ld: the card's decode differs "
+                                     "from its hash list")
+            yuv = crop_pictures([p.bytes for p in decoded[:n]], 1280, 720,
+                                w, h)
+        else:
+            with open(os.path.join(DATA, clip["source"]), "rb") as f:
+                yuv = f.read()[:n * fs]
+
+        def encode():
+            ses = api.EncoderSession(python_cu_inter_params(api, name),
+                                     device=dev)
+            nals = []
+            for i in range(n):
+                nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+            return ses, nals + ses.flush()
+
+        saved = {k: os.environ.get(k) for k in clip["env"]}
+        os.environ.update(clip["env"])
+        undo = record_sweeps(me, sweeps) if name == ME_SWEEPS_CLIP else None
+        try:
+            profiling.reset()
+            profiling.enable()
+            torch.cuda.synchronize()
+            me.reset_stats()
+            kernels.reset_launches()
+            result = []
+            t0 = time.perf_counter()
+            traced_s, busy_s, ops = device_busy(
+                torch, lambda: result.append(encode()))
+            dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            stats = dict(me.STATS)
+            spans = profiling.report()
+        finally:
+            if undo is not None:
+                undo()
+            profiling.enable(False)
+            profiling.reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        ses, nals = result[0]
+        data = write_nal_units(nals)
+        ref = refs[name]
+        if hashlib.sha256(data).hexdigest() != ref["sha256"]:
+            raise AssertionError("%s: the stream differs from the JAX "
+                                 "package's (%d bytes against %d)" % (
+                                     name, len(data), ref["bytes"]))
+        for k in PYTHON_CU_INTER_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError("kernel %s was not launched by the %s "
+                                     "encode" % (k, name))
+        if launches["me_sad"] != stats["device_calls"] or any(
+                stats[k] != v for k, v in ref["me"].items()):
+            raise AssertionError(
+                "%s: me_sad launches %d, device sweeps %r, the JAX "
+                "package's %r" % (name, launches["me_sad"], stats,
+                                  ref["me"]))
+        pics = decode_stream(data, device=dev)
+        if len(pics) != n or not all(p.conforming for p in pics) or \
+                [p.bytes for p in pics] != ses.rec_pictures:
+            raise AssertionError("%s: the card's decode differs from the "
+                                 "encoder's reconstruction" % name)
+        pre = spans.get("encode.me_prefetch", {"seconds": 0.0, "calls": 0})
+        calls = stats["device_calls"]
+        row = dict(
+            width=w, height=h, pictures=n, seconds=dt,
+            ms_per_picture=dt * 1e3 / n, bytes=len(data), equal=True,
+            launches={k: v for k, v in launches.items() if v},
+            me=stats, prefetches_per_picture=stats["prefetches"] / n,
+            device_share=calls / stats["prefetches"],
+            host_routed_share=stats["host_routed"] / stats["prefetches"],
+            planned_device_share=PYTHON_CU_INTER_PLANNED_DEVICE_SHARE[name],
+            candidates_per_device_call=stats["device_candidates"] / calls,
+            device_route_seconds=pre["seconds"],
+            device_route_ms_a_call=pre["seconds"] * 1e3 / pre["calls"]
+            if pre["calls"] else None,
+            device_operations_a_device_call=ops / calls if ops else None,
+            spans=spans, traced_encode_seconds=traced_s,
+            device_busy_seconds=busy_s, device_operations=ops,
+            device_idle_share=None if busy_s is None else
+            1.0 - busy_s / traced_s)
+        out[name] = row
+        log("phase 9: %s (%dx%d, %d pictures, the Python CU encoder's inter "
+            "half on the card, XVC_ME=jax): %.1f ms/picture, %d bytes equal "
+            "to the JAX package's stream; decoded on the card, conforming "
+            "and equal to the encoder's reconstruction; %.1f prefetches a "
+            "picture, %.4f of them on the device (%d me_sad launches; the "
+            "plan measured %.3f), %.4f routed to the host, %.1f candidates "
+            "a device call; the device route %.4f s, %s ms a call; %s "
+            "device operations in the encode (%s a device call, deblock's "
+            "included); idle share %s (traced encode %.3f s, device busy "
+            "%s s); spans (s): %s" % (
+                name, w, h, n, row["ms_per_picture"], len(data),
+                row["prefetches_per_picture"], row["device_share"],
+                launches["me_sad"], row["planned_device_share"],
+                row["host_routed_share"],
+                row["candidates_per_device_call"], pre["seconds"],
+                row["device_route_ms_a_call"], ops,
+                row["device_operations_a_device_call"],
+                row["device_idle_share"], traced_s, busy_s,
+                {k: v["seconds"] for k, v in spans.items()}))
+    return out, sweeps
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -3352,6 +3777,8 @@ def main():
     enc = phase("6", phase_encode, torch, dev)
     resampling = phase("7", phase_resampling, torch)
     python_cu = phase("8", phase_python_cu, torch, dev)
+    python_cu_inter, sweeps = phase("9", phase_python_cu_inter, torch, dev)
+    phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -3371,6 +3798,10 @@ def main():
                         "per_plane", "per_picture", "synthetic_cases")},
                     "lookahead": look, "encode": enc,
                     "python_cu": python_cu,
+                    "python_cu_inter": python_cu_inter,
+                    "me_sad": {k: res["me_sad"][k] for k in (
+                        "cases", "sweeps", "device_ms",
+                        "per_prefetch_call")},
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",
                         "log2_cpu_card_differ", "log2_table_card_differ")},
@@ -3412,6 +3843,8 @@ def main():
     launches["satd"] = enc["speed3"]["launches"]["satd"]
     launches["txrd"] = enc["speed3"]["launches"]["txrd"]
     launches["resample"] = resampling[SPLICE]["launches"]["resample"]
+    launches["me_sad"] = \
+        python_cu_inter[ME_SWEEPS_CLIP]["launches"]["me_sad"]
     # library_ms: no single PyTorch call computes any of these functions
     # on CUDA (gather + wrapped int16 filters, int32 transform with
     # per-block bases, the jobs of a picture derived from its parse
@@ -3420,7 +3853,8 @@ def main():
     # Hadamard + |.| sum, every intra mode predicted with its SATD summed,
     # the sequential intra scans, a top-8 screen with
     # a per-block integer transform, quantization and a rate proxy summed
-    # per candidate with a keep-best selection); but resample's, the JAX
+    # per candidate with a keep-best selection, the SAD of one block at
+    # each of a list of window offsets); but resample's, the JAX
     # formulation as two float64 torch.matmul calls on dense tap matrices
     # with the shifts and clips (dense_resample)
     log(json.dumps({"kernels": [

@@ -7,7 +7,10 @@ tests/test_torch_encode.py holds the two equal).  ``PYTHON_CU`` and
 ``crop_pictures`` are the recipe of phase 8's clips, and
 ``make_python_cu_refs`` records the JAX package's streams of them
 (tests/data/bench/python_cu_enc.json; the script's copy is held equal by
-tests/test_torch_python_cu.py).
+tests/test_torch_python_cu.py).  ``PYTHON_CU_INTER`` and
+``make_python_cu_inter_refs`` do the same for phase 9's inter clips
+(tests/data/bench/python_cu_inter.json; held equal by
+tests/test_torch_python_cu_inter.py).
 """
 import os
 
@@ -264,5 +267,111 @@ def make_python_cu_refs(bench_dir):
             psnr=[list(map(float, s.psnr)) for s in ses.nal_stats
                   if s.nal_unit_type != SEGMENT_HEADER])
     with open(os.path.join(bench_dir, "python_cu_enc.json"), "w") as f:
+        json.dump(refs, f, indent=1)
+        f.write("\n")
+
+
+# The Python CU encoder's inter clips (chip_smoke.py phase 9, which carries
+# its own copy of this table), both under XVC_ME=jax, qp 32, checksum mode
+# 1.  qcif_me: the top-left 176x144 crops of the first two pictures of
+# tests/data/bench/hd720_ld.xvc as decoded, low delay with one reference,
+# speed mode 2, the uni-prediction search range set to 64 so that the TZ
+# search's sweeps fit the device window (at the default 96-256 they never
+# do).  ra64x48_me: the first five pictures of tests/data/ra64x48_in.yuv,
+# random access with sub-GOP 4 and two references (bi-prediction), the
+# default settings.
+PYTHON_CU_INTER = {
+    "qcif_me": dict(
+        source="bench/hd720_ld.xvc", width=176, height=144, pictures=2,
+        params=dict(num_ref_pics=1, sub_gop_length=1, low_delay=1,
+                    speed_mode=2),
+        settings="inter_search_range_uni_max 64 inter_search_range_uni_min 64",
+        env={"XVC_ME": "jax"}),
+    "ra64x48_me": dict(
+        source="ra64x48_in.yuv", width=64, height=48, pictures=5,
+        params=dict(num_ref_pics=2, sub_gop_length=4), settings="",
+        env={"XVC_ME": "jax"}),
+}
+
+
+def python_cu_inter_input(name, data_dir, decode=None):
+    """The raw 4:2:0 bytes of a PYTHON_CU_INTER clip.  ``decode(data)``
+    returns the packed pictures of a stream (the JAX package's host decode
+    when None)."""
+    clip = PYTHON_CU_INTER[name]
+    w, h, n = clip["width"], clip["height"], clip["pictures"]
+    with open(os.path.join(data_dir, clip["source"]), "rb") as f:
+        data = f.read()
+    if not clip["source"].endswith(".xvc"):
+        return data[:n * w * h * 3 // 2]
+    if decode is None:
+        pics = [p.bytes for p in jax_session_decode(data)]
+    else:
+        pics = decode(data)
+    return crop_pictures(pics[:n], 1280, 720, w, h)
+
+
+def python_cu_inter_params(module, name):
+    """EncoderParameters of a PYTHON_CU_INTER clip for ``module``."""
+    clip = PYTHON_CU_INTER[name]
+    return module.EncoderParameters(
+        width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
+        explicit_encoder_settings=clip["settings"], **clip["params"])
+
+
+def make_python_cu_inter_refs(data_dir):
+    """Write ``<data_dir>/bench/python_cu_inter.json``: for each
+    PYTHON_CU_INTER clip, the sha256 and byte count of the JAX package's
+    length-prefixed stream (its EncoderSession under the clip's
+    environment), every NAL's sha256, each picture's PSNR, and how its
+    ``DeviceSadTable.prefetch`` calls went: all calls, those its device
+    function evaluated and their new candidates.  About six minutes on one
+    CPU core."""
+    import hashlib
+    import json
+    from xvc_tpu import api as japi
+    from xvc_tpu.nal import write_nal_units
+    from xvc_tpu.tpu import me as jme
+    refs = {"clips": {n: dict(c) for n, c in PYTHON_CU_INTER.items()}}
+    real = jme.DeviceSadTable.prefetch
+    for name, clip in PYTHON_CU_INTER.items():
+        counts = dict(prefetches=0, device_calls=0, device_candidates=0)
+
+        def counted(table, qp, mvs):
+            counts["prefetches"] += 1
+            before = len(table.cache)
+            real(table, qp, mvs)
+            if len(table.cache) > before:
+                counts["device_calls"] += 1
+                counts["device_candidates"] += len(table.cache) - before
+
+        yuv = python_cu_inter_input(name, data_dir)
+        w, h, n = clip["width"], clip["height"], clip["pictures"]
+        saved = {k: os.environ.get(k) for k in clip["env"]}
+        os.environ.update(clip["env"])
+        jme.DeviceSadTable.prefetch = counted
+        try:
+            ses = japi.EncoderSession(python_cu_inter_params(japi, name))
+            fs = w * h * 3 // 2
+            nals = []
+            for i in range(n):
+                nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+            nals += ses.flush()
+        finally:
+            jme.DeviceSadTable.prefetch = real
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        data = write_nal_units(nals)
+        refs[name] = dict(
+            sha256=hashlib.sha256(data).hexdigest(), bytes=len(data),
+            nal_sha256=[hashlib.sha256(x).hexdigest() for x in nals],
+            psnr=[list(map(float, s.psnr)) for s in ses.nal_stats
+                  if s.nal_unit_type != SEGMENT_HEADER],
+            me=counts)
+    with open(os.path.join(data_dir, "bench", "python_cu_inter.json"),
+              "w") as f:
         json.dump(refs, f, indent=1)
         f.write("\n")

@@ -13,8 +13,9 @@ streams against the same session on the CPU device (no sticky CUDA
 error), the lookahead on the card against the same call on the CPU
 device, the resampler's kernel against its plain version, output
 conversion against the goldens, threaded decodes against sequential
-ones, and the encoders (speed 3 on the native encoder, the lookahead on
-the Python CU encoder) against the CPU device.
+ones, the motion search's SAD sweep against its plain version, and the
+encoders (speed 3 on the native encoder, the lookahead and the device
+motion estimation on the Python CU encoder) against the CPU device.
 """
 import hashlib
 
@@ -51,6 +52,43 @@ def cuda():
 
 def _to(dev, *arrays):
     return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+
+
+def _device_ops_per_call(fn, iters=4):
+    """The device operations (kernels and copies) of each of ``iters``
+    calls of fn (which waits for its own result) under torch.profiler:
+    each call in a range of its own, after two calls in the same window
+    that are not counted (the first events of a window can be lost).  A
+    device event counts for the call whose range holds the CUDA runtime
+    call that issued it (by correlation id), or its own start where there
+    is none."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 + iters):
+            with record_function("device_ops.call"):
+                fn()
+                torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    ranges = sorted((ev.start_ns(), ev.end_ns()) for ev in events
+                    if ev.name() == "device_ops.call" and
+                    not str(ev.device_type()).endswith("CUDA"))[2:]
+    assert len(ranges) == iters
+    counts = [0] * iters
+    # the CUDA runtime calls on the host, by the correlation id their
+    # device operations carry
+    issued = {ev.correlation_id(): ev.start_ns() for ev in events
+              if not str(ev.device_type()).endswith("CUDA") and
+              ev.name().startswith("cuda")}
+    for ev in events:
+        if str(ev.device_type()).endswith("CUDA") and \
+                not getattr(ev, "is_user_annotation", bool)() and \
+                ev.name() != "device_ops.call":
+            t = issued.get(ev.correlation_id(), ev.start_ns())
+            for j, (a, b) in enumerate(ranges):
+                if a <= t <= b:
+                    counts[j] += 1
+    return counts
 
 
 def _positions(B, bw, bh, nx):
@@ -517,10 +555,9 @@ def test_intra_satd_kernel_at_the_per_cu_shape(cuda, n, bd):
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_per_cu_call_is_one_launch_between_two_copies(cuda, n):
     """One device_prepass_satd call on the card: one intra_satd launch,
-    no satd launch, and at most 3 device operations (the upload, the
-    kernel, the download) in a torch.profiler window; the CPU device's
-    costs."""
-    from torch.profiler import ProfilerActivity, profile
+    no satd launch, and 3 device operations (the upload, the kernel, the
+    download) in each call's range of a torch.profiler window; the CPU
+    device's costs."""
     from xvc_tpu_torch.codec.intra_search import device_prepass_satd
     from xvc_tpu_torch.gpu import intra_satd
     orig, top, left = intra_satd.synthetic_inputs(
@@ -530,15 +567,12 @@ def test_per_cu_call_is_one_launch_between_two_copies(cuda, n):
     device_prepass_satd(*args, cuda)  # first-use costs
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = device_prepass_satd(*args, cuda)
-        torch.cuda.synchronize()
+    got = device_prepass_satd(*args, cuda)
     assert kernels.LAUNCHES["intra_satd"] == 1
     assert kernels.LAUNCHES["satd"] == 0
-    ops = [ev for ev in prof.profiler.kineto_results.events()
-           if str(ev.device_type()).endswith("CUDA")]
-    assert 1 <= len(ops) <= 3, [ev.name() for ev in ops]
     np.testing.assert_array_equal(got, want)
+    assert _device_ops_per_call(
+        lambda: device_prepass_satd(*args, cuda)) == [3] * 4
 
 
 def test_make_intra_satd_fn_on_card_never_predicts(cuda, monkeypatch):
@@ -1426,3 +1460,98 @@ def test_threaded_decode_on_card_equals_sequential(cuda, monkeypatch, name,
     for pics in (thr, cpu):
         assert [(p.poc, p.conforming, p.bytes) for p in pics] == \
             [(p.poc, p.conforming, p.bytes) for p in seq]
+
+
+def _me_case(seed, w, h, bd, n):
+    rng = np.random.RandomState(seed)
+    win = rng.randint(0, 1 << bd, (192, 192)).astype(np.int32)
+    orig = rng.randint(0, 1 << bd, (h, w)).astype(np.int32)
+    win[:h, :w] = (1 << bd) - 1
+    orig[::3] = 0
+    ys = rng.randint(0, 192 - h + 1, n)
+    xs = rng.randint(0, 192 - w + 1, n)
+    for j, (y, x) in enumerate([(0, 0), (0, 192 - w), (192 - h, 0),
+                                (192 - h, 192 - w)][:n]):
+        ys[j], xs[j] = y, x
+    return win, orig, np.stack([ys, xs]).astype(np.int32)
+
+
+@pytest.mark.parametrize("bd", [8, 16])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("w,h,n", [(4, 4, 1), (8, 16, 44), (16, 16, 86),
+                                   (32, 8, 754), (64, 64, 86),
+                                   (16, 64, 44)])
+def test_me_sad_kernel_matches_plain(cuda, w, h, n, fast, bd):
+    """The motion search's SAD sweep against its plain version on the
+    card, bit for bit, one launch: a warp a candidate up to 256 samples,
+    a CTA a candidate above; int16 packing at 8 bit, int32 at 16."""
+    from xvc_tpu_torch.gpu import me
+    win, orig, cands = _me_case(w * 7 + h + n, w, h, bd, n)
+    want = me.sad_sweep_plain(*_to(cuda, win, orig, cands), fast,
+                              bd).cpu().numpy()
+    kernels.reset_launches()
+    np.testing.assert_array_equal(
+        me.device_sads(win, orig, cands, fast, bd, cuda), want)
+    assert kernels.LAUNCHES["me_sad"] == 1
+    # the wrapper on a packed buffer on the card, into a longer out
+    dims = (192, 192, h, w, n)
+    host = torch.empty(me.packed_size(*dims), dtype=me.packed_dtype(bd))
+    me.pack(win, orig, cands, host.numpy())
+    out = torch.full((n + 5,), -1, dtype=torch.int32, device=cuda)
+    got = me.sad_sweep(host.to(cuda), dims, fast, bd, out)
+    assert kernels.LAUNCHES["me_sad"] == 2
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert (out[n:] == -1).all()
+
+
+def test_me_prefetch_call_is_one_launch_between_two_copies(cuda):
+    """One device_sads call on the card (a DeviceSadTable prefetch): one
+    me_sad launch and 3 device operations (upload, kernel, download) in
+    each call's range of a torch.profiler window; the CPU device's
+    SADs."""
+    from xvc_tpu_torch.gpu import me
+    args = _me_case(5, 16, 16, 10, 86) + (True, 10)
+    want = me.device_sads(*args, "cpu")
+    me.device_sads(*args, cuda)  # first-use costs
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = me.device_sads(*args, cuda)
+    assert kernels.LAUNCHES["me_sad"] == 1
+    np.testing.assert_array_equal(got, want)
+    assert _device_ops_per_call(
+        lambda: me.device_sads(*args, cuda)) == [3] * 4
+
+
+def test_python_cu_inter_encode_on_card_matches_cpu(cuda, monkeypatch):
+    """ra64x48's first three pictures through the Python CU encoder's
+    inter half under XVC_ME=jax on the card: the CPU device's NALs and
+    reconstruction, as many me_sad launches as device sweeps (some), and
+    its decode on the card, three conforming pictures, equal to the
+    reconstruction (of this GOP the session keeps the first two, as the
+    JAX package's does)."""
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.nal import write_nal_units
+    monkeypatch.setenv("XVC_ME", "jax")
+    w, h, f = 64, 48, 3
+    yuv = read_data("ra64x48_in.yuv")[:f * w * h * 3 // 2]
+
+    def enc(dev):
+        ses = api.EncoderSession(api.EncoderParameters(
+            width=w, height=h, qp=32, num_ref_pics=2, sub_gop_length=2,
+            checksum_mode=1), device=dev)
+        fs = w * h * 3 // 2
+        nals = []
+        for i in range(f):
+            nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+        return nals + ses.flush(), ses.rec_pictures
+
+    want, want_rec = enc("cpu")
+    me.reset_stats()
+    kernels.reset_launches()
+    got, rec = enc(cuda)
+    assert got == want and rec == want_rec
+    assert kernels.LAUNCHES["me_sad"] == me.STATS["device_calls"] > 0
+    pics = decode_stream(write_nal_units(got), device=cuda)
+    assert len(pics) == f and all(p.conforming for p in pics)
+    assert rec and [p.bytes for p in pics][:len(rec)] == rec

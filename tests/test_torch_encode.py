@@ -33,7 +33,7 @@ from xvc_tpu.nal import write_nal_units
 from xvc_tpu_torch import api
 from xvc_tpu_torch import constants as k
 from xvc_tpu_torch.codec.decoder import decode_stream
-from xvc_tpu_torch.codec.encoder import Encoder, encode_stream
+from xvc_tpu_torch.codec.encoder import encode_stream
 from xvc_tpu_torch.codec.encoder_settings import EncoderSettings
 
 from .encode_clips import (HD720_S3, make_hd720_s3, txrd_clip,
@@ -271,14 +271,14 @@ REJECTED = {
     "tile_rows": (dict(explicit_encoder_settings="tile_rows 2"), "item 4"),
     "multihost_gop": (dict(explicit_encoder_settings="multihost_gop 1"),
                       "item 7"),
-    "python_path_num_ref_pics_1": (dict(
-        num_ref_pics=1, low_delay=1, sub_gop_length=1,
-        explicit_encoder_settings="tpu_intra_lookahead 1"), "item 3"),
 }
 ENCODED = {
     "tpu_intra_lookahead": dict(
         num_ref_pics=0, sub_gop_length=1, speed_mode=2, checksum_mode=1,
         explicit_encoder_settings="tpu_intra_lookahead 1"),
+    "python_path_num_ref_pics_1": dict(
+        num_ref_pics=1, low_delay=1, sub_gop_length=1, speed_mode=2,
+        checksum_mode=1, explicit_encoder_settings="tpu_intra_lookahead 1"),
 }
 
 
@@ -305,19 +305,18 @@ def test_settings_that_need_the_python_cu_encoder_raise(name):
 
 @pytest.mark.parametrize("switch", ["XVC_ME", "XVC_INTRA_PREPASS"])
 def test_jax_device_switches_raise(switch, monkeypatch):
-    """XVC_ME=jax (device motion estimation, the Python CU encoder's
-    inter half) is refused; under XVC_INTRA_PREPASS=jax both packages
-    code an all-intra clip with their Python CU encoders and the per-CU
-    device SATD pre-pass, to the same bytes."""
+    """Under XVC_ME=jax (device motion estimation) both packages code a
+    low-delay clip with their Python CU encoders, the TZ search's SAD
+    sweeps on the device; under XVC_INTRA_PREPASS=jax an all-intra clip
+    with the per-CU device SATD pre-pass.  Both to the same bytes through
+    ``encode_stream``."""
     monkeypatch.setenv(switch, "jax")
-    if switch == "XVC_ME":
-        with pytest.raises(NotImplementedError, match="item 3"):
-            Encoder(8, device="cpu")
-        return
     w, h, f = 32, 32, 2
     yuv = txrd_clip(w, h, f)
     kw = dict(qp=32, sub_gop_length=1, num_ref_pics=0, checksum_mode=1,
               speed_mode=2)
+    if switch == "XVC_ME":
+        kw.update(num_ref_pics=1, low_delay=1)
     want = write_nal_units(jax_encode_stream(yuv, w, h, f, **kw))
     got = write_nal_units(encode_stream(yuv, w, h, f, device="cpu", **kw))
     assert got == want

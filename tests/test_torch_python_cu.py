@@ -259,14 +259,6 @@ def test_device_prepass_equals_the_jax_and_native_prepass(n, bitdepth):
         assert np.array_equal(got, host)
 
 
-def test_the_inter_search_is_guarded():
-    """Inter pictures never reach the Python CU encoder (the session
-    refuses them); its search raises if one does."""
-    from xvc_tpu_torch.codec.cu_encoder import CuEncoder
-    with pytest.raises(NotImplementedError, match="item 3"):
-        CuEncoder._compress_inter_pic(None, None, None, 0, None, None)
-
-
 def _chip_smoke():
     import importlib.util
     import os

@@ -3,10 +3,10 @@
 Copy of ``xvc_tpu/api.py`` over this package's encoder and decoder:
 ``EncoderSession(params, device=None)`` encodes with the native CTU
 search, or the Python CU encoder where the JAX package takes its own
-(``tpu_intra_lookahead``, ``XVC_INTRA_PREPASS=jax``,
-``XVC_ENC_NATIVE=0``; all-intra sessions only), and runs the encoder's
-device stages (the split DP, the transform-RD prepass, the lookahead,
-the per-CU SATD pre-pass, the Python path's deblocking) on the card
+(``tpu_intra_lookahead``, ``XVC_INTRA_PREPASS=jax``, ``XVC_ME=jax``,
+``XVC_ENC_NATIVE=0``), and runs the encoder's device stages (the split
+DP, the transform-RD prepass, the lookahead, the per-CU SATD pre-pass,
+the motion search's SAD sweeps, the Python path's deblocking) on the card
 unless ``device`` names another; what the port lacks raises
 ``NotImplementedError`` when the session is made
 (``codec/encoder.py``).  ``DecoderSession(params, device=None)`` decodes

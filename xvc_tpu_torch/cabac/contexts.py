@@ -5,9 +5,8 @@ Behavioral equivalent of the reference context system
 array; a "context" is an integer index into it, which maps directly onto
 the native C engine.  Copy of the layout and initialization half of
 ``xvc_tpu/cabac/contexts.py``, and of the context selection of the
-syntax elements the Python CU encoder's intra half counts
-(``syntax/writer.py``); the parse and the residual coder select their
-contexts natively.
+syntax elements the Python CU encoder counts (``syntax/writer.py``); the
+parse and the residual coder select their contexts natively.
 """
 import numpy as np
 
@@ -142,6 +141,10 @@ _MODE_TO_CTX_EXT = np.array(
 _MODE_TO_CTX = np.array(
     [1, 1] + [2] * 17 + [3] * 16, dtype=np.int32)
 
+def _size_to_log2(s):
+    return s.bit_length() - 1
+
+
 # (qp, pic_type, alt_residual) -> initialized states; the workers of a
 # threaded decode may fill one key twice, with equal states, and copy out
 _RESET_CACHE = {}
@@ -149,7 +152,8 @@ _RESET_CACHE = {}
 
 class CabacContexts:
     """Flat context-state array, initialized per picture, and the
-    selection of the split and intra-mode contexts."""
+    selection of the split, intra-mode and inter (skip, direction,
+    full-pel, affine) contexts."""
 
     def __init__(self, restrictions):
         self.restr = restrictions
@@ -223,6 +227,23 @@ class CabacContexts:
 
     # ---- context selection (returns integer index into self.state) ----
 
+    def get_affine_ctx(self, cu_left, cu_above):
+        offset = 0
+        if cu_left is not None and cu_left.use_affine:
+            offset += 1
+        if cu_above is not None and cu_above.use_affine:
+            offset += 1
+        return OFFSETS["affine_flag"] + offset
+
+    def get_skip_flag_ctx(self, cu_left, cu_above):
+        offset = 0
+        if not self.restr.disable_cabac_skip_flag_ctx:
+            if cu_left is not None and cu_left.skip_flag:
+                offset += 1
+            if cu_above is not None and cu_above.skip_flag:
+                offset += 1
+        return OFFSETS["cu_skip_flag"] + offset
+
     def get_split_binary_ctx(self, cu):
         left, above = cu.get_cu_left(), cu.get_cu_above()
         depth = (cu.depth << 1) + cu.binary_depth
@@ -265,3 +286,21 @@ class CabacContexts:
         if self.restr.disable_ext2_intra_67_modes:
             return OFFSETS["intra_pred_luma"] + int(_MODE_TO_CTX[intra_mode])
         return OFFSETS["intra_pred_luma"] + int(_MODE_TO_CTX_EXT[intra_mode])
+
+    def get_inter_dir_bi_ctx(self, cu):
+        if self.restr.disable_cabac_inter_dir_ctx:
+            return OFFSETS["inter_dir"]
+        idx = min(cu.depth, 4)
+        if not self.restr.disable_ext_cabac_alt_inter_dir_ctx:
+            log2_size = (_size_to_log2(cu.width) +
+                         _size_to_log2(cu.height) + 1) >> 1
+            idx = min(max(7 - log2_size, 0), 3)
+        return OFFSETS["inter_dir"] + idx
+
+    def get_inter_fullpel_mv_ctx(self, cu_left, cu_above):
+        offset = 0
+        if cu_left is not None and cu_left.fullpel_mv:
+            offset += 1
+        if cu_above is not None and cu_above.fullpel_mv:
+            offset += 1
+        return OFFSETS["inter_fullpel_mv"] + offset

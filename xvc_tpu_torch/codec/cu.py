@@ -11,10 +11,11 @@ replay path (``gpu/recon.py``) also rebuilds the CU tree (``native/pic.py``
 (``codec/cu_encoder.py``) builds and searches one.  Neighbour queries go
 through the 4x4-granular CU table below (``PictureData::GetCuAt``
 semantics, including the +1 padded stride that guards below/right
-lookups).  The CU fields of the encoder's intra half (skip and merge
-flags, transform selection, coefficients, qp) are set on the encoder's
-CUs only (``PictureData.init(..., encoder=True)``); the inter half's
-(MVD, MVP index, the inter neighbour walks) and tiles are not ported.
+lookups).  The CU fields of the encoder (skip and merge flags, MVDs and
+MVP indices, transform selection, coefficients, qp) are set on the
+encoder's CUs only (``PictureData.init(..., encoder=True)``); the inter
+neighbour walks serve its motion search (``inter_mv.py``).  Tiles are
+not ported.
 """
 import numpy as np
 
@@ -52,8 +53,9 @@ class CodingUnit:
         "intra_mode_chroma", "inter_dir", "use_affine", "use_lic", "mv",
         "ref_idx", "cbf",
         # the encoder's
-        "qp", "skip_flag", "merge_flag", "root_cbf", "transform_skip",
-        "dc_only", "tx_type", "tx_select_idx", "coeff",
+        "qp", "skip_flag", "merge_flag", "merge_idx", "fullpel_mv", "mvd",
+        "mvp_idx", "root_cbf", "transform_skip", "dc_only", "tx_type",
+        "tx_select_idx", "coeff",
     )
 
     def reset_prediction_state(self):
@@ -64,11 +66,15 @@ class CodingUnit:
         self.inter_dir = k.InterDir.L0
         self.skip_flag = False
         self.merge_flag = False
+        self.merge_idx = -1
+        self.fullpel_mv = False
         self.use_affine = False
         self.use_lic = False
         # mv[list][corner] = (x, y) in 1/16-pel
         self.mv = [[(0, 0)] * 4, [(0, 0)] * 4]
+        self.mvd = [[(0, 0), (0, 0)], [(0, 0), (0, 0)]]
         self.ref_idx = [0, 0]
+        self.mvp_idx = [0, 0]
         self.root_cbf = False
         self.cbf = [False, False, False]
         self.transform_skip = [False, False, False]
@@ -171,6 +177,36 @@ class CodingUnit:
         return self.pic.get_cu_at(self.cu_tree,
                                   self.pos_x - k.MIN_BLOCK_SIZE,
                                   self.pos_y + self.height)
+
+    def get_cu_with_corner(self, direction):
+        """direction: one of 'above_left', 'above', 'above_corner',
+        'above_right', 'left', 'left_corner', 'left_below'.
+        Returns (cu, mv_corner) (ref: coding_unit.cc:179-225)."""
+        m = k.MIN_BLOCK_SIZE
+        if direction == "above_left":
+            cu = self.get_cu_above_left()
+            x, y = self.pos_x - m, self.pos_y - m
+        elif direction == "above":
+            cu = self.get_cu_above()
+            x, y = self.pos_x, self.pos_y - m
+        elif direction == "above_corner":
+            cu = self.get_cu_above_corner()
+            x, y = self.pos_x + self.width - m, self.pos_y - m
+        elif direction == "above_right":
+            cu = self.get_cu_above_right()
+            x, y = self.pos_x + self.width, self.pos_y - m
+        elif direction == "left":
+            cu = self.get_cu_left()
+            x, y = self.pos_x - m, self.pos_y
+        elif direction == "left_corner":
+            cu = self.get_cu_left_corner()
+            x, y = self.pos_x - m, self.pos_y + self.height - m
+        else:  # left_below
+            cu = self.get_cu_left_below()
+            x, y = self.pos_x - m, self.pos_y + self.height
+        if cu is None:
+            return None, 0
+        return cu, cu.get_mv_corner(x, y)
 
     def get_cu_size_above_right(self, comp):
         """(ref: coding_unit.cc:304-319)"""
@@ -275,6 +311,30 @@ class CodingUnit:
         return self.intra_mode_chroma
 
     # ---- inter ----
+    def can_use_affine(self):
+        return self.width > 8 and self.height > 8
+
+    def can_affine_merge(self):
+        if self.width * self.height < 64:
+            return False
+        for tmp in (self.get_cu_left_corner(), self.get_cu_above_corner(),
+                    self.get_cu_above_right(), self.get_cu_left_below(),
+                    self.get_cu_above_left()):
+            if tmp is not None and tmp.use_affine:
+                return True
+        return False
+
+    def get_force_mvd_zero(self, ref_list):
+        return (self.pic.force_bipred_l1_mvd_zero and
+                self.inter_dir == k.InterDir.BI and ref_list == 1)
+
+    def has_zero_mvd(self):
+        if self.inter_dir == k.InterDir.BI:
+            return self.mvd[0][0] == (0, 0) and self.mvd[1][0] == (0, 0)
+        if self.inter_dir == k.InterDir.L0:
+            return self.mvd[0][0] == (0, 0)
+        return self.mvd[1][0] == (0, 0)
+
     def has_mv(self, ref_list):
         return (self.inter_dir == k.InterDir.BI or
                 (ref_list == 0 and self.inter_dir == k.InterDir.L0) or
@@ -285,6 +345,10 @@ class CodingUnit:
             return -1
         return self.pic.ref_pic_lists.get_ref_poc(ref_list,
                                                   self.ref_idx[ref_list])
+
+    def get_mv_corner(self, x, y):
+        return (2 * (1 if (y - self.pos_y) >= (self.height >> 1) else 0) +
+                (1 if (x - self.pos_x) >= (self.width >> 1) else 0))
 
     # ---- split (the encoder's search) ----
     def do_split(self, split_type):
@@ -406,6 +470,10 @@ class ReferencePictureLists:
 
     def get_ref_pic_data(self, ref_list, ref_idx):
         return self.entries[ref_list][ref_idx].pic_data
+
+    def get_coding_unit_at(self, ref_list, ref_idx, cu_tree, posx, posy):
+        pd = self.entries[ref_list][ref_idx].pic_data
+        return pd.get_cu_at(cu_tree, posx, posy)
 
     def has_only_back_references(self, current_poc):
         for lst in self.entries:

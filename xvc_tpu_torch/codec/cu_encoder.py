@@ -8,12 +8,11 @@ takes where the JAX package takes its own (``native/enc.usable_for``:
 the lookahead's mode reordering, the per-CU device SATD pre-pass, or the
 native encoder switched off): top-down recursive RDO over quad + binary
 splits with cloned writer state and reconstruct-state snapshots
-(ref: src/xvc_enc_lib/cu_encoder.cc behavioral contract).  Copy of the
-intra half of ``xvc_tpu/codec/cu_encoder.py``, with the split DP's
-pruning (``gpu/wavefront_rdo.py``); its device hooks run on the
-encoder's torch device (``intra_search.py``).  Inter pictures need the
-inter half (motion search), which is not ported: the encoder refuses
-such sessions before they start.
+(ref: src/xvc_enc_lib/cu_encoder.cc behavioral contract).  Copy of
+``xvc_tpu/codec/cu_encoder.py``, with the split DP's pruning
+(``gpu/wavefront_rdo.py``); its device hooks run on the encoder's torch
+device: the intra half's in ``intra_search.py``, the inter half's (the
+motion search, ``inter_me.py``) in ``gpu/me.py`` under ``XVC_ME=jax``.
 """
 import math
 
@@ -61,12 +60,14 @@ class CuEncoder(TransformEncoder):
         self.orig_pic = orig_pic
         self.rec_pic = rec_pic
         self.pic = pic_data
+        self.device = device
         self.restr = pic_data.restrictions
         self.cu_writer = CuWriter(pic_data, self.restr)
         self.intra_recon = IntraReconstructor(pic_data, rec_pic.bitdepth,
                                               self.restr)
         self.intra_search = IntraSearch(rec_pic.bitdepth, pic_data, orig_pic,
                                         settings, self.cu_writer, device)
+        self.inter_search = None  # set by PictureEncoder, inter pictures
         self.cu_cache = CuCache(pic_data)
         self.last_ctu_frac_bits = 0
         self._aqp_flat = None
@@ -325,11 +326,17 @@ class CuEncoder(TransformEncoder):
 
     def _compress_inter_pic(self, best_cu_holder, qp, rdo_depth,
                             cache_result, writer):
-        # the encoder refuses Python-path sessions with inter pictures
-        # when it takes its settings; this guards the search itself
-        raise NotImplementedError(
-            "the Python CU encoder's inter half (motion search) is not "
-            "ported (ROADMAP queue 1 item 3)")
+        from .inter_me import compress_inter_pic
+        return compress_inter_pic(self, best_cu_holder, qp, rdo_depth,
+                                  cache_result, writer)
+
+    def get_cu_cost_without_split(self, cu, qp, bitstream_writer, ssd):
+        rdo_writer = SyntaxWriter.rdo_clone(bitstream_writer, 0)
+        for comp in self.pic.get_components(cu.cu_tree):
+            self.cu_writer.write_component(cu, comp, rdo_writer)
+        bits = rdo_writer.get_num_written_bits()
+        cost = ssd + int(bits * qp.get_lambda() + 0.5)
+        return cost, ssd
 
     def write_ctu(self, rsaddr, writer):
         """(ref: cu_encoder.cc:688-735)"""

@@ -6,22 +6,17 @@ on a torch device: ``Encoder(..., device=None)`` runs the encoder's
 device stages on the card unless ``device`` names another.  Each picture
 is coded by the native encoder or, where the JAX package takes its
 Python CU encoder (``native/enc.usable_for``: ``tpu_intra_lookahead``,
-``XVC_INTRA_PREPASS=jax``, ``XVC_ENC_NATIVE=0``), by the port's copy of
-its intra half.  What is not ported raises ``NotImplementedError`` when
-the session is set up, never mid-stream: picture-level threads (ROADMAP
-queue 1 item 1), the Python CU encoder's inter half, so device motion
-estimation (``XVC_ME=jax``) and Python-path sessions with reference
-pictures (item 3), CTU tile rows (item 4) and the cross-host GOP
-pipeline (item 7).
+``XVC_INTRA_PREPASS=jax``, ``XVC_ME=jax``, ``XVC_ENC_NATIVE=0``), by the
+port's copy of it, intra and inter pictures.  What is not ported raises
+``NotImplementedError`` when the session is set up, never mid-stream:
+picture-level threads (ROADMAP queue 1 item 1), CTU tile rows (item 4)
+and the cross-host GOP pipeline (item 7).
 """
-import os
-
 import numpy as np
 
 from .. import constants as k
 from .. import segment as seg
 from ..engine import resolve_device
-from ..native import enc as native_enc
 from .encoder_settings import EncoderSettings
 from .picture_encoder import PictureEncoder
 from .ref_lists import ReferenceListSorter
@@ -51,11 +46,6 @@ class Encoder:
             raise NotImplementedError(
                 "picture-level encode threads are not ported (one picture "
                 "at a time on one device; ROADMAP queue 1 item 1)")
-        if os.environ.get("XVC_ME", "").lower() == "jax":
-            raise NotImplementedError(
-                "XVC_ME=jax asks for the device motion estimation of the "
-                "Python CU encoder's inter half, which is not ported "
-                "(ROADMAP queue 1 item 3)")
         self.device = resolve_device(device)
         self.segment_header = seg.SegmentHeader()
         self.segment_header.codec_identifier = k.XVC_CODEC_IDENTIFIER
@@ -95,16 +85,6 @@ class Encoder:
 
     def set_num_ref_pics(self, num):
         self.segment_header.num_ref_pics = num
-        self._check_python_path()
-
-    def _check_python_path(self):
-        """The port's Python CU encoder codes intra pictures only."""
-        if self.segment_header.num_ref_pics > 0 and \
-                not native_enc.usable_for(self.settings):
-            raise NotImplementedError(
-                "this session takes the Python CU encoder (see "
-                "native/enc.usable_for), whose inter half is not ported: "
-                "it needs num_ref_pics 0 (ROADMAP queue 1 item 3)")
 
     def set_chroma_format(self, fmt):
         self.segment_header.chroma_format = fmt
@@ -182,7 +162,6 @@ class Encoder:
             if not hasattr(restr, name):
                 raise ValueError("unknown restriction flag: %r" % (name,))
             setattr(restr, name, True)
-        self._check_python_path()
 
     # ---- encoding ----
     def encode(self, pic_bytes, user_data=0):

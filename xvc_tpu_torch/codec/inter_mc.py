@@ -1,5 +1,6 @@
 """Motion compensation: sub-pel interpolation tables, and the host MC
-of the replay path's sequential tail (bi-pred, affine, LIC).
+of the replay path's sequential tail and of the Python CU encoder's
+motion search (bi-pred, affine, LIC).
 
 Behavioral equivalent of the reference MC path
 (ref: src/xvc_common_lib/inter_prediction.cc:710-1378,1387-1650).  Copy
@@ -8,7 +9,9 @@ resolves every MV) and without the numpy twins of the interpolation: the
 block filter is the port's native ``xvcn_mc_unipred``, as in the JAX
 package.  The decode's other inter blocks are predicted on the device
 (``gpu/mc.py``, ``kernels/csrc/mc.cu``); this host MC serves the LIC
-leaves, whose prediction reads reconstructed neighbours.
+leaves, whose prediction reads reconstructed neighbours, and the RD costs
+of the Python CU encoder's inter search (``inter_me.py``), whose MC must
+equal the JAX package's bit for bit (the same native filter).
 """
 import numpy as np
 
@@ -72,9 +75,10 @@ CHROMA_FILTER_HIGH_PREC = np.array([
 
 
 class InterPredictor:
-    """Inter prediction of the host tail: the picture, its
-    reconstruction and the restrictions the MC reads
-    (``motion_compensation``'s ``predictor``)."""
+    """Inter prediction on the host: the picture, its reconstruction and
+    the restrictions the MC reads (``motion_compensation``'s
+    ``predictor``); the replay tail's, and the base of the encoder's
+    ``inter_me.InterSearch``."""
 
     def __init__(self, pic_data, rec_pic, bitdepth, restrictions):
         self.pic = pic_data
@@ -161,6 +165,27 @@ def add_avg_bi(l0, l1, bitdepth):
     max_val = (1 << bitdepth) - 1
     out = (l0.astype(np.int64) + l1.astype(np.int64) + offset) >> shift
     return np.clip(out, 0, max_val).astype(np.int32)
+
+
+def motion_compensation_mv(predictor, cu, comp, ref_pic, mv, post_filter):
+    """MC for an explicit (non-stored) MV (ref: MotionCompensationMv)."""
+    mv = mv_mod.clip_mv(cu, ref_pic, mv)
+    pel_x, pel_y, frac_x, frac_y = get_fullpel_ref(cu, comp, ref_pic,
+                                                   mv[0], mv[1],
+                                                   predictor.restr)
+    ctx = _make_ctx(predictor, cu, comp, ref_pic)
+    cx, cy = cu.pos(comp)
+    pred = mc_unipred_sample(ctx, cx + pel_x, cy + pel_y, frac_x, frac_y)
+    if post_filter and cu.use_lic:
+        pred = local_illumination_comp(predictor, cu, comp, mv[0], mv[1],
+                                       ref_pic, pred)
+    return pred
+
+
+def motion_compensation_mv3(predictor, cu, comp, ref_pic, mv3, post_filter):
+    """Affine MC for three explicit corner MVs."""
+    ctx = _make_ctx(predictor, cu, comp, ref_pic)
+    return _mc_affine(cu, ctx, list(mv3), False)
 
 
 def motion_compensation(predictor, cu, comp):

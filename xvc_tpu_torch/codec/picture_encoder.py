@@ -10,9 +10,10 @@ torch device.  The picture is then coded by the native encoder
 (``native/enc.py``), which takes their maps, or, where the JAX package
 takes its Python CU encoder (``native/enc.usable_for``), by the port's
 (``cu_encoder.py``): with the whole-picture intra lookahead
-(``tpu_intra_lookahead``, ``gpu/lookahead.py``) and the per-CU SATD
-pre-pass on the device, and the picture's deblocking on the device
-(``gpu/deblock.py``, built from the CU tree).
+(``tpu_intra_lookahead``, ``gpu/lookahead.py``), the per-CU SATD
+pre-pass and, on inter pictures, the motion search's fullpel SAD sweeps
+(``XVC_ME=jax``, ``gpu/me.py``) on the device, and the picture's
+deblocking on the device (``gpu/deblock.py``, built from the CU tree).
 """
 import math
 
@@ -187,6 +188,9 @@ class PictureEncoder:
                                self.device)
         cu_encoder.split_dp = split_dp
         cu_encoder.intra_search.txrd_cands = txrd_cands
+        if not pd.is_intra_pic():
+            from .inter_me import InterSearch
+            cu_encoder.inter_search = InterSearch(cu_encoder)
         if settings.tpu_intra_lookahead:
             from ..gpu.lookahead import frame_intra_lookahead
             stats = {}

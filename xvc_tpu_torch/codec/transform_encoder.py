@@ -84,10 +84,14 @@ class TransformEncoder:
         # prediction buffers per component
         self.pred = [None, None, None]
         self.temp_resi_orig = None
+        self.temp_resi = None
         self._best_comp_state = {}
 
     def set_pred_buffer(self, comp, pred):
         self.pred[comp] = pred
+
+    def get_pred_buffer(self, comp):
+        return self.pred[comp]
 
     def compress_and_eval_transform(self, cu, comp, qp, writer, orig_pic,
                                     search_flags, prev_cost, cu_writer,
@@ -100,16 +104,20 @@ class TransformEncoder:
         def get_transform_cost(dist):
             if dist >= _DIST_MAX:
                 return (_COST_MAX, dist, dist)
-            # the residual-domain distortion of fast_inter_transform_dist
-            # is for inter CUs, which come with the inter half
+            dist_resi = dist
+            if settings.fast_inter_transform_dist and \
+                    not settings.structural_ssd and cu.is_inter() and \
+                    cu.cbf[comp]:
+                dist_resi = self.cu_metric.compare(
+                    qp, comp, self.temp_resi_orig, self.temp_resi)
             rdo_writer = SyntaxWriter.rdo_clone(writer, 0)
             if cu.is_intra() and comp == 0:
                 cu_writer.write_component(cu, comp, rdo_writer)
             else:
                 cu_writer.write_residual_data_rdo_cbf(cu, comp, rdo_writer)
             bits = rdo_writer.get_num_written_bits()
-            cost = dist + int(bits * qp.get_lambda() + 0.5)
-            return (cost, dist, dist)
+            cost = dist_resi + int(bits * qp.get_lambda() + 0.5)
+            return (cost, dist, dist_resi)
 
         best_cost = (_COST_MAX, 0, 0)
         if prev_cost is not None:
@@ -336,6 +344,7 @@ class TransformEncoder:
             rec_region.ctypes.data, stride,
             resi.ctypes.data, bd, int(mkind), qp.get_qp_raw(0),
             float(self.cu_metric.structural_strength))
+        self.temp_resi = resi
         return int(dist * qp.distortion_weight[comp])
 
     def _forward_transform(self, cu, comp, resi):
@@ -353,3 +362,15 @@ class TransformEncoder:
                                                 high_precision)
         return tx.forward_transform(resi, t0, t1, self.bitdepth,
                                     high_precision)
+
+    def get_cu_bits_residual(self, cu, bitstream_writer, cu_writer):
+        rdo_writer = SyntaxWriter.rdo_clone(bitstream_writer, 0)
+        for comp in range(self.num_components):
+            cu_writer.write_residual_data_rdo_cbf(cu, comp, rdo_writer)
+        return rdo_writer.get_num_written_bits()
+
+    def get_cu_bits_full(self, cu, bitstream_writer, cu_writer):
+        rdo_writer = SyntaxWriter.rdo_clone(bitstream_writer, 0)
+        for comp in range(self.num_components):
+            cu_writer.write_component(cu, comp, rdo_writer)
+        return rdo_writer.get_num_written_bits()

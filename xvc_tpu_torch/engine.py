@@ -1,10 +1,13 @@
 """Device selection for the PyTorch device path.
 
-Counterpart of ``xvc_tpu/engine.py``, without its environment switches:
-every entry point runs on the card unless the caller names another
-device, and a device that is not there is an error, never a silent move
-to the CPU.
+Counterpart of ``xvc_tpu/engine.py``: every entry point runs on the card
+unless the caller names another device, and a device that is not there
+is an error, never a silent move to the CPU.  Of that module's switches
+it keeps ``XVC_ME`` (``use_device_me``); the encoder's other routing
+switches are read where they route (``native/enc.usable_for``).
 """
+import os
+
 import torch
 
 
@@ -24,3 +27,12 @@ def resolve_device(device):
     if dev.type == "cpu":
         return dev
     raise ValueError("unsupported device %r (cpu or cuda only)" % (dev,))
+
+
+def use_device_me():
+    """``XVC_ME=jax`` runs the fullpel SAD sweeps of the Python CU
+    encoder's TZ search on the encoder's device (``gpu/me.py``, kernel
+    ``me_sad.cu`` on the card); the value is ``jax`` for parity with the
+    JAX package's switch of the same name (``xvc_tpu/engine.py``
+    ``use_jax_me``), and the streams are the same bytes either way."""
+    return os.environ.get("XVC_ME", "").lower() == "jax"

@@ -50,6 +50,7 @@ SIGNATURES = {
     "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P],
     "xvc_resample_picture": [_P, _I, _I, _P],
+    "xvc_me_sad": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

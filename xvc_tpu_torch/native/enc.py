@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 
+from ..engine import use_device_me
 from . import lib
 from .pic import (XvcnRefPic as _XvcnRefPic, _fam_arrays, _restr_vec,
                   _tx_tables, mvfield_shape)
@@ -117,12 +118,15 @@ def usable_for(settings):
     encoder takes the device lookahead's mode-candidate reordering
     (``tpu_intra_lookahead``), the per-CU device SATD pre-pass
     (``XVC_INTRA_PREPASS=jax``, the JAX package's switch under its own
-    name) and ``XVC_ENC_NATIVE=0``.  CTU tile rows and device motion
-    estimation (``XVC_ME=jax``), which the JAX package also routes there,
-    are refused by the encoder (``codec/encoder.py``)."""
+    name), device motion estimation (``XVC_ME=jax``,
+    ``engine.use_device_me``) and ``XVC_ENC_NATIVE=0``.  CTU tile rows,
+    which the JAX package also routes there, are refused by the encoder
+    (``codec/encoder.py``)."""
     if os.environ.get("XVC_ENC_NATIVE", "1") == "0":
         return False
     if os.environ.get("XVC_INTRA_PREPASS", "").lower() == "jax":
+        return False
+    if use_device_me():
         return False
     return not settings.tpu_intra_lookahead
 

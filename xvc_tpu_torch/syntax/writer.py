@@ -4,12 +4,11 @@ Behavioral equivalent of the reference syntax writer
 (ref: src/xvc_enc_lib/syntax_writer.cc).  An RdoSyntaxWriter is the same
 object with a counting-only entropy encoder and copied context states.
 
-Copy of the intra half of ``xvc_tpu/syntax/writer.py``, over the native
+Copy of ``xvc_tpu/syntax/writer.py``, over the native
 library: the real bitstream is written by the native CABAC engine, and
 residual blocks are coded (and counted, for the counting writers of the
 RD search) by its residual writer; the JAX module's Python residual
-coder is not copied.  The inter elements (skip, merge, MVD, reference
-index, affine, LIC) come with the encoder's inter half.
+coder is not copied.
 """
 from .. import constants as k
 from .. import native
@@ -65,6 +64,13 @@ class SyntaxWriter:
         self.enc.finish()
 
     # ---- element writers ----
+    def write_affine_flag(self, cu, is_merge, use_affine):
+        if self.restr.disable_ext2_inter_affine or \
+                (is_merge and self.restr.disable_ext2_inter_affine_merge):
+            return
+        ctx = self.ctx.get_affine_ctx(cu.get_cu_left(), cu.get_cu_above())
+        self.enc.encode_bin(1 if use_affine else 0, ctx)
+
     def write_cbf(self, cu, comp, cbf):
         if self.restr.disable_transform_cbf:
             return
@@ -72,6 +78,73 @@ class SyntaxWriter:
             self.enc.encode_bin(1 if cbf else 0, OFFSETS["cu_cbf_luma"])
         else:
             self.enc.encode_bin(1 if cbf else 0, OFFSETS["cu_cbf_chroma"])
+
+    def write_inter_dir(self, cu, inter_dir):
+        ctx = self.ctx.get_inter_dir_bi_ctx(cu)
+        self.enc.encode_bin(1 if inter_dir == k.InterDir.BI else 0, ctx)
+        if inter_dir != k.InterDir.BI:
+            self.enc.encode_bin(0 if inter_dir == k.InterDir.L0 else 1,
+                                OFFSETS["inter_dir"] + 4)
+
+    def write_inter_fullpel_mv_flag(self, cu, fullpel):
+        if self.restr.disable_ext2_inter_adaptive_fullpel_mv:
+            return
+        ctx = self.ctx.get_inter_fullpel_mv_ctx(cu.get_cu_left(),
+                                                cu.get_cu_above())
+        self.enc.encode_bin(1 if fullpel else 0, ctx)
+
+    def write_inter_mvd(self, mvd):
+        abs_x, abs_y = abs(mvd[0]), abs(mvd[1])
+        if self.restr.disable_inter_mvd_greater_than_flags:
+            self.write_exp_golomb(abs_x, 1)
+            if abs_x:
+                self.enc.encode_bypass(1 if mvd[0] < 0 else 0)
+            self.write_exp_golomb(abs_y, 1)
+            if abs_y:
+                self.enc.encode_bypass(1 if mvd[1] < 0 else 0)
+            return
+        self.enc.encode_bin(1 if mvd[0] else 0, OFFSETS["inter_mvd"])
+        self.enc.encode_bin(1 if mvd[1] else 0, OFFSETS["inter_mvd"])
+        if abs_x:
+            self.enc.encode_bin(1 if abs_x > 1 else 0,
+                                OFFSETS["inter_mvd"] + 1)
+        if abs_y:
+            self.enc.encode_bin(1 if abs_y > 1 else 0,
+                                OFFSETS["inter_mvd"] + 1)
+        if abs_x:
+            if abs_x > 1:
+                self.write_exp_golomb(abs_x - 2, 1)
+            self.enc.encode_bypass(1 if mvd[0] < 0 else 0)
+        if abs_y:
+            if abs_y > 1:
+                self.write_exp_golomb(abs_y - 2, 1)
+            self.enc.encode_bypass(1 if mvd[1] < 0 else 0)
+
+    def write_inter_mvp_idx(self, cu, mvp_idx):
+        if (not cu.use_affine and self.restr.disable_inter_mvp) or \
+                (cu.use_affine and self.restr.disable_ext2_inter_affine_mvp):
+            return
+        self.write_unary_max_symbol(mvp_idx, k.NUM_INTER_MV_PREDICTORS - 1,
+                                    OFFSETS["inter_mvp_idx"],
+                                    OFFSETS["inter_mvp_idx"])
+
+    def write_inter_ref_idx(self, ref_idx, num_refs_available):
+        if num_refs_available == 1:
+            return
+        self.enc.encode_bin(1 if ref_idx != 0 else 0,
+                            OFFSETS["inter_ref_idx"])
+        if not ref_idx or num_refs_available == 2:
+            return
+        ref_idx -= 1
+        self.enc.encode_bin(1 if ref_idx != 0 else 0,
+                            OFFSETS["inter_ref_idx"] + 1)
+        if not ref_idx:
+            return
+        for i in range(1, num_refs_available - 2):
+            b = 0 if i == ref_idx else 1
+            self.enc.encode_bypass(b)
+            if not b:
+                break
 
     def write_intra_mode(self, intra_mode, mpm):
         num_mpm = k.NUM_INTRA_MPM_EXT \
@@ -147,6 +220,30 @@ class SyntaxWriter:
                 chroma_index = i
         self.enc.encode_bypass_bins(chroma_index, 2)
 
+    def write_lic_flag(self, use_lic):
+        if self.restr.disable_ext2_inter_local_illumination_comp:
+            return
+        self.enc.encode_bin(1 if use_lic else 0, OFFSETS["lic_flag"])
+
+    def write_merge_flag(self, merge):
+        if self.restr.disable_inter_merge_mode:
+            return
+        self.enc.encode_bin(1 if merge else 0, OFFSETS["inter_merge_flag"])
+
+    def write_merge_idx(self, merge_idx):
+        if self.restr.disable_inter_merge_candidates:
+            return
+        max_merge_cand = k.NUM_INTER_MERGE_CANDIDATES
+        self.enc.encode_bin(1 if merge_idx != 0 else 0,
+                            OFFSETS["inter_merge_idx"])
+        if merge_idx != 0:
+            bins = (1 << merge_idx) - 2
+            if merge_idx == max_merge_cand - 1:
+                bins >>= 1
+            num_bins = merge_idx - (1 if merge_idx == max_merge_cand - 1
+                                    else 0)
+            self.enc.encode_bypass_bins(bins, num_bins)
+
     def write_partition_type(self, cu, part_2nx2n=True):
         if cu.pred_mode == k.PredictionMode.INTRA:
             if cu.depth == k.MAX_CU_DEPTH:
@@ -154,6 +251,11 @@ class SyntaxWriter:
                                     OFFSETS["cu_part_size"])
             return
         self.enc.encode_bin(1 if part_2nx2n else 0, OFFSETS["cu_part_size"])
+
+    def write_pred_mode(self, pred_mode):
+        self.enc.encode_bin(
+            1 if pred_mode == k.PredictionMode.INTRA else 0,
+            OFFSETS["cu_pred_mode"])
 
     def write_qp(self, qp_value, predicted_qp, aqp_mode):
         if aqp_mode == 1:
@@ -173,6 +275,18 @@ class SyntaxWriter:
                 if qp_value in (predicted_qp + 2 + d, predicted_qp - 9 + d):
                     self.enc.encode_bypass_bins(d, 3)
                     break
+
+    def write_root_cbf(self, root_cbf):
+        if self.restr.disable_transform_root_cbf:
+            return
+        self.enc.encode_bin(1 if root_cbf else 0, OFFSETS["cu_root_cbf"])
+
+    def write_skip_flag(self, cu, skip):
+        if self.restr.disable_inter_skip_mode or \
+                self.restr.disable_inter_merge_mode:
+            return
+        ctx = self.ctx.get_skip_flag_ctx(cu.get_cu_left(), cu.get_cu_above())
+        self.enc.encode_bin(1 if skip else 0, ctx)
 
     def write_split_binary(self, cu, split_restriction, split):
         ctx = self.ctx.get_split_binary_ctx(cu)
@@ -233,3 +347,30 @@ class SyntaxWriter:
         return count_write_coefficients(
             self.enc, self._restr_mask, w, h, subblock_shift, comp == 0,
             scan_order, coeff)
+
+    def write_exp_golomb(self, abs_level, golomb_rice_k):
+        bins = 0
+        num_bins = 0
+        while abs_level >= (1 << golomb_rice_k):
+            bins = bins * 2 + 1
+            num_bins += 1
+            abs_level -= 1 << golomb_rice_k
+            golomb_rice_k += 1
+        bins *= 2
+        num_bins += 1
+        bins = (bins << golomb_rice_k) | abs_level
+        num_bins += golomb_rice_k
+        self.enc.encode_bypass_bins(bins, num_bins)
+
+    def write_unary_max_symbol(self, symbol, max_val, ctx_start, ctx_rest):
+        self.enc.encode_bin(1 if symbol > 0 else 0, ctx_start)
+        if not symbol or max_val == 1:
+            return
+        not_max = symbol < max_val
+        while True:
+            symbol -= 1
+            if not symbol:
+                break
+            self.enc.encode_bin(1, ctx_rest)
+        if not_max:
+            self.enc.encode_bin(0, ctx_rest)
