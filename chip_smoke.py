@@ -70,8 +70,11 @@ Phases:
      pack) of this tree and, with --parent TREE, of TREE; the motion
      search's SAD sweep (me_sad) on every CU shape from 4x4 to 64x64,
      SAD and SAD_FAST, 8-16 bit, 1-754 candidates with the window's
-     corners among them, through the per-prefetch call, bit for bit
-     against its plain version (timed in phase 9);
+     corners among them, in a padded 1280x720 plane resident on the
+     card, at the plane's four corners, and through DeviceSadTable on a
+     reference whose border was never padded and on a recycled picture,
+     through the per-prefetch call, bit for bit against its plain
+     version (timed in phase 9);
   3  decode paths: decode tests/data/bench/hd720_ld.xvc (1280x720, 8
      pictures, the flat path) with xvc_tpu_torch.codec.decoder.
      decode_stream on the card; every picture must be
@@ -163,13 +166,22 @@ Phases:
      just before each encode and read just after).  It prints ms per
      picture, prefetches per picture and their device and host shares,
      candidates per device call, the device route's ms a call, device
-     operations and the idle share.  Then me_sad on every device sweep
-     of the qcif_me encode as the search gave it (box window, block,
-     offsets), held to its plain version and to the encode's SADs: the
-     kernel's time a sweep (CUDA events and device time) beside its
-     plain version and its bound (the window samples the blocks cover),
-     and the whole per-prefetch call's host ms and device operations.
-     Then the seconds of each phase.
+     operations and the idle share, and the reference uploads (at most
+     one a reference picture the sweeps read).  Then me_sad on every
+     device sweep of the qcif_me encode as the search gave it (the
+     resident plane, the origin, the block, the offsets), held to its
+     plain version and to the encode's SADs: the kernel's time a sweep
+     (CUDA events and device time, from mapped and from device-memory
+     staging) beside its plain version, torch.cdist (library_ms) and its
+     bound (the plane samples the blocks cover); the per-prefetch call's
+     host ms over every sweep with mapped staging (one device operation)
+     and with one copy (two), in turns, its time in the encode, and in
+     child processes this tree's call and, with --parent TREE, TREE's
+     (before the resident reference: box cut, pack, upload, launch,
+     download) on the same
+     sweeps, with their device operations; then one prefetch per 16x16
+     CU of a 1280x720 picture (hd720_ld picture 1 against picture 0,
+     range 64), the same numbers.  Then the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -1746,7 +1758,7 @@ def device_ops(torch, fn, iters=5):
     (by correlation id), or its own start where there is none.  The count
     where every counted call saw the same number, not zero; else None
     (events were lost: late in a long run a window can lose all of
-    them, so ``prefetch_call_ops`` counts in a child process)."""
+    them, so ``time_prefetch_calls`` counts in a child process)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
@@ -2468,55 +2480,79 @@ def phase_resample_kernel(torch, dev, res, parent):
 
 
 def me_case(rng, w, h, bd, n):
-    """A 192x192 window, an h x w block and n offsets (the window's four
-    corners first), samples of ``bd`` bits with a run of extremes."""
+    """A padded 1280x720 luma plane (880 x 1440), a box origin in it, an
+    h x w block and n offsets into the 192 x 192 window at that origin
+    (the window's four corners first), samples of ``bd`` bits with a run
+    of extremes."""
     import numpy as np
-    win_n = 192
-    win = rng.randint(0, 1 << bd, (win_n, win_n)).astype(np.int32)
+    plane = rng.randint(0, 1 << bd, (880, 1440)).astype(np.int32)
+    oy, ox = rng.randint(0, 880 - 192 + 1), rng.randint(0, 1440 - 192 + 1)
     orig = rng.randint(0, 1 << bd, (h, w)).astype(np.int32)
-    win[:h, :w] = (1 << bd) - 1
+    plane[oy:oy + h, ox:ox + w] = (1 << bd) - 1
     orig[::3] = 0
-    ys = rng.randint(0, win_n - h + 1, n)
-    xs = rng.randint(0, win_n - w + 1, n)
-    corners = [(0, 0), (0, win_n - w), (win_n - h, 0),
-               (win_n - h, win_n - w)]
+    ys = rng.randint(0, 192 - h + 1, n)
+    xs = rng.randint(0, 192 - w + 1, n)
+    corners = [(0, 0), (0, 192 - w), (192 - h, 0), (192 - h, 192 - w)]
     for j, (y, x) in enumerate(corners[:n]):
         ys[j], xs[j] = y, x
-    return win, orig, np.stack([ys, xs]).astype(np.int32)
+    return plane, oy, ox, orig, np.stack([ys, xs]).astype(np.int32)
 
 
-def me_sad_bound(win, orig, cands, fast, bd):
-    """me_sad's work on one sweep: the window samples the candidates'
-    blocks cover (each counted once; the even rows alone for SAD_FAST),
-    the block's rows the sum reads and the offsets, read once at the
-    packed element size, and the int32 sums written once; three
-    operations (difference, |.|, add) a sample of a candidate's block, and
-    the doubling and shift a candidate.  (bytes, operations)."""
+def me_sad_bound(plane_shape, oy, ox, orig, cands, fast, bd):
+    """me_sad's work on one sweep: the plane samples the candidates'
+    blocks cover (each counted once; the even rows alone for SAD_FAST) at
+    the resident plane's element size, the block's summed rows at the
+    same size, the offsets as int32, read once, and the int32 sums
+    written once; three operations (difference, |.|, add) a sample of a
+    candidate's block, and the doubling and shift a candidate.  (bytes,
+    operations)."""
     import numpy as np
     h, w = orig.shape
     n = cands.shape[1]
     rows = np.arange(0, h, 2 if fast else 1)
-    covered = np.zeros(win.shape, bool)
-    for y, x in cands.T:
+    ys, xs = cands[0] + oy, cands[1] + ox
+    covered = np.zeros((int(ys.max()) + h - oy, int(xs.max()) + w - ox),
+                       bool) if n else np.zeros((0, 0), bool)
+    for y, x in zip(ys - oy, xs - ox):
         covered[y + rows, x:x + w] = True
     elem = 2 if bd <= 15 else 4
-    nbytes = (int(covered.sum()) + len(rows) * w + cands.size) * elem + 4 * n
+    nbytes = (int(covered.sum()) + len(rows) * w) * elem + 8 * n + 4 * n
     return nbytes, n * (3 * len(rows) * w + 2)
 
 
 def phase_me_sad_kernel(torch, dev, res):
     """The motion search's SAD sweep (me_sad) against its plain version on
-    the card, bit for bit: every CU shape from 4x4 to 64x64 with SAD and
-    SAD_FAST, at 8, 10, 12 and 16 bit (int16 and int32 packing) and 1,
-    44, 86 and 754 candidates, the window's corners among them, through
-    the per-prefetch call (``gpu/me.device_sads``: pinned staging, one
-    upload, one launch, one download).  me_sad is timed on the sweeps
-    of phase 9's qcif_me encode (``phase_me_sad_timing``)."""
+    the card, bit for bit, through the per-prefetch call
+    (``gpu/me.sad_sweep``: the plane resident on the card, the block and
+    the offsets in mapped staging, one launch, the SADs in mapped
+    memory): every CU shape from 4x4 to 64x64 with SAD and SAD_FAST, at
+    8, 10, 12 and 16 bit (int16 and int32 planes) and 1, 44, 86 and 754
+    candidates, the window's corners among them, in a padded 1280x720
+    plane; the plane's four corners; and through ``DeviceSadTable`` on a
+    reference picture whose border was never padded (its buffer's old
+    samples) and on a recycled picture (``PictureEncoder.init_pic``, new
+    content), each against the CPU device.  me_sad is timed on the
+    sweeps of phase 9's qcif_me encode (``phase_me_sad_timing``)."""
     import numpy as np
+    from xvc_tpu_torch import segment as seg
+    from xvc_tpu_torch.codec.picture_encoder import PictureEncoder
+    from xvc_tpu_torch.codec.yuv import YuvPicture
     from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.ops import metrics as met
+    from xvc_tpu_torch.restrictions import Restrictions
     rng = np.random.RandomState(SEED + 29)
-    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     cases = 0
+
+    def check(plane, oy, ox, orig, cands, fast, bd, what):
+        res_plane = T(plane).to(me.packed_dtype(bd)).to(dev)
+        got = me.sad_sweep(res_plane, oy, ox, orig, cands, fast, bd)
+        want = me.sad_sweep_plain(T(plane), oy, ox, T(orig), T(cands), fast,
+                                  bd).numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError("me_sad differs from its plain version at "
+                                 "%r" % (what,))
+
     i = 0
     for w in ME_SIZES:
         for h in ME_SIZES:
@@ -2524,125 +2560,534 @@ def phase_me_sad_kernel(torch, dev, res):
                 bd = ME_BITDEPTHS[i % 4]
                 n = ME_COUNTS[(i // 4) % 4]
                 i += 1
-                win, orig, cands = me_case(rng, w, h, bd, n)
-                got = me.device_sads(win, orig, cands, fast, bd, dev)
-                want = me.sad_sweep_plain(T(win), T(orig), T(cands), fast,
-                                          bd)
-                if not np.array_equal(got, want.cpu().numpy()):
-                    raise AssertionError("me_sad differs from its plain "
-                                         "version at %r" % (
-                                             (w, h, fast, bd, n),))
+                check(*me_case(rng, w, h, bd, n), fast, bd,
+                      (w, h, fast, bd, n))
                 cases += 1
+    # the plane's four corners, from its origin
+    for w, h, bd in ((16, 16, 8), (64, 32, 16), (4, 8, 10)):
+        plane, _, _, orig, _ = me_case(rng, w, h, bd, 1)
+        cands = np.array([[0, 0, 880 - h, 880 - h],
+                          [0, 1440 - w, 0, 1440 - w]], np.int32)
+        for fast in (False, True):
+            check(plane, 0, 0, orig, cands, fast, bd, ("corners", w, h, bd))
+            cases += 1
+
+    class Cu:
+        def __init__(self, x, y, w, h):
+            self.x, self.y, self.width, self.height = x, y, w, h
+
+        def pos(self, comp):
+            return self.x, self.y
+
+    class Qp:
+        distortion_weight = [1.0, 1.0, 1.0]
+
+    def tables(pics, orig, metric, sweeps):
+        """Each sweep (CU x, y, w, h and its vectors) through a table on
+        the card and on the CPU device (a copy of the picture each), the
+        caches held equal; returns the card's caches."""
+        caches = []
+        for x, y, w, h, mvs in sweeps:
+            tabs = [me.DeviceSadTable(None, Cu(x, y, w, h), metric, p,
+                                      orig[:h, :w], d)
+                    for p, d in zip(pics, (dev, "cpu"))]
+            for t in tabs:
+                t.prefetch(Qp(), mvs)
+            if not tabs[0].cache or tabs[0].cache != tabs[1].cache:
+                raise AssertionError("me_sad through DeviceSadTable differs "
+                                     "from the CPU device at %r" % (
+                                         (x, y, w, h),))
+            caches.append(tabs[0].cache)
+        return caches
+
+    # sweeps that read the border: top-left, bottom-right, top
+    sweeps = [(0, 0, 16, 16, me.tz_initial_candidates((-8, -8), 64)),
+              (1264, 704, 16, 16, [(dx, dy) for dx in range(-96, 81, 11)
+                                   for dy in range(-96, 81, 16)]),
+              (600, 40, 32, 32, me.tz_initial_candidates((0, -40), 64))]
+    # a reference whose border was never padded: its buffer's old samples
+    pics = [YuvPicture(1, 1280, 720, 10) for _ in range(2)]
+    old = rng.randint(0, 1024, pics[0].planes[0].shape)
+    new = rng.randint(0, 1024, (720, 1280))
+    orig = rng.randint(0, 1024, (64, 64)).astype(np.int32)
+    for p in pics:
+        p.planes[0][:] = old
+        p.plane_view(0)[:] = new
+    metric = met.SampleMetric(10, met.MetricType.SAD)
+    me.reset_stats()
+    tables(pics, orig, metric, sweeps)
+    cases += len(sweeps)
+    if me.STATS["reference_uploads"] != 2:
+        raise AssertionError("the unpadded reference was copied %d times"
+                             % me.STATS["reference_uploads"])
+    # a recycled picture: the encoder's buffer with new content
+    encs = [PictureEncoder(1, 1280, 720, 10) for _ in range(2)]
+    for e in encs:
+        e.rec_pic.planes[0][:] = old
+        e.rec_pic.pad_border()
+    pics = [e.rec_pic for e in encs]
+    before = tables(pics, orig, metric, sweeps)
+    segment = seg.SegmentHeader(soc=0, max_sub_gop_length=1,
+                                low_delay=True, num_ref_pics=1)
+    for e in encs:
+        e.init_pic(segment, 1, 1, 0, False, Restrictions())
+        e.rec_pic.plane_view(0)[:] = new
+        e.rec_pic.pad_border()
+    after = tables(pics, orig, metric, sweeps)
+    cases += 2 * len(sweeps)
+    if me.STATS["reference_uploads"] != 6 or before == after:
+        raise AssertionError("the recycled picture's sweeps read its old "
+                             "content (%d reference copies)"
+                             % me.STATS["reference_uploads"])
     res["me_sad"] = dict(max_abs_err=0, cases=cases)
     log("phase 2: me_sad bit-exact over %d cases (every CU shape, SAD and "
-        "SAD_FAST, 8-16 bit, 1-754 candidates, through the per-prefetch "
-        "call)" % cases)
+        "SAD_FAST, 8-16 bit, 1-754 candidates in a padded 1280x720 plane "
+        "resident on the card, its four corners, a never-padded and a "
+        "recycled reference through DeviceSadTable, through the "
+        "per-prefetch call)" % cases)
 
 
-def record_sweeps(me, sweeps):
-    """Wrap ``me.device_sads`` so that every device sweep's inputs and
-    SADs are kept in ``sweeps``; returns the function that undoes it."""
-    real = me.device_sads
+def record_sweeps(me, sweeps, refs):
+    """Wrap ``me.sad_sweep`` so that every device sweep's inputs (the
+    resident plane, the origin, the block, the offsets), its SADs and its
+    host ms are kept in ``sweeps``, and ``me.reference_luma`` so that
+    ``refs`` gathers the (picture, generation) pairs the sweeps read;
+    returns the function that undoes both."""
+    real_sweep, real_ref = me.sad_sweep, me.reference_luma
 
-    def recorded(window, orig, cands, fast, bitdepth, device):
-        sads = real(window, orig, cands, fast, bitdepth, device)
-        sweeps.append((window.copy(), orig.copy(), cands.copy(), fast,
-                       bitdepth, sads))
+    def recorded(plane, oy, ox, orig, cands, fast, bitdepth):
+        t0 = time.perf_counter()
+        sads = real_sweep(plane, oy, ox, orig, cands, fast, bitdepth)
+        ms = (time.perf_counter() - t0) * 1e3
+        if sweeps is not None:
+            sweeps.append(dict(plane=plane, oy=oy, ox=ox, orig=orig.copy(),
+                               cands=cands.copy(), fast=fast,
+                               bitdepth=bitdepth, sads=sads, ms=ms))
         return sads
 
-    me.device_sads = recorded
-    return lambda: setattr(me, "device_sads", real)
+    def ref_recorded(ref_pic, device):
+        refs.add((id(ref_pic), ref_pic.luma_generation))
+        return real_ref(ref_pic, device)
+
+    me.sad_sweep, me.reference_luma = recorded, ref_recorded
+
+    def undo():
+        me.sad_sweep, me.reference_luma = real_sweep, real_ref
+    return undo
 
 
-def prefetch_call_ops(torch, inputs):
-    """The device operations of one per-prefetch call (``device_sads``) on
-    ``inputs`` (window, orig, cands, fast, bitdepth), for a child process
-    (``time_of_tree``): late in a long run a profiler window can lose
-    every device event."""
-    from xvc_tpu_torch.gpu import me
-    dev = torch.device("cuda", 0)
-    win, orig, cands = (inputs[k].numpy() for k in ("window", "orig",
-                                                     "cands"))
-    call = lambda: me.device_sads(win, orig, cands, inputs["fast"],
-                                  inputs["bitdepth"], dev)
-    return {"device_operations": device_ops(torch, call)}
+def sweep_inputs(torch, sweeps):
+    """Recorded sweeps as the inputs of a child process
+    (``time_prefetch_calls``): the distinct planes, on the CPU as int32,
+    and each sweep with its plane's index."""
+    planes, index, rows = [], {}, []
+    for s in sweeps:
+        key = id(s["plane"])
+        if key not in index:
+            index[key] = len(planes)
+            planes.append(s["plane"].cpu().to(torch.int32))
+        rows.append(dict(
+            plane=index[key], oy=s["oy"], ox=s["ox"],
+            orig=torch.from_numpy(s["orig"]),
+            cands=torch.from_numpy(s["cands"]), fast=s["fast"],
+            bitdepth=s["bitdepth"], sads=torch.from_numpy(s["sads"])))
+    return dict(planes=planes, sweeps=rows)
 
 
-def phase_me_sad_timing(torch, dev, res, sweeps):
-    """me_sad on the device sweeps of phase 9's qcif_me encode, as its TZ
-    search gave them (the box window, the block, the offsets): each
-    sweep's packed buffer on the card, the kernel held to its plain
-    version and to the SADs the encode got.  A sweep's kernel time (CUDA
-    events over every sweep, and device time from torch.profiler), plain
-    time and bound (``me_sad_bound``: the bytes and the operations of the
-    mean sweep) are means over the sweeps; the per-prefetch call
-    (``device_sads``: host ms, and its device operations in a child
-    process, ``prefetch_call_ops``) is timed on the sweep of median
-    candidate count."""
+def time_prefetch_calls(torch, inputs, passes=5):
+    """The per-prefetch call of the package that is imported, on recorded
+    sweeps (``sweep_inputs``), for a child process (``time_of_tree``):
+    mean host ms a call over ``passes`` passes over every sweep, whether
+    every SAD equals the recorded one, and the device operations of the
+    call on the sweep of median candidate count.  A package with
+    ``reference_luma`` takes the plane resident on the card
+    (``sad_sweep``); one without it (the packed call it replaced) cuts
+    the candidates' box from the host plane and packs, uploads and
+    downloads it a call (``device_sads``), as its
+    ``DeviceSadTable.prefetch`` did."""
     import numpy as np
     from xvc_tpu_torch.gpu import me
-    bufs, nbytes, ops, err = [], 0, 0, 0
-    for win, orig, cands, fast, bd, sads in sweeps:
-        dims = win.shape + orig.shape + (cands.shape[1],)
-        host = torch.empty(me.packed_size(*dims), dtype=me.packed_dtype(bd))
-        me.pack(win, orig, cands, host.numpy())
-        buf = host.to(dev)
-        out = torch.empty(dims[4], dtype=torch.int32, device=dev)
-        got = me.sad_sweep(buf, dims, fast, bd, out)
-        want = me.sad_sweep_plain(*me.unpack(buf, *dims), fast, bd)
-        err = max(err, max_err(torch, got, want))
-        if not np.array_equal(got.cpu().numpy(), sads):
-            raise AssertionError("me_sad differs from the SADs of the "
-                                 "encode on a %r sweep" % (dims,))
-        b, o = me_sad_bound(win, orig, cands, fast, bd)
+    dev = torch.device("cuda", 0)
+    sweeps = inputs["sweeps"]
+    if hasattr(me, "reference_luma"):
+        planes = [p.to(me.packed_dtype(sweeps[0]["bitdepth"])).to(dev)
+                  for p in inputs["planes"]]
+
+        def call(s):
+            return me.sad_sweep(planes[s["plane"]], s["oy"], s["ox"],
+                                s["orig"].numpy(), s["cands"].numpy(),
+                                s["fast"], s["bitdepth"])
+    else:
+        planes = [p.numpy() for p in inputs["planes"]]
+
+        def call(s):
+            c = s["cands"].numpy()
+            h, w = s["orig"].shape
+            oy, ox = s["oy"], s["ox"]
+            win = planes[s["plane"]][oy:oy + int(c[0].max()) + h,
+                                     ox:ox + int(c[1].max()) + w]
+            return me.device_sads(win, s["orig"].numpy(), c, s["fast"],
+                                  s["bitdepth"], dev)
+    equal = all(np.array_equal(call(s), s["sads"].numpy()) for s in sweeps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for s in sweeps:
+            call(s)
+    ms = (time.perf_counter() - t0) * 1e3 / (passes * len(sweeps))
+    order = sorted(sweeps, key=lambda s: s["cands"].shape[1])
+    mid = order[len(order) // 2]
+    return {"host_ms": ms, "equal": equal,
+            "device_operations": device_ops(torch, lambda: call(mid))}
+
+
+def copy_staged_call(torch, me, plane, oy, ox, orig, cands, fast, bd,
+                     staging, buf):
+    """The per-prefetch call as two device operations (variant b, timed
+    beside ``me.sad_sweep``): the block and the offsets staged in mapped
+    memory as ``sad_sweep`` stages them, one H2D copy of them into the
+    device buffer ``buf``, the launch reading them there, the SADs
+    written to mapped memory, one event wait."""
+    n = cands.shape[1]
+    nbytes = me.stage_sweep(staging.inp, orig, cands, bd)
+    buf[:nbytes].copy_(torch.from_numpy(staging.inp[:nbytes]),
+                       non_blocking=True)
+    me._launch(plane, oy, ox, buf.data_ptr(), orig.shape[0], orig.shape[1],
+               n, fast, bd, staging.out_dev)
+    staging.done.record(torch.cuda.current_stream(plane.device))
+    staging.done.synchronize()
+    return staging.out[:n].copy()
+
+
+def me_call_parts(torch, me, sweeps, work):
+    """The per-prefetch call (``me.sad_sweep``) taken apart, each sweep
+    after ``work`` seconds of host work: the median host ms of the
+    staging fill, of the launch call, of the wait on the event, of the
+    whole, and the device ms from an event recorded before the launch to
+    one after it (the launch's queueing and the kernel)."""
+    import numpy as np
+    parts = {"fill": [], "launch": [], "wait": [], "call": [], "device": []}
+    st = me._Staging(me.staging_bytes(64, 64, 4096, 16), 4096)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for s in sweeps:
+        until = time.perf_counter() + work
+        while time.perf_counter() < until:
+            pass
+        orig, cands, bd = s["orig"], s["cands"], s["bitdepth"]
+        stream = torch.cuda.current_stream(s["plane"].device)
+        t0 = time.perf_counter()
+        me.stage_sweep(st.inp, orig, cands, bd)
+        t1 = time.perf_counter()
+        ev0.record(stream)
+        me._launch(s["plane"], s["oy"], s["ox"], st.in_dev, orig.shape[0],
+                   orig.shape[1], cands.shape[1], s["fast"], bd, st.out_dev)
+        ev1.record(stream)
+        t2 = time.perf_counter()
+        ev1.synchronize()
+        t3 = time.perf_counter()
+        if not np.array_equal(st.out[:cands.shape[1]], s["sads"]):
+            raise AssertionError("me_sad differs from the encode's SADs")
+        for key, v in (("fill", t1 - t0), ("launch", t2 - t1),
+                       ("wait", t3 - t2), ("call", t3 - t0)):
+            parts[key].append(v * 1e3)
+        parts["device"].append(ev0.elapsed_time(ev1))
+    st.free()
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def phase_me_sad_timing(torch, dev, res, sweeps, parent):
+    """me_sad on the device sweeps of phase 9's qcif_me encode, as its TZ
+    search gave them (the resident plane, the origin, the block, the
+    offsets), held to its plain version and to the SADs the encode got.
+    Means over the sweeps: the kernel's time launched back to back from
+    mapped staging (CUDA events, and device time from torch.profiler), its
+    time with the staging in device memory, the plain version's, the
+    library yardstick's (``torch.cdist`` p=1 in float32 on the
+    candidates' blocks gathered beforehand, then the doubling and shift:
+    exact below 2^24, checked), and the bound (``me_sad_bound``).  The
+    per-prefetch call over every sweep: variant (a) ``me.sad_sweep``
+    (one device operation) and (b) ``copy_staged_call`` (two) in turns,
+    a, b, b, a; the same calls under torch.profiler, as the encode is,
+    and taken apart back to back and after 20 ms of host work each
+    (``me_call_parts``), which the encode's own call times are set
+    beside; this tree's call and, with ``parent``, the parent's call on
+    the same sweeps in child processes (``time_prefetch_calls``, with
+    their device operations).  Then the same on a 720p reference
+    (``me_720p_case``)."""
+    import numpy as np
+    from xvc_tpu_torch import kernels
+    from xvc_tpu_torch.gpu import me
+    k = len(sweeps)
+    # each sweep staged twice: in mapped memory of its own (as the main
+    # path stages it) and in device memory
+    staged, nbytes, ops, err = [], 0, 0, 0
+    for s in sweeps:
+        orig, cands, bd, fast = s["orig"], s["cands"], s["bitdepth"], \
+            s["fast"]
+        h, w = orig.shape
+        n = cands.shape[1]
+        st = me._Staging(me.staging_bytes(h, w, n, bd), n)
+        size = me.stage_sweep(st.inp, orig, cands, bd)
+        dbuf = torch.from_numpy(st.inp[:size].copy()).to(dev)
+        dout = torch.empty(n, dtype=torch.int32, device=dev)
+        args = (s["plane"], s["oy"], s["ox"])
+        staged.append((st, dbuf, dout, args, h, w, n, fast, bd))
+        want = me.sad_sweep_plain(*args, torch.from_numpy(orig).to(dev),
+                                  torch.from_numpy(cands).to(dev), fast,
+                                  bd).cpu().numpy()
+        me._launch(*args, st.in_dev, h, w, n, fast, bd, st.out_dev)
+        me._launch(*args, dbuf.data_ptr(), h, w, n, fast, bd,
+                   dout.data_ptr())
+        torch.cuda.synchronize()
+        for got in (st.out[:n], dout.cpu().numpy()):
+            err = max(err, int(np.abs(got.astype(np.int64) - want).max()))
+            if not np.array_equal(got, s["sads"]):
+                raise AssertionError("me_sad differs from the SADs of the "
+                                     "encode on a %dx%d sweep" % (w, h))
+        b, o = me_sad_bound(s["plane"].shape, s["oy"], s["ox"], orig,
+                            cands, fast, bd)
         nbytes += b
         ops += o
-        bufs.append((buf, dims, fast, bd, out))
     if err:
         raise AssertionError("me_sad differs from its plain version on "
                              "%s's sweeps" % ME_SWEEPS_CLIP)
-    k = len(bufs)
-    kernel = lambda: [me.sad_sweep(*b) for b in bufs]
-    plain = lambda: [me.sad_sweep_plain(*me.unpack(b[0], *b[1]), b[2], b[3])
-                     for b in bufs]
-    dev_ms = device_ms(torch, kernel, "sad", 3)
-    order = sorted(range(k), key=lambda j: sweeps[j][2].shape[1])
-    win, orig, cands, fast, bd, _ = sweeps[order[k // 2]]
-    call = lambda: me.device_sads(win, orig, cands, fast, bd, dev)
-    sizes = [s[0].size for s in sweeps]
-    counts = [s[2].shape[1] for s in sweeps]
+    mapped = lambda: [me._launch(*a, st.in_dev, h, w, n, fast, bd,
+                                 st.out_dev)
+                      for st, _, _, a, h, w, n, fast, bd in staged]
+    devmem = lambda: [me._launch(*a, dbuf.data_ptr(), h, w, n, fast, bd,
+                                 dout.data_ptr())
+                      for _, dbuf, dout, a, h, w, n, fast, bd in staged]
+    plain_in = [(s["plane"], s["oy"], s["ox"],
+                 torch.from_numpy(s["orig"]).to(dev),
+                 torch.from_numpy(s["cands"]).to(dev), s["fast"],
+                 s["bitdepth"]) for s in sweeps]
+    plain = lambda: [me.sad_sweep_plain(*a) for a in plain_in]
+    # the library yardstick: the candidates' blocks gathered beforehand
+    lib_in = []
+    for s, a in zip(sweeps, plain_in):
+        plane, oy, ox, orig, cands, fast, bd = a
+        h, w = orig.shape
+        rows = torch.arange(0, h, 2 if fast else 1, device=dev)
+        cols = torch.arange(w, device=dev)
+        y = cands[0].long() + oy
+        x = cands[1].long() + ox
+        blocks = plane[(y[:, None, None] + rows[None, :, None]),
+                       (x[:, None, None] + cols[None, None, :])]
+        lib_in.append((orig[rows].reshape(1, -1).float(),
+                       blocks.reshape(blocks.shape[0], -1).float(),
+                       2.0 if fast else 1.0, bd - 8, s["sads"]))
+
+    def library():
+        return [torch.cdist(o, b, p=1)[0] * m for o, b, m, _, _ in lib_in]
+    for (_, _, m, shift, sads), d in zip(lib_in, library()):
+        if float(d.max()) >= 1 << 24 or not np.array_equal(
+                (d.to(torch.int64) >> shift).cpu().numpy(), sads):
+            raise AssertionError("torch.cdist differs from the encode's "
+                                 "SADs")
+    dev_ms = device_ms(torch, mapped, "sad", 3)
+    dev_ms_devmem = device_ms(torch, devmem, "sad", 3)
+    # the per-prefetch call, (a) and (b) in turns over every sweep
+    spare = me._Staging(me.staging_bytes(64, 64, 4096, 16), 4096)
+    bufs = torch.empty(spare.in_bytes, dtype=torch.uint8, device=dev)
+    call_a = lambda s: me.sad_sweep(s["plane"], s["oy"], s["ox"],
+                                    s["orig"], s["cands"], s["fast"],
+                                    s["bitdepth"])
+    call_b = lambda s: copy_staged_call(
+        torch, me, s["plane"], s["oy"], s["ox"], s["orig"], s["cands"],
+        s["fast"], s["bitdepth"], spare, bufs)
+    for call in (call_a, call_b):
+        for s in sweeps:
+            if not np.array_equal(call(s), s["sads"]):
+                raise AssertionError("a per-prefetch call differs from the "
+                                     "encode's SADs")
+    turns = {"a": [], "b": []}
+    for name in "abba":
+        call = call_a if name == "a" else call_b
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for s in sweeps:
+                call(s)
+        turns[name].append((time.perf_counter() - t0) * 1e3 / (3 * k))
+    # why a call takes longer in the encode than back to back: the same
+    # calls under torch.profiler (the encode above is traced), and each
+    # after 20 ms of host work (the card idles between the encode's
+    # sweeps while the host searches)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in sweeps:
+            call_a(s)
+        traced = (time.perf_counter() - t0) * 1e3 / k
+    spaced = {work: me_call_parts(torch, me, sweeps[:40], work)
+              for work in (0.0, 0.02)}
+    inputs = sweep_inputs(torch, sweeps)
+    trees = {"this tree": dict(time_of_tree(
+        torch, ROOT, "time_prefetch_calls", inputs))}
+    if parent:
+        trees["parent"] = dict(time_of_tree(
+            torch, parent, "time_prefetch_calls", inputs))
+    for tree, r in trees.items():
+        if not r["equal"]:
+            raise AssertionError("%s's per-prefetch call differs from the "
+                                 "encode's SADs" % tree)
+    in_encode = sorted(s["ms"] for s in sweeps)
+    counts = [s["cands"].shape[1] for s in sweeps]
     res["me_sad"].update(
         max_abs_err=err, sweeps=k,
-        shape="%s's %d device sweeps: %d-%d candidates (mean %.1f), box "
-        "windows of %d-%d samples (mean %.0f), blocks %s, %s" % (
+        shape="%s's %d device sweeps: %d-%d candidates (mean %.1f), "
+        "blocks %s, %s, 8 bit, the reference's padded luma resident on "
+        "the card" % (
             ME_SWEEPS_CLIP, k, min(counts), max(counts), sum(counts) / k,
-            min(sizes), max(sizes), sum(sizes) / k,
-            sorted({"%dx%d" % s[1].shape[::-1] for s in sweeps}),
-            sorted({"SAD_FAST" if s[3] else "SAD" for s in sweeps})),
+            sorted({"%dx%d" % s["orig"].shape[::-1] for s in sweeps}),
+            sorted({"SAD_FAST" if s["fast"] else "SAD" for s in sweeps})),
         **bound(nbytes / k, ops / k),
-        ms=cuda_ms(torch, kernel, 5) / k,
+        ms=cuda_ms(torch, mapped, 5) / k,
         device_ms=None if dev_ms is None else dev_ms / k,
-        plain_ms=cuda_ms(torch, plain, 3) / k, library_ms=None,
+        device_staging_ms=cuda_ms(torch, devmem, 5) / k,
+        device_staging_device_ms=None if dev_ms_devmem is None else
+        dev_ms_devmem / k,
+        plain_ms=cuda_ms(torch, plain, 3) / k,
+        library_ms=cuda_ms(torch, library, 5) / k,
         per_prefetch_call=dict(
-            candidates=cands.shape[1], window=list(win.shape),
-            block=list(orig.shape), host_ms=host_ms(torch, call),
-            device_operations=dict(time_of_tree(
-                torch, ROOT, "prefetch_call_ops", dict(
-                    window=torch.from_numpy(win),
-                    orig=torch.from_numpy(orig),
-                    cands=torch.from_numpy(cands), fast=fast,
-                    bitdepth=bd)))["device_operations"]))
+            mapped_staging_ms=turns["a"], copy_staging_ms=turns["b"],
+            host_ms=sum(turns["a"]) / 2,
+            in_encode_ms=dict(mean=sum(in_encode) / k,
+                              median=in_encode[k // 2],
+                              p90=in_encode[int(0.9 * k)]),
+            traced_ms=traced,
+            back_to_back_parts=spaced[0.0],
+            after_host_work_parts=spaced[0.02],
+            trees=trees,
+            device_operations=trees["this tree"]["device_operations"]))
+    for st, *_ in staged:
+        st.free()
+    spare.free()
     r = res["me_sad"]
-    log("phase 9: me_sad on %s: kernel %.5f ms a sweep (device %s ms), "
-        "plain %.4f ms, bound %.7f ms (%s; %d bytes, %d operations a "
-        "sweep), bit-exact to its plain version and to the encode's SADs; "
-        "the per-prefetch call (%d candidates, a %dx%d window) %.4f ms on "
-        "the host, %s device operations a call" % (
-            r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
-            r["bound_ms"], r["bound_by"], r["bound_bytes"], r["bound_ops"],
-            cands.shape[1], win.shape[0], win.shape[1],
-            r["per_prefetch_call"]["host_ms"],
-            r["per_prefetch_call"]["device_operations"]))
+    c = r["per_prefetch_call"]
+    log("phase 9: me_sad on %s: kernel %.5f ms a sweep from mapped staging "
+        "(device %s ms; %.5f ms with the staging in device memory, device "
+        "%s ms), plain "
+        "%.4f ms, torch.cdist %.4f ms, bound %.7f ms (%s; %d bytes, %d "
+        "operations a sweep), bit-exact to its plain version and to the "
+        "encode's SADs; the per-prefetch call over every sweep: (a) mapped "
+        "staging %s ms, (b) one copy %s ms (turns a, b, b, a), in the "
+        "encode %.4f ms mean (median %.4f, p90 %.4f), under torch.profiler "
+        "%.4f ms; its parts (median ms) back to back %s, after 20 ms of "
+        "host work %s; in child processes %s" % (
+            r["shape"], r["ms"], r["device_ms"], r["device_staging_ms"],
+            r["device_staging_device_ms"],
+            r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+            r["bound_bytes"], r["bound_ops"],
+            ["%.4f" % t for t in c["mapped_staging_ms"]],
+            ["%.4f" % t for t in c["copy_staging_ms"]],
+            c["in_encode_ms"]["mean"], c["in_encode_ms"]["median"],
+            c["in_encode_ms"]["p90"], c["traced_ms"],
+            {k: "%.4f" % v for k, v in c["back_to_back_parts"].items()},
+            {k: "%.4f" % v for k, v in c["after_host_work_parts"].items()},
+            {t: "%.4f ms, %s device operations" % (
+                v["host_ms"], v["device_operations"])
+             for t, v in trees.items()}))
+    me_720p_case(torch, dev, res, parent)
+
+
+def me_720p_case(torch, dev, res, parent):
+    """The per-prefetch call at a real size: hd720_ld's decoded picture 0,
+    padded, as the resident reference, picture 1's luma as the original;
+    one DeviceSadTable prefetch per 16x16 CU of the 1280x720 picture on
+    ``tz_initial_candidates((0, 0), 64)`` with the reference's routing
+    (CUs whose window leaves the padded plane go to the host).  Every
+    device sweep held to a CPU-device table of the same picture; host ms
+    a prefetch, a device call, and in child processes the call of this
+    tree and of ``parent`` on the same sweeps, with device operations."""
+    import numpy as np
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.codec.yuv import YuvPicture
+    from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.ops import metrics as met
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        pics = decode_stream(f.read(), device=dev)[:2]
+    luma = [np.frombuffer(p.bytes, np.uint8)[:1280 * 720].reshape(720, 1280)
+            for p in pics]
+    refs = []
+    for _ in range(2):
+        ref = YuvPicture(1, 1280, 720, 8)
+        ref.plane_view(0)[:] = luma[0]
+        ref.pad_border()
+        refs.append(ref)
+    orig = luma[1].astype(np.int32)
+    metric = met.SampleMetric(8, met.MetricType.SAD)
+    mvs = me.tz_initial_candidates((0, 0), 64)
+
+    class Cu:
+        width = height = 16
+
+        def __init__(self, x, y):
+            self.x, self.y = x, y
+
+        def pos(self, comp):
+            return self.x, self.y
+
+    class Qp:
+        distortion_weight = [1.0, 1.0, 1.0]
+
+    cus = [(x, y) for y in range(0, 720, 16) for x in range(0, 1280, 16)]
+    sweeps = []
+    undo = record_sweeps(me, sweeps, set())
+    try:
+        me.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tabs = []
+        for x, y in cus:
+            t = me.DeviceSadTable(None, Cu(x, y), metric, refs[0],
+                                  orig[y:y + 16, x:x + 16], dev)
+            t.prefetch(Qp(), mvs)
+            tabs.append(t)
+        seconds = time.perf_counter() - t0
+        stats = dict(me.STATS)
+    finally:
+        undo()
+    for (x, y), t in zip(cus, tabs):
+        c = me.DeviceSadTable(None, Cu(x, y), metric, refs[1],
+                              orig[y:y + 16, x:x + 16], "cpu")
+        c.prefetch(Qp(), mvs)
+        if c.cache != t.cache:
+            raise AssertionError("the 720p sweep of CU (%d, %d) differs from "
+                                 "the CPU device" % (x, y))
+    inputs = sweep_inputs(torch, sweeps)
+    trees = {"this tree": dict(time_of_tree(
+        torch, ROOT, "time_prefetch_calls", inputs))}
+    if parent:
+        trees["parent"] = dict(time_of_tree(
+            torch, parent, "time_prefetch_calls", inputs))
+    for tree, r in trees.items():
+        if not r["equal"]:
+            raise AssertionError("%s's per-prefetch call differs on the "
+                                 "720p sweeps" % tree)
+    calls = stats["device_calls"]
+    row = dict(cus=len(cus), device_calls=calls,
+               host_routed=stats["host_routed"],
+               reference_uploads=stats["reference_uploads"],
+               candidates_per_call=stats["device_candidates"] / calls,
+               ms_a_prefetch=seconds * 1e3 / len(cus),
+               ms_a_device_call=sum(s["ms"] for s in sweeps) / calls,
+               trees=trees)
+    if calls != len(sweeps) or stats["reference_uploads"] != 1:
+        raise AssertionError("720p: %r" % (stats,))
+    res["me_sad"]["hd720"] = row
+    log("phase 9: me_sad at 720p (hd720_ld picture 1 against picture 0, "
+        "one prefetch a 16x16 CU, range 64): %d of %d prefetches on the "
+        "card (%d host-routed), %.1f candidates a call, %d reference "
+        "upload; %.4f ms a prefetch, %.4f ms a device call; in child "
+        "processes %s; every sweep equal to the CPU device" % (
+            calls, len(cus), row["host_routed"],
+            row["candidates_per_call"], row["reference_uploads"],
+            row["ms_a_prefetch"], row["ms_a_device_call"],
+            {t: "%.4f ms, %s device operations" % (
+                v["host_ms"], v["device_operations"])
+             for t, v in trees.items()}))
 
 
 def read_hashes(path):
@@ -3630,7 +4075,9 @@ def phase_python_cu_inter(torch, dev):
 
         saved = {k: os.environ.get(k) for k in clip["env"]}
         os.environ.update(clip["env"])
-        undo = record_sweeps(me, sweeps) if name == ME_SWEEPS_CLIP else None
+        read = set()
+        undo = record_sweeps(me, sweeps if name == ME_SWEEPS_CLIP else None,
+                             read)
         try:
             profiling.reset()
             profiling.enable()
@@ -3646,8 +4093,7 @@ def phase_python_cu_inter(torch, dev):
             stats = dict(me.STATS)
             spans = profiling.report()
         finally:
-            if undo is not None:
-                undo()
+            undo()
             profiling.enable(False)
             profiling.reset()
             for k, v in saved.items():
@@ -3672,12 +4118,18 @@ def phase_python_cu_inter(torch, dev):
                 "%s: me_sad launches %d, device sweeps %r, the JAX "
                 "package's %r" % (name, launches["me_sad"], stats,
                                   ref["me"]))
+        if not 1 <= stats["reference_uploads"] <= len(read):
+            raise AssertionError(
+                "%s: %d reference uploads for the %d reference pictures "
+                "the sweeps read" % (name, stats["reference_uploads"],
+                                     len(read)))
         pics = decode_stream(data, device=dev)
         if len(pics) != n or not all(p.conforming for p in pics) or \
                 [p.bytes for p in pics] != ses.rec_pictures:
             raise AssertionError("%s: the card's decode differs from the "
                                  "encoder's reconstruction" % name)
         pre = spans.get("encode.me_prefetch", {"seconds": 0.0, "calls": 0})
+        upl = spans.get("encode.me_reference", {"seconds": 0.0, "calls": 0})
         calls = stats["device_calls"]
         row = dict(
             width=w, height=h, pictures=n, seconds=dt,
@@ -3689,6 +4141,9 @@ def phase_python_cu_inter(torch, dev):
             planned_device_share=PYTHON_CU_INTER_PLANNED_DEVICE_SHARE[name],
             candidates_per_device_call=stats["device_candidates"] / calls,
             device_route_seconds=pre["seconds"],
+            reference_uploads=stats["reference_uploads"],
+            reference_pictures_read=len(read),
+            reference_upload_seconds=upl["seconds"],
             device_route_ms_a_call=pre["seconds"] * 1e3 / pre["calls"]
             if pre["calls"] else None,
             device_operations_a_device_call=ops / calls if ops else None,
@@ -3703,7 +4158,8 @@ def phase_python_cu_inter(torch, dev):
             "and equal to the encoder's reconstruction; %.1f prefetches a "
             "picture, %.4f of them on the device (%d me_sad launches; the "
             "plan measured %.3f), %.4f routed to the host, %.1f candidates "
-            "a device call; the device route %.4f s, %s ms a call; %s "
+            "a device call; the device route %.4f s, %s ms a call, %d "
+            "reference uploads (%.4f s) for %d reference pictures read; %s "
             "device operations in the encode (%s a device call, deblock's "
             "included); idle share %s (traced encode %.3f s, device busy "
             "%s s); spans (s): %s" % (
@@ -3712,7 +4168,8 @@ def phase_python_cu_inter(torch, dev):
                 launches["me_sad"], row["planned_device_share"],
                 row["host_routed_share"],
                 row["candidates_per_device_call"], pre["seconds"],
-                row["device_route_ms_a_call"], ops,
+                row["device_route_ms_a_call"], stats["reference_uploads"],
+                upl["seconds"], len(read), ops,
                 row["device_operations_a_device_call"],
                 row["device_idle_share"], traced_s, busy_s,
                 {k: v["seconds"] for k, v in spans.items()}))
@@ -3778,7 +4235,7 @@ def main():
     resampling = phase("7", phase_resampling, torch)
     python_cu = phase("8", phase_python_cu, torch, dev)
     python_cu_inter, sweeps = phase("9", phase_python_cu_inter, torch, dev)
-    phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps)
+    phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps, parent)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -3800,8 +4257,8 @@ def main():
                     "python_cu": python_cu,
                     "python_cu_inter": python_cu_inter,
                     "me_sad": {k: res["me_sad"][k] for k in (
-                        "cases", "sweeps", "device_ms",
-                        "per_prefetch_call")},
+                        "cases", "sweeps", "device_ms", "device_staging_ms",
+                        "library_ms", "per_prefetch_call", "hd720")},
                     "txrd": {k: res["txrd"][k] for k in (
                         "per_size", "synthetic_cases",
                         "log2_cpu_card_differ", "log2_table_card_differ")},
@@ -3853,10 +4310,11 @@ def main():
     # Hadamard + |.| sum, every intra mode predicted with its SATD summed,
     # the sequential intra scans, a top-8 screen with
     # a per-block integer transform, quantization and a rate proxy summed
-    # per candidate with a keep-best selection, the SAD of one block at
-    # each of a list of window offsets); but resample's, the JAX
+    # per candidate with a keep-best selection); but resample's, the JAX
     # formulation as two float64 torch.matmul calls on dense tap matrices
-    # with the shifts and clips (dense_resample)
+    # with the shifts and clips (dense_resample), and me_sad's,
+    # torch.cdist p=1 in float32 on the candidates' blocks gathered
+    # beforehand, with the doubling and shift (exact below 2^24)
     log(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1], launches=launches[n],

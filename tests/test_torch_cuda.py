@@ -91,6 +91,17 @@ def _device_ops_per_call(fn, iters=4):
     return counts
 
 
+def _device_ops_seen(fn, windows=3):
+    """``_device_ops_per_call`` of the first of up to ``windows`` profiler
+    windows that saw any device event: late in a long process a window
+    can lose every one, which measures nothing."""
+    for _ in range(windows):
+        counts = _device_ops_per_call(fn)
+        if any(counts):
+            break
+    return counts
+
+
 def _positions(B, bw, bh, nx):
     ty, tx = np.divmod(np.arange(B), nx)
     return ty * bh, tx * bw
@@ -1462,64 +1473,103 @@ def test_threaded_decode_on_card_equals_sequential(cuda, monkeypatch, name,
             [(p.poc, p.conforming, p.bytes) for p in seq]
 
 
-def _me_case(seed, w, h, bd, n):
+def _me_case(seed, w, h, bd, n, corners=False):
+    """A padded 1280x720 luma plane (880 x 1440), a block and n offsets
+    from a box origin: inside one 192 x 192 window (its corners first),
+    or, with ``corners``, from the plane's origin to its four corners."""
     rng = np.random.RandomState(seed)
-    win = rng.randint(0, 1 << bd, (192, 192)).astype(np.int32)
+    plane = rng.randint(0, 1 << bd, (880, 1440)).astype(np.int32)
     orig = rng.randint(0, 1 << bd, (h, w)).astype(np.int32)
-    win[:h, :w] = (1 << bd) - 1
     orig[::3] = 0
-    ys = rng.randint(0, 192 - h + 1, n)
-    xs = rng.randint(0, 192 - w + 1, n)
-    for j, (y, x) in enumerate([(0, 0), (0, 192 - w), (192 - h, 0),
-                                (192 - h, 192 - w)][:n]):
+    if corners:
+        oy, ox, side_y, side_x = 0, 0, 880, 1440
+    else:
+        oy, ox, side_y, side_x = 300, 517, 192, 192
+    plane[oy:oy + h, ox:ox + w] = (1 << bd) - 1
+    ys = rng.randint(0, side_y - h + 1, n)
+    xs = rng.randint(0, side_x - w + 1, n)
+    for j, (y, x) in enumerate([(0, 0), (0, side_x - w), (side_y - h, 0),
+                                (side_y - h, side_x - w)][:n]):
         ys[j], xs[j] = y, x
-    return win, orig, np.stack([ys, xs]).astype(np.int32)
+    return plane, oy, ox, orig, np.stack([ys, xs]).astype(np.int32)
 
 
 @pytest.mark.parametrize("bd", [8, 16])
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("w,h,n", [(4, 4, 1), (8, 16, 44), (16, 16, 86),
-                                   (32, 8, 754), (64, 64, 86),
-                                   (16, 64, 44)])
-def test_me_sad_kernel_matches_plain(cuda, w, h, n, fast, bd):
+@pytest.mark.parametrize("w,h,n,corners", [
+    (4, 4, 1, False), (8, 16, 44, False), (16, 16, 86, False),
+    (32, 8, 754, False), (64, 64, 86, False), (16, 64, 44, False),
+    (16, 16, 4, True), (64, 32, 86, True)])
+def test_me_sad_kernel_matches_plain(cuda, w, h, n, corners, fast, bd):
     """The motion search's SAD sweep against its plain version on the
-    card, bit for bit, one launch: a warp a candidate up to 256 samples,
-    a CTA a candidate above; int16 packing at 8 bit, int32 at 16."""
+    card, bit for bit, one launch and one device operation: the plane
+    resident on the card, the block and offsets read from mapped staging,
+    the SADs written to mapped memory; a warp a candidate up to 256
+    samples, a CTA a candidate above; int16 at 8 bit, int32 at 16; the
+    720p plane's four corners."""
     from xvc_tpu_torch.gpu import me
-    win, orig, cands = _me_case(w * 7 + h + n, w, h, bd, n)
-    want = me.sad_sweep_plain(*_to(cuda, win, orig, cands), fast,
+    plane, oy, ox, orig, cands = _me_case(w * 7 + h + n, w, h, bd, n,
+                                          corners)
+    res = torch.from_numpy(plane).to(me.packed_dtype(bd)).to(cuda)
+    want = me.sad_sweep_plain(res, oy, ox, *_to(cuda, orig, cands), fast,
                               bd).cpu().numpy()
-    kernels.reset_launches()
     np.testing.assert_array_equal(
-        me.device_sads(win, orig, cands, fast, bd, cuda), want)
+        want, me.sad_sweep_plain(torch.from_numpy(plane), oy, ox,
+                                 *_to("cpu", orig, cands), fast,
+                                 bd).numpy())
+    kernels.reset_launches()
+    got = me.sad_sweep(res, oy, ox, orig, cands, fast, bd)
     assert kernels.LAUNCHES["me_sad"] == 1
-    # the wrapper on a packed buffer on the card, into a longer out
-    dims = (192, 192, h, w, n)
-    host = torch.empty(me.packed_size(*dims), dtype=me.packed_dtype(bd))
-    me.pack(win, orig, cands, host.numpy())
-    out = torch.full((n + 5,), -1, dtype=torch.int32, device=cuda)
-    got = me.sad_sweep(host.to(cuda), dims, fast, bd, out)
-    assert kernels.LAUNCHES["me_sad"] == 2
-    np.testing.assert_array_equal(got.cpu().numpy(), want)
-    assert (out[n:] == -1).all()
+    np.testing.assert_array_equal(got, want)
+    assert _device_ops_seen(
+        lambda: me.sad_sweep(res, oy, ox, orig, cands, fast, bd)) == [1] * 4
 
 
 def test_me_prefetch_call_is_one_launch_between_two_copies(cuda):
-    """One device_sads call on the card (a DeviceSadTable prefetch): one
-    me_sad launch and 3 device operations (upload, kernel, download) in
-    each call's range of a torch.profiler window; the CPU device's
-    SADs."""
+    """One DeviceSadTable prefetch on the card: the reference's padded
+    luma uploaded once (equal to the host plane), then each sweep one
+    me_sad launch and one device operation, with no copy on either side
+    of it now (the name is kept from the packed call, which had one
+    upload and one download); the CPU device's cache."""
+    from xvc_tpu_torch.codec.yuv import YuvPicture
     from xvc_tpu_torch.gpu import me
-    args = _me_case(5, 16, 16, 10, 86) + (True, 10)
-    want = me.device_sads(*args, "cpu")
-    me.device_sads(*args, cuda)  # first-use costs
-    torch.cuda.synchronize()
+    from xvc_tpu_torch.ops import metrics as met
+
+    class Cu:
+        width, height = 16, 16
+
+        @staticmethod
+        def pos(comp):
+            return 600, 300
+
+    class Qp:
+        distortion_weight = [1.0, 1.0, 1.0]
+
+    plane, _, _, orig, _ = _me_case(5, 16, 16, 10, 1)
+    pic = YuvPicture(1, 1280, 720, 10)
+    pic.planes[0][:] = plane
+    metric = met.SampleMetric(10, met.MetricType.SAD_FAST)
+    mvs = me.tz_initial_candidates((3, -2), 64)
+    tabs = {dev: me.DeviceSadTable(None, Cu(), metric, pic, orig, dev)
+            for dev in ("cpu", cuda)}
+    me.reset_stats()
     kernels.reset_launches()
-    got = me.device_sads(*args, cuda)
+    for tab in tabs.values():
+        tab.prefetch(Qp(), mvs)
+    assert tabs[cuda].cache == tabs["cpu"].cache
+    assert len(tabs[cuda].cache) == len(set(mvs))
     assert kernels.LAUNCHES["me_sad"] == 1
-    np.testing.assert_array_equal(got, want)
-    assert _device_ops_per_call(
-        lambda: me.device_sads(*args, cuda)) == [3] * 4
+    assert me.STATS["reference_uploads"] == 2  # one a device
+    np.testing.assert_array_equal(
+        pic.device_luma[1].cpu().numpy(), pic.padded_plane(0))
+    assert pic.device_luma[1].device.type == "cuda"
+
+    def call():
+        tab = me.DeviceSadTable(None, Cu(), metric, pic, orig, cuda)
+        tab.prefetch(Qp(), mvs)
+
+    assert _device_ops_seen(call) == [1] * 4
+    assert me.STATS["reference_uploads"] == 2
 
 
 def test_python_cu_inter_encode_on_card_matches_cpu(cuda, monkeypatch):

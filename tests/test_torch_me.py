@@ -1,25 +1,28 @@
 """The port's device motion estimation (xvc_tpu_torch/gpu/me.py) against
 the JAX package's (xvc_tpu/tpu/me.py), on the CPU:
 
-- ``sad_sweep_plain`` against ``make_sad_fn`` bit for bit: every CU shape
-  from 4x4 to 64x64 (the non-square ones included), SAD and SAD_FAST,
-  8, 10, 12 and 16 bit, N = 1, 44, 86 and 754 candidates, always with the
-  window's four corners among them;
-- the packed buffer the kernel reads (int16 to 15 bit, int32 above),
-  through ``device_sads`` on the CPU device, and the checks of the
-  wrapper (``sad_sweep``) and of the per-prefetch call;
+- ``sad_sweep_plain``, which reads a plane at an origin, against
+  ``make_sad_fn`` on the window cut from the same plane at that origin,
+  bit for bit: every CU shape from 4x4 to 64x64 (the non-square ones
+  included), SAD and SAD_FAST, 8, 10, 12 and 16 bit, N = 1, 44, 86 and
+  754 candidates, always with the window's four corners among them;
+  the same through ``sad_sweep`` on the CPU device;
+- the staging layout the kernel reads (the offsets as int32, then the
+  block: int16 to 15 bit, int32 above) and the checks of ``sad_sweep``;
 - ``tz_initial_candidates`` for every search range from 1 to 256;
 - ``DeviceSadTable.prefetch`` against the JAX table on a 1280x720
-  reference plane: CU positions and candidate lists that take each of
+  reference picture: CU positions and candidate lists that take each of
   the three host routes (a metric other than SAD, a box over the window,
   a window outside the padded plane) and the device route, with the
-  same cache, the same ``dist`` values and the routes counted in
-  ``STATS``;
+  same cache, the same ``dist`` values, the routes counted in ``STATS``
+  and the device route reading the picture's resident padded luma;
 - the block metrics the inter search picks (``ops/metrics.py``
   ``SampleMetric``, the native ``xvcn_metric``) against the JAX package's
   numpy metrics.
 
-The port's encode of ra64x48_me is in tests/test_torch_me_ra64x48.py.
+The port's encode of ra64x48_me is in tests/test_torch_me_ra64x48.py, the
+resident reference plane and the counts' lock in
+tests/test_torch_me_resident.py.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ import torch
 
 from xvc_tpu.ops import metrics as jmet
 from xvc_tpu.tpu import me as jme
+from xvc_tpu_torch.codec.yuv import YuvPicture
 from xvc_tpu_torch.gpu import me
 from xvc_tpu_torch.ops import metrics as met
 
@@ -47,12 +51,19 @@ def _sweep_cases():
     return cases
 
 
+# where the 192 x 192 window lies in the plane of ``_inputs``
+_OY, _OX = 13, 27
+
+
 def _inputs(w, h, bitdepth, n, seed):
+    """A plane that holds a 192 x 192 window at (_OY, _OX), an h x w
+    block and n offsets into the window (its four corners first)."""
     rng = np.random.RandomState(seed)
-    win = rng.randint(0, 1 << bitdepth, (me.WIN, me.WIN)).astype(np.int32)
+    plane = rng.randint(0, 1 << bitdepth, (me.WIN + 40, me.WIN + 56)) \
+        .astype(np.int32)
     orig = rng.randint(0, 1 << bitdepth, (h, w)).astype(np.int32)
     # a run of extreme samples, so that the sums are as large as they get
-    win[:h, :w] = (1 << bitdepth) - 1
+    plane[_OY:_OY + h, _OX:_OX + w] = (1 << bitdepth) - 1
     orig[::3] = 0
     ys = rng.randint(0, me.WIN - h + 1, n)
     xs = rng.randint(0, me.WIN - w + 1, n)
@@ -60,58 +71,79 @@ def _inputs(w, h, bitdepth, n, seed):
                (me.WIN - h, me.WIN - w)]
     for j, (y, x) in enumerate(corners[:n]):
         ys[j], xs[j] = y, x
-    return win, orig, np.stack([ys, xs]).astype(np.int32)
+    return plane, orig, np.stack([ys, xs]).astype(np.int32)
+
+
+def _window(plane):
+    return np.ascontiguousarray(plane[_OY:_OY + me.WIN, _OX:_OX + me.WIN])
+
+
+def _resident(plane, bitdepth):
+    return torch.from_numpy(plane).to(me.packed_dtype(bitdepth))
 
 
 @pytest.mark.parametrize("w,h,fast,bitdepth,n", _sweep_cases())
 def test_sad_sweep_plain_equals_make_sad_fn(w, h, fast, bitdepth, n):
-    win, orig, cands = _inputs(w, h, bitdepth, n, seed=w * 131 + h + fast)
+    """The plane-reading plain version against the JAX function on the
+    window cut from the same plane at the same origin."""
+    plane, orig, cands = _inputs(w, h, bitdepth, n, seed=w * 131 + h + fast)
     want = np.asarray(jme.make_sad_fn(w, h, fast, bitdepth, n)(
-        win, orig, cands))
-    got = me.sad_sweep_plain(torch.from_numpy(win), torch.from_numpy(orig),
-                             torch.from_numpy(cands), fast, bitdepth)
+        _window(plane), orig, cands))
+    got = me.sad_sweep_plain(torch.from_numpy(plane), _OY, _OX,
+                             torch.from_numpy(orig), torch.from_numpy(cands),
+                             fast, bitdepth)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    # the packed route: the kernel's buffer on the CPU device
-    packed = me.device_sads(win, orig, cands, fast, bitdepth, "cpu")
-    np.testing.assert_array_equal(packed, want)
+    # the call on the CPU device: the resident plane's element type
+    np.testing.assert_array_equal(
+        me.sad_sweep(_resident(plane, bitdepth), _OY, _OX, orig, cands,
+                     fast, bitdepth), want)
 
 
 @pytest.mark.parametrize("bitdepth", BITDEPTHS)
-def test_the_packed_buffer_holds_the_samples(bitdepth):
-    """int16 up to 15 bit, int32 above, the layout window, orig, y, x."""
-    win, orig, cands = _inputs(8, 4, bitdepth, 44, seed=bitdepth)
+def test_the_staging_holds_the_offsets_and_the_block(bitdepth):
+    """The offsets y and x as int32, then the block in the plane's
+    element type (int16 up to 15 bit, int32 above)."""
+    _, orig, cands = _inputs(8, 4, bitdepth, 44, seed=bitdepth)
     dt = me.packed_dtype(bitdepth)
     assert dt == (torch.int16 if bitdepth <= 15 else torch.int32)
-    size = me.packed_size(me.WIN, me.WIN, 4, 8, 44)
-    buf = torch.empty(size, dtype=dt)
-    me.pack(win, orig, cands, buf.numpy())
-    views = me.unpack(buf, me.WIN, me.WIN, 4, 8, 44)
-    for got, want in zip(views, (win, orig, cands)):
-        np.testing.assert_array_equal(got.to(torch.int32).numpy(), want)
+    size = me.staging_bytes(4, 8, 44, bitdepth)
+    assert size == 8 * 44 + 4 * 8 * (2 if bitdepth <= 15 else 4)
+    buf = np.full(size + 16, 0xA5, np.uint8)
+    assert me.stage_sweep(buf, orig, cands, bitdepth) == size
+    np.testing.assert_array_equal(buf[:8 * 44].view(np.int32).reshape(2, 44),
+                                  cands)
+    np.testing.assert_array_equal(
+        buf[8 * 44:size].view(np.int16 if bitdepth <= 15 else np.int32)
+        .reshape(4, 8), orig)
+    assert (buf[size:] == 0xA5).all()
 
 
 def test_sad_sweep_checks_its_inputs():
-    win, orig, cands = _inputs(8, 8, 8, 4, seed=1)
-    with pytest.raises(ValueError):  # a block leaves the window
+    plane, orig, cands = _inputs(8, 8, 8, 4, seed=1)
+    res = _resident(plane, 8)
+    with pytest.raises(ValueError):  # a block leaves the plane
         bad = cands.copy()
-        bad[1, 0] = me.WIN - 7
-        me.device_sads(win, orig, bad, False, 8, "cpu")
+        bad[1, 0] = plane.shape[1] - _OX - 7
+        me.sad_sweep(res, _OY, _OX, orig, bad, False, 8)
+    with pytest.raises(ValueError):  # ... above its top
+        me.sad_sweep(res, -1, _OX, orig, cands, False, 8)
     with pytest.raises(ValueError):  # a bit depth the kernel lacks
-        me.device_sads(win, orig, cands, False, 17, "cpu")
-    dims = (me.WIN, me.WIN, 8, 8, 4)
-    buf = torch.empty(me.packed_size(*dims), dtype=me.packed_dtype(8))
-    me.pack(win, orig, cands, buf.numpy())
+        me.sad_sweep(res.int(), _OY, _OX, orig, cands, False, 17)
+    with pytest.raises(ValueError):  # not the resident element type
+        me.sad_sweep(res.int(), _OY, _OX, orig, cands, False, 8)
+    with pytest.raises(ValueError):  # a block wider than a CU
+        me.sad_sweep(res, _OY, _OX, np.zeros((4, 65), np.int32), cands[:, :1],
+                     False, 8)
     with pytest.raises(ValueError):  # neither the CPU nor the card
-        me.sad_sweep(buf.to("meta"), dims, False, 8)
-    with pytest.raises(ValueError):  # not the packed element type
-        me.sad_sweep(buf.int(), dims, False, 8)
-    with pytest.raises(ValueError):  # shorter than its dimensions
-        me.sad_sweep(buf[:-1], dims, False, 8)
-    t = [torch.from_numpy(a) for a in (win, orig, cands)]
+        me.sad_sweep(res.to("meta"), _OY, _OX, orig, cands, False, 8)
+    assert me.sad_sweep(res, _OY, _OX, orig, cands[:, :0], True, 8).shape \
+        == (0,)
     np.testing.assert_array_equal(
-        me.sad_sweep(buf, dims, True, 8).numpy(),
-        me.sad_sweep_plain(*t, True, 8).numpy())
+        me.sad_sweep(res, _OY, _OX, orig, cands, True, 8),
+        me.sad_sweep_plain(torch.from_numpy(plane), _OY, _OX,
+                           torch.from_numpy(orig), torch.from_numpy(cands),
+                           True, 8).numpy())
 
 
 def test_tz_initial_candidates_equal_the_jax_list():
@@ -129,16 +161,12 @@ class _Cu:
         return self.pos_x, self.pos_y
 
 
-class _Ref:
-    """A padded 1280x720 luma plane (padding 80, as the encoder's)."""
-
-    def __init__(self, plane):
-        self._plane = plane
-        self.pad_x = [80, 40, 40]
-        self.pad_y = [80, 40, 40]
-
-    def padded_plane(self, comp):
-        return self._plane
+def _ref_picture(plane, bitdepth):
+    """A 1280x720 picture (padding 80, as the encoder's) whose padded
+    luma is ``plane``."""
+    pic = YuvPicture(1, 1280, 720, bitdepth)
+    pic.planes[0][:] = plane
+    return pic
 
 
 class _Qp:
@@ -197,7 +225,7 @@ def test_device_sad_table_fills_the_jax_cache(case, bitdepth):
     rng = np.random.RandomState(case)
     plane = rng.randint(0, 1 << bitdepth, (720 + 160, 1280 + 160)) \
         .astype(np.int32)
-    ref, cu, qp = _Ref(plane), _Cu(x, y, w, h), _Qp()
+    ref, cu, qp = _ref_picture(plane, bitdepth), _Cu(x, y, w, h), _Qp()
     orig = np.ascontiguousarray(
         plane[80 + y + 3:80 + y + 3 + h, 80 + x - 2:80 + x - 2 + w]) ^ 5
     jtab = jme.DeviceSadTable(
@@ -217,14 +245,21 @@ def test_device_sad_table_fills_the_jax_cache(case, bitdepth):
         assert me.STATS["device_calls"] == 1
         assert me.STATS["device_candidates"] == len(set(mvs))
         assert me.STATS["host_routed"] == 0
+        # the sweep read the reference's padded luma, copied once
+        assert me.STATS["reference_uploads"] == 1
+        np.testing.assert_array_equal(ref.device_luma[1].numpy(), plane)
     else:
         assert not tab.cache
         assert me.STATS["device_calls"] == 0
         assert me.STATS["host_routed"] == 1
+        assert me.STATS["reference_uploads"] == 0
+        assert ref.device_luma is None
     for t in (jtab, tab):  # mostly cached, or a box that fits
         t.prefetch(qp, mvs[:5] + [(1, 1)])
     assert tab.cache == jtab.cache
     assert me.STATS["prefetches"] == 2
+    # one copy of the reference however many sweeps read it
+    assert me.STATS["reference_uploads"] == min(1, me.STATS["device_calls"])
     for mv in mvs[::7] + [(2, -3)]:
         assert tab.dist(qp, *mv) == jtab.dist(qp, *mv)
 

@@ -65,6 +65,7 @@ class PictureEncoder:
         self.output_status = "ready"
         self.buffer_flag = False
         self.rec_pic.invalidate_shadow16()  # buffer recycled
+        self.rec_pic.drop_device_luma()
         pd = self.pic_data
         pd.doc = doc
         pd.poc = poc

@@ -11,7 +11,11 @@ reconstruction).  The native encoder writes its reconstruction to an
 int16 surface of the padded plane geometry (``begin_native16``,
 ``rec16``) and reads its references' from the same surfaces
 (``shadow16``); the int32 planes are filled from that surface when a
-host reader asks for them.
+host reader asks for them.  The motion search keeps a copy of a
+reference picture's padded luma on its device (``device_luma``,
+``gpu/me.reference_luma``); a recycled buffer (``PictureEncoder.
+init_pic``) and a new border (``pad_border``) drop it
+(``drop_device_luma``).
 """
 import numpy as np
 
@@ -43,6 +47,18 @@ class YuvPicture:
              self.width[c] + 2 * self.pad_x[c]) for c in range(3)]
         self.planes = [np.zeros(self._plane_shapes[c], dtype=np.int32)
                        for c in range(3)]
+        # the motion search's copy of the padded luma on a device
+        # (generation, tensor), valid while ``luma_generation`` is the
+        # one it was taken at
+        self.device_luma = None
+        self.luma_generation = 0
+
+    def drop_device_luma(self):
+        """The planes get new content: the device copy of the luma is
+        stale.  Takes no lock (``gpu/me.reference_luma`` compares the
+        generation under its own)."""
+        self.luma_generation += 1
+        self.device_luma = None
 
     # ---- the native encoder's int16 surfaces ----
     def _s16_slots(self):
@@ -114,6 +130,7 @@ class YuvPicture:
         the int32 planes)."""
         if self.width[0] == 0:
             return
+        self.drop_device_luma()
         native16 = getattr(self, "_native16", False)
         for c in range(3):
             px, py = self.pad_x[c], self.pad_y[c]

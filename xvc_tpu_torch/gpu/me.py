@@ -15,16 +15,21 @@ metric's, so the stream is the same bytes either way.
 other than SAD and SAD_FAST, a candidate box wider or taller than the
 192 x 192 window, and a window that leaves the padded plane leave the
 call's candidates to the host metric, as does a vector never prefetched.
-A device call packs the window, the block and the offsets into one
-buffer (``pack``); on the card that is one upload from pinned staging,
-one ``me_sad`` launch and one download, on the CPU ``sad_sweep_plain``
-on the packed buffer's views.  ``STATS`` counts the calls and where they
-went.
+A device call reads the reference picture's padded luma where it lies
+on the device: one copy a picture (``reference_luma``), made at the
+first sweep that reads it and dropped when the picture's planes get new
+content.  A sweep (``sad_sweep``) sends only the block and the offsets;
+on the card they go into mapped pinned host memory that the ``me_sad``
+launch reads in place, and the SADs come back the same way: one device
+operation and an event wait.  On the CPU the same call is
+``sad_sweep_plain``.  ``STATS`` counts the calls, where they went, and
+the reference copies.
 
 Not ported: the per-picture device pin of ``prefetch``
 (``me.py:151-158``), which belongs to the encode pipeline's mesh
 (ROADMAP queue 1 item 7).
 """
+import ctypes
 import threading
 
 import numpy as np
@@ -35,18 +40,30 @@ from ..ops import metrics as met
 from ..profiling import span
 
 WIN = 192  # the gather window of the reference (me.py _WIN)
+MAX_SIDE = 64  # the largest block the kernel takes (a CU side)
 
 # prefetches: every call; host_routed: calls the routing leaves to the
 # host metric; device_calls / device_candidates: calls on the encoder's
 # device and the candidates they evaluated; host_dists: dist() lookups of
-# a vector that was never prefetched
+# a vector that was never prefetched; reference_uploads: copies of a
+# reference picture's padded luma made on the device
 STATS = {"prefetches": 0, "host_routed": 0, "device_calls": 0,
-         "device_candidates": 0, "host_dists": 0}
+         "device_candidates": 0, "host_dists": 0, "reference_uploads": 0}
+_STATS_LOCK = threading.Lock()
 
 
 def reset_stats():
-    for key in STATS:
-        STATS[key] = 0
+    with _STATS_LOCK:
+        for key in STATS:
+            STATS[key] = 0
+
+
+def _count(**adds):
+    """Add to ``STATS`` under its lock (the encoder's picture threads
+    share it)."""
+    with _STATS_LOCK:
+        for key, v in adds.items():
+            STATS[key] += v
 
 
 def tz_initial_candidates(mv_base, search_range):
@@ -82,156 +99,229 @@ def _wrap32(v):
     return (v + (1 << 31)).remainder(1 << 32) - (1 << 31)
 
 
-def sad_sweep_plain(window, orig, cands, fast, bitdepth):
-    """The plain version of ``sad_sweep``: int32 gathers of each
-    candidate's block, |orig - block|, a sum that wraps to int32 (as the
-    JAX function's ``jnp.sum`` does; ``torch.sum`` of int32 would give
-    int64), doubled for SAD_FAST, then ``>> (bitdepth - 8)``."""
+def packed_dtype(bitdepth):
+    """The element type of the resident plane and of the staged block:
+    int16 where the samples fit (bitdepth <= 15), int32 above."""
+    return torch.int16 if bitdepth <= 15 else torch.int32
+
+
+def _np_dtype(bitdepth):
+    return np.dtype(np.int16 if bitdepth <= 15 else np.int32)
+
+
+def sad_sweep_plain(plane, oy, ox, orig, cands, fast, bitdepth):
+    """The plain version of ``sad_sweep``: the SAD of ``orig`` [h, w]
+    against the block of ``plane`` at (oy + y, ox + x) for each (y, x) of
+    ``cands`` [2, N], as int32 [N] on the plane's device: int64 gathers,
+    |orig - block|, a sum that wraps to int32 (as the JAX function's
+    ``jnp.sum`` does; ``torch.sum`` of int32 would give int64), doubled
+    for SAD_FAST, then ``>> (bitdepth - 8)``."""
     h, w = orig.shape
     step = 2 if fast else 1
-    dev = window.device
+    dev = plane.device
     rows = torch.arange(0, h, step, device=dev)
     cols = torch.arange(w, device=dev)
-    y = cands[0].long()
-    x = cands[1].long()
-    blk = window.to(torch.int32)[
-        (y[:, None, None] + rows[None, :, None]),
-        (x[:, None, None] + cols[None, None, :])]
-    d = (orig.to(torch.int32)[rows][None] - blk).abs()
-    s = _wrap32(d.sum((1, 2), dtype=torch.int64))
+    y = cands[0].to(dev).long() + oy
+    x = cands[1].to(dev).long() + ox
+    blk = plane.long()[(y[:, None, None] + rows[None, :, None]),
+                       (x[:, None, None] + cols[None, None, :])]
+    d = (orig.to(dev).long()[rows][None] - blk).abs()
+    s = _wrap32(d.sum((1, 2)))
     if fast:
         s = _wrap32(s * 2)
     return (s >> (bitdepth - 8)).to(torch.int32)
 
 
-def _check(window, orig, cands, bitdepth):
-    """The numpy inputs of ``device_sads``: shapes, bit depth, and every
-    candidate's block inside the window (the kernel reads no sample it
-    was not given)."""
-    if window.ndim != 2 or orig.ndim != 2 or cands.ndim != 2 or \
-            cands.shape[0] != 2 or not 8 <= bitdepth <= 16:
+def _check(plane, oy, ox, orig, cands, bitdepth):
+    """The inputs of ``sad_sweep``: shapes, bit depth, element type, and
+    every candidate's block inside the plane (the kernel reads no sample
+    outside it)."""
+    if plane.dim() != 2 or orig.ndim != 2 or cands.ndim != 2 or \
+            cands.shape[0] != 2 or not 8 <= bitdepth <= 16 or \
+            not 1 <= orig.shape[0] <= MAX_SIDE or \
+            not 1 <= orig.shape[1] <= MAX_SIDE or \
+            plane.dtype != packed_dtype(bitdepth) or plane.stride(1) != 1:
         raise ValueError(
-            "me_sad takes window [H, W], orig [h, w], cands [2, N] and a "
-            "bit depth of 8 to 16; got %r, %r, %r, %r" % (
-                window.shape, orig.shape, cands.shape, bitdepth))
+            "me_sad takes a row-major plane [H, W] of packed_dtype(bitdepth),"
+            " orig [h, w] of at most %d x %d, cands [2, N] and a bit depth "
+            "of 8 to 16; got %s %r, %r, %r, %r" % (
+                MAX_SIDE, MAX_SIDE, plane.dtype, tuple(plane.shape),
+                orig.shape, cands.shape, bitdepth))
     h, w = orig.shape
-    if cands.shape[1] and (int(cands.min()) < 0 or
-                           int(cands[0].max()) + h > window.shape[0] or
-                           int(cands[1].max()) + w > window.shape[1]):
-        raise ValueError("me_sad: a candidate's block leaves the window")
+    if cands.shape[1]:
+        lo = cands.min(axis=1)
+        hi = cands.max(axis=1)
+        if oy + int(lo[0]) < 0 or ox + int(lo[1]) < 0 or \
+                oy + int(hi[0]) + h > plane.shape[0] or \
+                ox + int(hi[1]) + w > plane.shape[1]:
+            raise ValueError("me_sad: a candidate's block leaves the plane")
 
 
-def packed_dtype(bitdepth):
-    """The element type of the kernel's packed buffer: int16 where the
-    samples fit (bitdepth <= 15), int32 above."""
-    return torch.int16 if bitdepth <= 15 else torch.int32
+def staging_bytes(h, w, n, bitdepth):
+    """The bytes of a sweep's staging: the offsets, then the block."""
+    return 8 * n + h * w * _np_dtype(bitdepth).itemsize
 
 
-def packed_size(wh, ww, h, w, n):
-    return wh * ww + h * w + 2 * n
-
-
-def pack(window, orig, cands, out):
-    """Pack numpy window [wh, ww], orig [h, w] and cands [2, N] into the
-    1-d numpy ``out`` (the kernel's element type) in the kernel's layout:
-    window, orig, then the y and the x offsets."""
-    a = window.size
-    b = a + orig.size
-    out[:a].reshape(window.shape)[:] = window
-    out[a:b].reshape(orig.shape)[:] = orig
-    out[b:b + cands.size].reshape(cands.shape)[:] = cands
-
-
-def unpack(packed, wh, ww, h, w, n):
-    """The window, orig and cands views of a packed 1-d tensor."""
-    a = wh * ww
-    b = a + h * w
-    return (packed[:a].view(wh, ww), packed[a:b].view(h, w),
-            packed[b:b + 2 * n].view(2, n))
-
-
-def sad_sweep(packed, dims, fast, bitdepth, out=None):
-    """SAD of the h x w block against the wh x ww window at each of the n
-    (y, x) offsets, all three packed in the 1-d tensor ``packed``
-    (``pack``; ``dims`` = (wh, ww, h, w, n)), as int32 [n] on its device.
-    On the card one ``me_sad`` launch into ``out`` (int32, at least n;
-    made where None); on the CPU ``sad_sweep_plain`` of the buffer's
-    views; any other device raises."""
-    wh, ww, h, w, n = dims
-    if packed.dim() != 1 or packed.dtype != packed_dtype(bitdepth) or \
-            packed.numel() < packed_size(wh, ww, h, w, n):
-        raise ValueError(
-            "me_sad takes a 1-d %s buffer of at least %d elements at %d "
-            "bit; got %s %r" % (packed_dtype(bitdepth),
-                                packed_size(wh, ww, h, w, n), bitdepth,
-                                packed.dtype, tuple(packed.shape)))
-    if not kernels.on_cuda(packed):
-        return sad_sweep_plain(*unpack(packed, wh, ww, h, w, n), fast,
-                               bitdepth)
-    from ..kernels import build
-    if out is None:
-        out = torch.empty(n, dtype=torch.int32, device=packed.device)
-    if n:
-        rc = build.lib().xvc_me_sad(
-            build.ptr(packed), packed.element_size(), wh, ww, h, w, n,
-            1 if fast else 0, bitdepth, build.ptr(out),
-            build.stream_of(packed))
-        build.check(rc, "me_sad")
-        kernels.count_launch("me_sad")
-    return out[:n]
-
-
-# Per thread and device: the pinned packed buffer a call fills, its copy
-# on the card, the card's result buffer, the pinned result and the event
-# its download records.  A call reuses them only after waiting for its own
-# download, which follows its upload on the stream.
-_STAGING = threading.local()
-
-
-def _staging(device, dtype, size, n):
-    bufs = getattr(_STAGING, "bufs", None)
-    if bufs is None:
-        bufs = _STAGING.bufs = {}
-    key = (str(device), dtype)
-    got = bufs.get(key)
-    if got is None or got[0].numel() < size or got[2].numel() < n:
-        size = max(size, packed_size(WIN, WIN, 64, 64, 2048))
-        n = max(n, 2048)
-        got = (torch.empty(size, dtype=dtype, pin_memory=True),
-               torch.empty(size, dtype=dtype, device=device),
-               torch.empty(n, dtype=torch.int32, device=device),
-               torch.empty(n, dtype=torch.int32, pin_memory=True),
-               torch.cuda.Event())
-        bufs[key] = got
-    return got
-
-
-def device_sads(window, orig, cands, fast, bitdepth, device):
-    """``sad_sweep`` of numpy window [wh, ww], orig [h, w] and cands [2, N]
-    on ``device``, as a numpy int32 [N].  The three are checked and
-    packed (``pack``); on the card into the thread's pinned staging, then
-    one upload, one ``me_sad`` launch and one download waited for on an
-    event; on the CPU into a plain buffer that ``sad_sweep`` reads."""
-    _check(window, orig, cands, bitdepth)
-    dev = torch.device(device)
-    wh, ww = window.shape
-    h, w = orig.shape
+def stage_sweep(buf, orig, cands, bitdepth):
+    """Write numpy ``orig`` [h, w] and ``cands`` [2, N] into the numpy
+    uint8 ``buf`` in the kernel's staging layout: the offsets y [N] and
+    x [N] as int32, then the block in ``packed_dtype(bitdepth)``.
+    Returns the bytes written."""
     n = cands.shape[1]
-    dims = (wh, ww, h, w, n)
-    dt = packed_dtype(bitdepth)
-    size = packed_size(*dims)
-    if dev.type != "cuda":
-        host = torch.empty(size, dtype=dt)
-        pack(window, orig, cands, host.numpy())
-        return sad_sweep(host.to(dev), dims, fast, bitdepth).numpy()
-    host, buf, out, result, done = _staging(dev, dt, size, n)
-    pack(window, orig, cands, host.numpy())
-    buf[:size].copy_(host[:size], non_blocking=True)
-    sad_sweep(buf, dims, fast, bitdepth, out)
-    result[:n].copy_(out[:n], non_blocking=True)
-    done.record(torch.cuda.current_stream(dev))
-    done.synchronize()
-    return result[:n].numpy().copy()
+    dtype = _np_dtype(bitdepth)
+    end = staging_bytes(orig.shape[0], orig.shape[1], n, bitdepth)
+    buf[:8 * n].view(np.int32).reshape(2, n)[:] = cands
+    buf[8 * n:end].view(dtype).reshape(orig.shape)[:] = orig
+    return end
+
+
+def _host_alloc(nbytes):
+    """``nbytes`` of mapped pinned host memory: (host address, the
+    address the card reads it at)."""
+    from ..kernels import build
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    rc = build.lib().xvc_host_alloc(nbytes, ctypes.byref(host),
+                                    ctypes.byref(dev))
+    if rc != 0:
+        raise RuntimeError("me_sad: mapped host memory of %d bytes failed "
+                           "with CUDA error %d" % (nbytes, rc))
+    return host.value, dev.value
+
+
+class _Staging:
+    """A sweep's mapped pinned host memory: ``inp`` (``stage_sweep``'s
+    layout; the kernel reads it in place) and ``out`` (int32 SADs, which
+    the kernel writes in place), with the event a call waits on."""
+
+    def __init__(self, in_bytes, n):
+        self.in_bytes, self.n = in_bytes, n
+        self.in_host, self.in_dev = _host_alloc(in_bytes)
+        try:
+            self.out_host, self.out_dev = _host_alloc(4 * n)
+        except RuntimeError:
+            self.free()
+            raise
+        self.inp = np.ctypeslib.as_array(
+            ctypes.cast(self.in_host, ctypes.POINTER(ctypes.c_uint8)),
+            (in_bytes,))
+        self.out = np.ctypeslib.as_array(
+            ctypes.cast(self.out_host, ctypes.POINTER(ctypes.c_int32)),
+            (n,))
+        self.done = torch.cuda.Event()
+
+    def free(self):
+        from ..kernels import build
+        for name in ("in_host", "out_host"):
+            addr = getattr(self, name, None)
+            if addr:
+                build.lib().xvc_host_free(ctypes.c_void_p(addr))
+                setattr(self, name, None)
+
+
+# Free staging, by device.  A call takes one for its own use and gives it
+# back after waiting for its launch, so a buffer is never shared while a
+# kernel may read it; there are as many as calls ever ran at once, and
+# none is freed by a finalizer (ROADMAP hazard 11).
+_POOL = {}
+_POOL_LOCK = threading.Lock()
+_MIN_BYTES = 8 * 4096 + 4 * MAX_SIDE * MAX_SIDE
+_MIN_N = 4096
+
+
+def _take_staging(device, in_bytes, n):
+    with _POOL_LOCK:
+        free = _POOL.setdefault(device, [])
+        st = free.pop() if free else None
+    if st is not None and (st.in_bytes < in_bytes or st.n < n):
+        in_bytes = max(in_bytes, 2 * st.in_bytes)
+        n = max(n, 2 * st.n)
+        st.free()
+        st = None
+    if st is None:
+        st = _Staging(max(in_bytes, _MIN_BYTES), max(n, _MIN_N))
+    return st
+
+
+def _give_staging(device, st):
+    with _POOL_LOCK:
+        _POOL[device].append(st)
+
+
+def _launch(plane, oy, ox, staging, h, w, n, fast, bitdepth, out):
+    """One ``me_sad`` launch on the plane's current stream: ``staging``
+    and ``out`` are addresses the card reads and writes (mapped host
+    memory or device memory)."""
+    from ..kernels import build
+    rc = build.lib().xvc_me_sad(
+        build.ptr(plane), plane.element_size(), plane.shape[0],
+        plane.shape[1], plane.stride(0), int(oy), int(ox),
+        ctypes.c_void_p(staging), int(h), int(w), int(n), 1 if fast else 0,
+        int(bitdepth), ctypes.c_void_p(out), build.stream_of(plane))
+    build.check(rc, "me_sad")
+    kernels.count_launch("me_sad")
+
+
+def sad_sweep(plane, oy, ox, orig, cands, fast, bitdepth):
+    """SAD of numpy ``orig`` [h, w] against the block of ``plane`` (a
+    tensor: a reference's padded luma, ``reference_luma``) whose top-left
+    sample is (oy + y, ox + x), for each (y, x) of numpy ``cands`` [2, N],
+    as a numpy int32 [N].  On the card the offsets and the block go into
+    mapped pinned staging, one ``me_sad`` launch reads them there and
+    writes the SADs to mapped memory, and the call waits on an event; on
+    the CPU ``sad_sweep_plain``; any other device raises."""
+    _check(plane, oy, ox, orig, cands, bitdepth)
+    if not kernels.on_cuda(plane):
+        return sad_sweep_plain(plane, oy, ox, torch.from_numpy(orig),
+                               torch.from_numpy(cands), fast,
+                               bitdepth).numpy()
+    n = cands.shape[1]
+    if not n:
+        return np.zeros(0, np.int32)
+    h, w = orig.shape
+    device = plane.device.index
+    st = _take_staging(device, staging_bytes(h, w, n, bitdepth), n)
+    try:
+        stage_sweep(st.inp, orig, cands, bitdepth)
+        _launch(plane, oy, ox, st.in_dev, h, w, n, fast, bitdepth,
+                st.out_dev)
+        st.done.record(torch.cuda.current_stream(plane.device))
+        st.done.synchronize()
+        return st.out[:n].copy()
+    finally:
+        _give_staging(device, st)
+
+
+_RESIDENT_LOCK = threading.Lock()
+
+
+def _resolve(device):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def reference_luma(ref_pic, device):
+    """``ref_pic``'s padded luma on ``device`` in ``packed_dtype``: the
+    copy kept on the picture (``YuvPicture.device_luma``) while the
+    picture's ``luma_generation`` is the one it was taken at, else a new
+    one (counted in ``STATS["reference_uploads"]``).  The padded plane
+    is copied as the host holds it, border included: a picture that was
+    never padded keeps its buffer's old border, which the reference
+    reads too (ROADMAP hazard 10).  Made under one lock, so threads that
+    share a reference upload it once."""
+    dev = _resolve(device)
+    with _RESIDENT_LOCK:
+        gen = ref_pic.luma_generation
+        got = ref_pic.device_luma
+        if got is not None and got[0] == gen and got[1].device == dev:
+            return got[1]
+        with span("encode.me_reference"):
+            plane = torch.from_numpy(ref_pic.padded_plane(0).astype(
+                _np_dtype(ref_pic.bitdepth))).to(dev)
+        ref_pic.device_luma = (gen, plane)
+        _count(reference_uploads=1)
+        return plane
 
 
 class DeviceSadTable:
@@ -258,11 +348,11 @@ class DeviceSadTable:
 
     def prefetch(self, qp, mvs):
         """Batch-evaluate a candidate MV list in one device call."""
-        STATS["prefetches"] += 1
+        _count(prefetches=1)
         mt = self.metric.type
         fast = mt == met.MetricType.SAD_FAST
         if mt not in (met.MetricType.SAD, met.MetricType.SAD_FAST):
-            STATS["host_routed"] += 1
+            _count(host_routed=1)
             return  # LIC/affine metrics stay on the host path
         mvs = [m for m in mvs if m not in self.cache]
         if not mvs:
@@ -276,26 +366,22 @@ class DeviceSadTable:
         x0, x1 = min(xs), max(xs)
         y0, y1 = min(ys), max(ys)
         if x1 - x0 + w > WIN or y1 - y0 + h > WIN:
-            STATS["host_routed"] += 1
+            _count(host_routed=1)
             return  # enormous range: host path
-        plane = self.ref_pic.padded_plane(0)
+        ph, pw = self.ref_pic.padded_plane(0).shape
         px, py = self.ref_pic.pad_x[0], self.ref_pic.pad_y[0]
         wy0 = py + cy + y0
         wx0 = px + cx + x0
-        if wy0 < 0 or wx0 < 0 or wy0 + WIN > plane.shape[0] or \
-                wx0 + WIN > plane.shape[1]:
-            STATS["host_routed"] += 1
+        if wy0 < 0 or wx0 < 0 or wy0 + WIN > ph or wx0 + WIN > pw:
+            _count(host_routed=1)
             return
-        # the candidates read the window's top-left box alone
-        window = plane[wy0:wy0 + y1 - y0 + h, wx0:wx0 + x1 - x0 + w]
-        orig = self.orig[:h, :w]
         cands = np.array([[m[1] - y0 for m in mvs], [m[0] - x0 for m in mvs]],
                          np.int32)
         with span("encode.me_prefetch"):
-            sads = device_sads(window, orig, cands, fast,
-                               self.metric.bitdepth, self.device)
-        STATS["device_calls"] += 1
-        STATS["device_candidates"] += len(mvs)
+            plane = reference_luma(self.ref_pic, self.device)
+            sads = sad_sweep(plane, wy0, wx0, self.orig[:h, :w], cands, fast,
+                             self.metric.bitdepth)
+        _count(device_calls=1, device_candidates=len(mvs))
         weight = qp.distortion_weight[0]
         for m, sad in zip(mvs, sads.tolist()):
             self.cache[m] = int(int(sad) * weight)
@@ -304,5 +390,5 @@ class DeviceSadTable:
         v = self.cache.get((mv_x, mv_y))
         if v is not None:
             return v
-        STATS["host_dists"] += 1
+        _count(host_dists=1)
         return self._ensure_host(qp)(mv_x, mv_y)

@@ -8,6 +8,8 @@ hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Each C entry point
 enqueues its kernel on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an error.
+``xvc_host_alloc`` / ``xvc_host_free`` hand out and take back mapped
+pinned host memory (the motion search's sweep staging, ``gpu/me.py``).
 """
 import ctypes
 import glob
@@ -28,6 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points: name -> argument types (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
@@ -50,7 +53,10 @@ SIGNATURES = {
     "xvc_intra_chroma_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P],
     "xvc_resample_picture": [_P, _I, _I, _P],
-    "xvc_me_sad": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "xvc_me_sad": [_P, _I, _I, _I, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                   _P],
+    "xvc_host_alloc": [_L, _PP, _PP],
+    "xvc_host_free": [_P],
 }
 
 _lock = threading.Lock()
