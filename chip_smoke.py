@@ -115,10 +115,11 @@ Phases:
      conforming and equal to the encoder's reconstruction; then ms per
      picture, the launches of satd, intra_satd and txrd per encode (set
      to 0 just
-     before each timed encode, read just after), the stage profile
-     (spans encode.txrd_prepass and its extract / upload / device /
-     download per picture, encode.split_dp, encode.native.*), the
-     device's busy and idle share of an encode under torch.profiler, and
+     before each timed encode, read just after), the stage profile of
+     the first two pictures (spans encode.txrd_prepass and its extract /
+     upload / device / download per picture, encode.split_dp,
+     encode.native.*), the device's busy and idle share of an encode of
+     those two under torch.profiler, and
      the operator list of one prepass call (no sort, no float64);
   7  resampling decode paths, through DecoderSession with no device (the
      card): tests/data/bench/hd720_fhd1080_splice.xvc (1280x720, then
@@ -181,7 +182,29 @@ Phases:
      download) on the same
      sweeps, with their device operations; then one prefetch per 16x16
      CU of a 1280x720 picture (hd720_ld picture 1 against picture 0,
-     range 64), the same numbers.  Then the seconds of each phase.
+     range 64), the same numbers;
+ 10  picture-threaded encoding (xvc_tpu_torch/parallel/pipeline.py
+     EncodePipeline) through xvc_tpu_torch.api.EncoderSession on the
+     card: ra720_s3 (1280x720, 9 pictures, random access, sub-GOP 8,
+     speed mode 3, from a seed by make_ra720_s3, a copy of the recipe in
+     tests/encode_clips.py) with no picture threads and with 4, each
+     under torch.profiler with the launch counts set to 0 just before and
+     read just after; the two streams and reconstructions must be equal
+     byte for byte and the launches of txrd, intra_satd and satd equal,
+     the stream equal to the JAX package's
+     (tests/data/bench/ra720_s3_enc.json) or inside phase 6's carve-out
+     (prepass candidates against ra720_s3_cands.npz, txrd against its
+     plain version on every call), decoded on the card to the
+     reconstruction, with the pipeline in use and more than one picture
+     in flight; it prints ms per picture of both, the worker count, the
+     launches and the idle shares.  Then ra64x48_me with 4 threads under
+     XVC_ME=jax, held to its sha256 and prefetch counts in
+     tests/data/bench/python_cu_inter.json (sums over the workers),
+     me_sad launches equal to the device sweeps, decoded on the card.
+     Then the apps as a user runs them: python -m xvc_tpu_torch.cli.xvcenc
+     -threads 4 on the first 5 pictures of ra720_s3 written as y4m, and
+     xvcdec -threads 4, whose output must equal the app encoder's
+     reconstruction.  Then the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -278,6 +301,10 @@ LOOKAHEAD_KERNELS = ("intra_satd",)
 # prepass's predictions; the all-mode intra SATD of the split DP's
 # lookahead; the prepass's txrd, from the SATD screen to the kept modes)
 ENCODE_KERNELS = ("satd", "intra_satd", "txrd")
+# phase 6's stage profile and torch.profiler trace encode the first two
+# pictures of hd720_s3 (an intra and an inter picture; cut from four to
+# keep the script inside its time limit with phase 10)
+PROFILED_ENCODE_PICTURES = 2
 # hd720_s3, the encode clip of phase 6: a copy of tests/test_torch_encode.py
 # HD720_S3 and make_hd720_s3 (a test holds the two equal)
 HD720_S3 = dict(width=1280, height=720, frames=4, qp=32, seed=20261017)
@@ -300,8 +327,9 @@ PYTHON_CU = {
 PYTHON_CU_SOURCE = ("hd720_ld", 1280, 720)
 # phase 8 traces cif_la's encode itself under torch.profiler (some 700
 # device operations: the profiler costs it nothing measurable), and
-# qcif_pp's on a second encode (about 900,000 device operations a
-# picture, which the profiler slows by about a quarter)
+# qcif_pp's on a second encode of its first picture (about 900,000 device
+# operations a picture, which the profiler slows by about a quarter; one
+# picture, not both, to keep the script inside its time limit)
 PYTHON_CU_TRACED_APART = ("qcif_pp",)
 PYTHON_CU_KERNELS = ("intra_satd", "deblock_edges", "deblock_luma",
                      "deblock_chroma")
@@ -333,6 +361,17 @@ PYTHON_CU_INTER_PLANNED_DEVICE_SHARE = {"qcif_me": 0.53, "ra64x48_me": 0.059}
 ME_SWEEPS_CLIP = "qcif_me"
 PYTHON_CU_INTER_KERNELS = ("me_sad", "deblock_edges", "deblock_luma",
                            "deblock_chroma")
+# phase 10: ra720_s3, the threaded encode clip, a copy of
+# tests/encode_clips.py RA720_S3 and make_ra720_s3 (a test holds the two
+# equal): random access, sub-GOP 8, speed mode 3 and its one reference
+# picture; encoded with no picture threads and with THREADS, then
+# ra64x48_me (phase 9's clip) with THREADS, then the apps with THREADS on
+# the first APP_PICTURES pictures of ra720_s3 as y4m
+RA720_S3 = dict(width=1280, height=720, frames=9, qp=32, sub_gop_length=8,
+                seed=20261018)
+THREADS = 4
+THREADED_INTER_CLIP = "ra64x48_me"
+APP_PICTURES = 5
 # phase 2: me_sad's cases, (w, h) of every CU shape with SAD and SAD_FAST,
 # the bit depth and the candidate count cycling over these (me_sad is
 # timed on the device sweeps of phase 9's qcif_me encode)
@@ -493,13 +532,52 @@ def python_cu_params(api, name):
         explicit_encoder_settings=clip["settings"])
 
 
-def python_cu_inter_params(api, name):
-    """EncoderParameters of a PYTHON_CU_INTER clip (a copy of
-    tests/encode_clips.py python_cu_inter_params)."""
+def python_cu_inter_params(api, name, threads=0):
+    """EncoderParameters of a PYTHON_CU_INTER clip with ``threads``
+    picture threads (a copy of tests/encode_clips.py
+    python_cu_inter_params)."""
     clip = PYTHON_CU_INTER[name]
     return api.EncoderParameters(
         width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
-        explicit_encoder_settings=clip["settings"], **clip["params"])
+        explicit_encoder_settings=clip["settings"], threads=threads,
+        **clip["params"])
+
+
+def make_ra720_s3(seed=RA720_S3["seed"]):
+    """The raw 8-bit 4:2:0 bytes of ra720_s3: 1280x720, 9 pictures, from a
+    numpy seed, with hd720_s3's content and more motion (a copy of
+    tests/encode_clips.py make_ra720_s3)."""
+    import numpy as np
+    W, H, N = RA720_S3["width"], RA720_S3["height"], RA720_S3["frames"]
+    rng = np.random.RandomState(seed)
+    tex = rng.randint(-40, 41, (H // 2 + N, W // 2 + 3 * N))
+    yy, xx = np.mgrid[0:H, 0:W]
+    cy, cx = np.mgrid[0:H // 2, 0:W // 2]
+    out = []
+    for t in range(N):
+        y = np.empty((H, W), np.int64)
+        y[:H // 2, :W // 2] = 90 + 2 * t
+        tr = (xx[:H // 2, W // 2:] + yy[:H // 2, W // 2:] // 2 + 6 * t) // 12
+        y[:H // 2, W // 2:] = 60 + 130 * (tr & 1)
+        y[H // 2:, :W // 2] = 128 + tex[t:t + H // 2, 3 * t:3 * t + W // 2]
+        y[H // 2:, W // 2:] = ((xx[H // 2:, W // 2:] - W // 2) * 200 //
+                               (W // 2) + (yy[H // 2:, W // 2:] - H // 2)
+                               // 8 + 3 * t)
+        u = 128 + (30 * np.sin(cx / 40.0 + t / 4.0)).astype(np.int64)
+        v = 120 + (cy * 40) // (H // 2) + t
+        out += [np.clip(p, 0, 255).astype(np.uint8).tobytes()
+                for p in (y, u, v)]
+    return b"".join(out)
+
+
+def ra720_s3_params(api, threads=0):
+    """EncoderParameters of ra720_s3 (a copy of tests/encode_clips.py
+    ra720_s3_params)."""
+    return api.EncoderParameters(
+        width=RA720_S3["width"], height=RA720_S3["height"],
+        qp=RA720_S3["qp"], speed_mode=3,
+        sub_gop_length=RA720_S3["sub_gop_length"], checksum_mode=1,
+        threads=threads)
 
 
 def cuda_ms(torch, fn, iters=20, fresh=None):
@@ -3747,8 +3825,9 @@ def phase_encode(torch, dev):
     with np.load(os.path.join(DATA, "bench", "hd720_s3_cands.npz")) as z:
         cands_ref = z["cands"]
 
-    # the checked encode: every txrd call beside its plain version, every
-    # picture's packed candidates against the JAX package's
+    # the timed speed-3 encode is also the checked one: every txrd call
+    # beside its plain version (some ms a picture of the card's time),
+    # every picture's packed candidates against the JAX package's
     fn, pack = txrd_prepass.txrd, txrd_prepass.pack_intra_cands
     differ = [0]
     pictures = []
@@ -3769,29 +3848,33 @@ def phase_encode(torch, dev):
         differ[0] = 0
         return buf
 
-    txrd_prepass.txrd, txrd_prepass.pack_intra_cands = txrd_spy, pack_spy
-    try:
-        checked = session_encode(hd720_s3_session(api, True, dev), yuv, N)
-    finally:
-        txrd_prepass.txrd, txrd_prepass.pack_intra_cands = fn, pack
-    if len(pictures) != N or any(p["kernel_vs_plain"] for p in pictures):
-        raise AssertionError("txrd kernel and plain version differ on the "
-                             "encode: %r" % (pictures,))
-    log("phase 6: hd720_s3 prepass blocks per picture unlike the JAX "
-        "package's / kernel unlike plain: %s" % (
-            ["%d / %d of %d" % (p["unlike_jax"], p["kernel_vs_plain"],
-                                p["blocks"]) for p in pictures]))
-
     out = dict(prepass_pictures=pictures)
     for key, prepass in (("split_dp", False), ("speed3", True)):
         ses = hd720_s3_session(api, prepass, dev)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        nals = session_encode(ses, yuv, N)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        if prepass:
+            txrd_prepass.txrd = txrd_spy
+            txrd_prepass.pack_intra_cands = pack_spy
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            nals = session_encode(ses, yuv, N)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            txrd_prepass.txrd, txrd_prepass.pack_intra_cands = fn, pack
         launches = dict(kernels.LAUNCHES)
+        if prepass:
+            checked = nals
+            if len(pictures) != N or \
+                    any(p["kernel_vs_plain"] for p in pictures):
+                raise AssertionError("txrd kernel and plain version differ "
+                                     "on the encode: %r" % (pictures,))
+            log("phase 6: hd720_s3 prepass blocks per picture unlike the "
+                "JAX package's / kernel unlike plain: %s" % (
+                    ["%d / %d of %d" % (p["unlike_jax"],
+                                        p["kernel_vs_plain"], p["blocks"])
+                     for p in pictures]))
         data = write_nal_units(nals)
         ref = refs[key]
         psnr = [list(map(float, n.psnr)) for n in ses.nal_stats
@@ -3800,31 +3883,14 @@ def phase_encode(torch, dev):
                    bytes=len(data), jax_bytes=ref["bytes"],
                    equal=hashlib.sha256(data).hexdigest() == ref["sha256"],
                    psnr=psnr, launches=launches)
-        if key == "speed3" and nals != checked:
-            raise AssertionError("two speed-3 encodes on the card differ")
         # the split DP alone launches no prepass kernel (satd, txrd)
         for name in ENCODE_KERNELS if prepass else ("intra_satd",):
             if launches[name] <= 0:
                 raise AssertionError("kernel %s was not launched by the %s "
                                      "encode" % (name, key))
         if not row["equal"]:
-            dpsnr = max(abs(a - b) for p, q in zip(psnr, ref["psnr"])
-                        for a, b in zip(p, q))
-            row.update(max_psnr_delta_db=dpsnr,
-                       bytes_delta=len(data) - ref["bytes"],
-                       nal_equal=[hashlib.sha256(n).hexdigest() == h
-                                  for n, h in zip(nals, ref["nal_sha256"])])
-            log("phase 6: %s stream differs from the JAX package's: %d "
-                "bytes against %d (%+d), PSNR per picture %s against %s "
-                "(largest difference %.4f dB), NALs equal %s" % (
-                    key, len(data), ref["bytes"], row["bytes_delta"], psnr,
-                    ref["psnr"], dpsnr, row["nal_equal"]))
-            unlike = sum(p["unlike_jax"] for p in pictures)
-            total = sum(p["blocks"] for p in pictures)
-            if key == "split_dp" or unlike >= CARVE_OUT_BLOCKS * total or \
-                    abs(row["bytes_delta"]) > CARVE_OUT_BYTES * ref["bytes"] \
-                    or dpsnr > CARVE_OUT_DB:
-                raise AssertionError("%s stream outside its limits" % key)
+            row.update(carve_out("phase 6: " + key, nals, psnr, ref,
+                                 pictures if prepass else None))
         # both streams decode on the card to the encoder's reconstruction
         pics = decode_stream(data, device=dev)
         if len(pics) != N or not all(p.conforming for p in pics) or \
@@ -3843,41 +3909,76 @@ def phase_encode(torch, dev):
     profiling.reset()
     profiling.enable(sync=True)
     fs = HD720_S3["width"] * HD720_S3["height"] * 3 // 2
-    split, seen = [], {}
+    split, seen, profiled_nals = [], {}, []
     try:
         ses = hd720_s3_session(api, True, dev)
         t0 = time.perf_counter()
-        for i in range(N):   # low delay, sub-GOP 1: a picture a call
-            ses.encode(yuv[i * fs:(i + 1) * fs])
+        # low delay, sub-GOP 1: a picture a call
+        for i in range(PROFILED_ENCODE_PICTURES):
+            profiled_nals += ses.encode(yuv[i * fs:(i + 1) * fs])
             now = {n: v["seconds"] for n, v in profiling.report().items()
                    if n.startswith("encode.txrd_prepass")}
             split.append({n: round(v - seen.get(n, 0.0), 4)
                           for n, v in now.items()})
             seen = now
-        ses.flush()
+        profiled_nals += ses.flush()
         profiled_s = time.perf_counter() - t0
         spans = profiling.report()
     finally:
         profiling.enable(False)
         profiling.reset()
+    # low delay: the first pictures' NALs do not depend on later ones
+    if profiled_nals != checked[:len(profiled_nals)]:
+        raise AssertionError("two speed-3 encodes on the card differ")
     traced_s, busy_s, ops = device_busy(torch, lambda: session_encode(
-        hd720_s3_session(api, True, dev), yuv, N))
+        hd720_s3_session(api, True, dev), yuv, PROFILED_ENCODE_PICTURES))
     out["stages"] = encode_stage_rows(torch, dev)
     out["prepass_ops"] = prepass_ops(torch, dev)
     out["stage_profile"] = dict(
+        pictures=PROFILED_ENCODE_PICTURES,
         profiled_seconds=profiled_s, spans=spans, prepass_split=split,
         traced_encode_seconds=traced_s, device_busy_seconds=busy_s,
         device_operations=ops,
         device_idle_share=None if busy_s is None else 1.0 - busy_s / traced_s)
-    log("phase 6: speed-3 encode stage profile: %.3f s with synchronising "
-        "spans; under torch.profiler %.3f s, device busy %s s in %s "
-        "operations (idle share %s); spans (s): %s" % (
-            profiled_s, traced_s, busy_s, ops,
+    log("phase 6: speed-3 encode stage profile of the first %d pictures: "
+        "%.3f s with synchronising spans; under torch.profiler %.3f s, "
+        "device busy %s s in %s operations (idle share %s); spans (s): %s"
+        % (PROFILED_ENCODE_PICTURES, profiled_s, traced_s, busy_s, ops,
             out["stage_profile"]["device_idle_share"],
             {n: v["seconds"] for n, v in spans.items()}))
     log("phase 6: the prepass per picture (s, synchronising spans): %s"
         % (split,))
     return out
+
+
+def carve_out(label, nals, psnr, ref, pictures):
+    """A speed-3 stream unlike the JAX package's (``ref``: its bytes,
+    NAL hashes and PSNR) stays inside the carve-out of the prepass's float
+    arithmetic or raises: fewer than CARVE_OUT_BLOCKS of the prepass
+    blocks of ``pictures`` (None: no prepass ran, no carve-out) unlike the
+    JAX package's candidates, bytes within CARVE_OUT_BYTES and every
+    picture's PSNR within CARVE_OUT_DB.  Returns the differences."""
+    from xvc_tpu_torch.nal import write_nal_units
+    size = len(write_nal_units(nals))
+    dpsnr = max(abs(a - b) for p, q in zip(psnr, ref["psnr"])
+                for a, b in zip(p, q))
+    row = dict(max_psnr_delta_db=dpsnr, bytes_delta=size - ref["bytes"],
+               nal_equal=[hashlib.sha256(n).hexdigest() == h
+                          for n, h in zip(nals, ref["nal_sha256"])])
+    log("%s stream differs from the JAX package's: %d bytes against %d "
+        "(%+d), PSNR per picture %s against %s (largest difference %.4f "
+        "dB), NALs equal %s" % (label, size, ref["bytes"],
+                                row["bytes_delta"], psnr, ref["psnr"], dpsnr,
+                                row["nal_equal"]))
+    if pictures is None:
+        raise AssertionError("%s stream unlike the JAX package's" % label)
+    unlike = sum(p["unlike_jax"] for p in pictures)
+    total = sum(p["blocks"] for p in pictures)
+    if unlike >= CARVE_OUT_BLOCKS * total or \
+            abs(row["bytes_delta"]) > CARVE_OUT_BYTES * ref["bytes"] or \
+            dpsnr > CARVE_OUT_DB:
+        raise AssertionError("%s stream outside its limits" % label)
+    return row
 
 
 def phase_python_cu(torch, dev):
@@ -3892,7 +3993,7 @@ def phase_python_cu(torch, dev):
     seconds (spans encode.intra_lookahead.device, encode.intra_prepass),
     ms a per-CU call, the deblock launches, and the device's idle share
     and operations under torch.profiler, of that encode or of a second
-    one (PYTHON_CU_TRACED_APART)."""
+    one of the first picture (PYTHON_CU_TRACED_APART)."""
     from xvc_tpu_torch import api, kernels, profiling
     from xvc_tpu_torch.codec.decoder import decode_stream
     from xvc_tpu_torch.nal import write_nal_units
@@ -3915,17 +4016,18 @@ def phase_python_cu(torch, dev):
                             w, h)
         fs = w * h * 3 // 2
 
-        def encode():
+        def encode(pictures=n):
             ses = api.EncoderSession(python_cu_params(api, name),
                                      device=dev)
             nals = []
-            for i in range(n):
+            for i in range(pictures):
                 nals += ses.encode(yuv[i * fs:(i + 1) * fs])
             return ses, nals + ses.flush()
 
         saved = {k: os.environ.get(k) for k in clip["env"]}
         os.environ.update(clip["env"])
         apart = name in PYTHON_CU_TRACED_APART
+        traced_pictures = 1 if apart else n
         try:
             profiling.reset()
             profiling.enable()
@@ -3942,9 +4044,15 @@ def phase_python_cu(torch, dev):
             dt = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             spans = profiling.report()
-            profiling.enable(False)
+            traced_calls = spans.get("encode.intra_prepass",
+                                     {"calls": 0})["calls"]
             if apart:
-                traced_s, busy_s, ops = device_busy(torch, encode)
+                profiling.reset()
+                traced_s, busy_s, ops = device_busy(
+                    torch, lambda: encode(traced_pictures))
+                traced_calls = profiling.report().get(
+                    "encode.intra_prepass", {"calls": 0})["calls"]
+            profiling.enable(False)
         finally:
             profiling.enable(False)
             profiling.reset()
@@ -3989,11 +4097,12 @@ def phase_python_cu(torch, dev):
                 deblock_launches={k: launches[k] / n for k in
                                   PYTHON_CU_KERNELS[1:]}),
             prepass_ms_a_call=pre_s * 1e3 / pre_calls if pre_calls else None,
-            device_operations_a_prepass_call=ops / pre_calls
-            if pre_calls and ops else None,
+            device_operations_a_prepass_call=ops / traced_calls
+            if traced_calls and ops else None,
             intra_satd_launches_unattributed=launches["intra_satd"] -
             pre_calls - look_calls,
-            spans=spans, traced_apart=apart, traced_encode_seconds=traced_s,
+            spans=spans, traced_apart=apart, traced_pictures=traced_pictures,
+            traced_encode_seconds=traced_s,
             device_busy_seconds=busy_s, device_operations=ops,
             device_idle_share=None if busy_s is None else
             1.0 - busy_s / traced_s)
@@ -4016,7 +4125,8 @@ def phase_python_cu(torch, dev):
                 pre_s / n, row["prepass_ms_a_call"],
                 row["device_operations_a_prepass_call"],
                 row["per_picture"]["deblock_launches"],
-                row["device_idle_share"], "a second" if apart else "this",
+                row["device_idle_share"],
+                "a second, of its first picture," if apart else "this",
                 traced_s, busy_s, ops,
                 {k: v["seconds"] for k, v in spans.items()}))
     return out
@@ -4176,6 +4286,336 @@ def phase_python_cu_inter(torch, dev):
     return out, sweeps
 
 
+def in_flight_counter(pictures=None):
+    """Wrap PictureEncoder.encode to count the pictures being coded at
+    once and, into ``pictures`` (a dict), each picture's POC -> (seconds
+    of its encode, the POCs it predicts from); returns (the most in
+    flight, a list; undo)."""
+    import threading
+    from xvc_tpu_torch.codec import picture_encoder
+    cls = picture_encoder.PictureEncoder
+    orig, lock, now, most = cls.encode, threading.Lock(), [0], [0]
+
+    def counted(self, *args):
+        rpl = self.pic_data.ref_pic_lists
+        refs = sorted({rpl.get_ref_poc(lst, i) for lst in range(2)
+                       for i in range(rpl.get_num_ref_pics(lst))}) \
+            if rpl is not None and not self.pic_data.is_intra_pic() else []
+        with lock:
+            now[0] += 1
+            most[0] = max(most[0], now[0])
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args)
+        finally:
+            with lock:
+                now[0] -= 1
+            if pictures is not None:
+                pictures[self.pic_data.poc] = (time.perf_counter() - t0,
+                                               refs)
+
+    cls.encode = counted
+    return most, lambda: setattr(cls, "encode", orig)
+
+
+def critical_path(pictures):
+    """The least time picture threads could take for the encode whose
+    pictures (POC -> (seconds, reference POCs), coding order) were timed
+    one at a time: the longest chain of pictures, each after its
+    references."""
+    done = {}
+    for poc, (sec, refs) in pictures.items():
+        done[poc] = sec + max((done[r] for r in refs if r in done),
+                              default=0.0)
+    return max(done.values())
+
+
+def threaded_session_check(ses, most, label):
+    """The session ran its pictures on the pipeline, more than one at
+    once; returns the worker count."""
+    pipe = ses._enc.pipeline
+    if pipe is None:
+        raise AssertionError("%s: the encode fell back to the sequential "
+                             "path" % label)
+    if most[0] < 2:
+        raise AssertionError("%s: never more than one picture in flight"
+                             % label)
+    return pipe.executor._max_workers
+
+
+def phase_threads(torch, dev):
+    """Picture-threaded encoding on the card (parallel/pipeline.py
+    EncodePipeline) through xvc_tpu_torch.api.EncoderSession: ra720_s3 with
+    no picture threads and with THREADS, each timed under torch.profiler
+    (its idle share) with the launch counts set to 0 just before and read
+    just after; the txrd kernel held to its plain version on every call of
+    both, the sequential encode's prepass candidates counted against
+    ra720_s3_cands.npz; the two streams and reconstructions equal byte for
+    byte, the stream held to the JAX package's
+    (tests/data/bench/ra720_s3_enc.json, equal or inside the carve-out),
+    decoded on the card to the encoder's reconstruction; the pipeline in
+    use with more than one picture in flight.  Then THREADED_INTER_CLIP
+    with THREADS under XVC_ME=jax (the Python CU encoder's both halves)
+    held to its sha256 and prefetch counts in python_cu_inter.json, its
+    me_sad launches to its device sweeps, decoded on the card.  Then the
+    apps: ``python -m xvc_tpu_torch.cli.xvcenc`` with ``-threads`` THREADS
+    on the first APP_PICTURES pictures of ra720_s3 as y4m, and
+    ``xvcdec -threads`` THREADS, whose output must be the app encoder's
+    reconstruction."""
+    import shutil
+    import threading
+    import numpy as np
+    from xvc_tpu_torch import api, kernels
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import me, txrd_prepass
+    from xvc_tpu_torch.nal import write_nal_units
+    W, H, N = RA720_S3["width"], RA720_S3["height"], RA720_S3["frames"]
+    fs = W * H * 3 // 2
+    yuv = make_ra720_s3()
+    with open(os.path.join(DATA, "bench", "ra720_s3_enc.json")) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(DATA, "bench", "ra720_s3_cands.npz")) as z:
+        cands_ref = z["cands"]
+
+    fn, pack = txrd_prepass.txrd, txrd_prepass.pack_intra_cands
+    lock, differ, pictures = threading.Lock(), [0], []
+
+    def txrd_spy(*args):
+        out = fn(*args)
+        plain = txrd_prepass.txrd_plain(*args)
+        with lock:
+            differ[0] += int((out != plain).any(1).sum())
+        return out
+
+    def pack_spy(*args, **kw):
+        # the sequential encode's candidates, in coding order
+        buf = pack(*args, **kw)
+        ref_buf = cands_ref[len(pictures)]
+        pictures.append(dict(blocks=int((ref_buf >= 0).sum()),
+                             unlike_jax=int((buf != ref_buf).sum())))
+        return buf
+
+    out, streams = {}, {}
+    for threads in (0, THREADS):
+        key = "threads%d" % threads
+        per_picture = {}
+        most, undo = in_flight_counter(per_picture)
+        txrd_prepass.txrd = txrd_spy
+        if not threads:
+            txrd_prepass.pack_intra_cands = pack_spy
+        result = []
+        try:
+            ses = api.EncoderSession(ra720_s3_params(api, threads),
+                                     device=dev)
+
+            def encode():
+                nals = []
+                for i in range(N):
+                    nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+                result.append(nals + ses.flush())
+
+            kernels.reset_launches()
+            traced_s, busy_s, ops = device_busy(torch, encode)
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            txrd_prepass.txrd, txrd_prepass.pack_intra_cands = fn, pack
+            undo()
+        nals = result[0]
+        if differ[0]:
+            raise AssertionError("%s: txrd and its plain version differ on "
+                                 "%d blocks" % (key, differ[0]))
+        for name in ENCODE_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError("kernel %s was not launched by the "
+                                     "ra720_s3 %s encode" % (name, key))
+        row = dict(threads=threads, seconds=traced_s,
+                   ms_per_picture=traced_s * 1e3 / N,
+                   launches={k: v for k, v in launches.items() if v},
+                   most_in_flight=most[0],
+                   picture_seconds={p: round(v[0], 4)
+                                    for p, v in per_picture.items()},
+                   device_busy_seconds=busy_s,
+                   device_operations=ops,
+                   device_idle_share=None if busy_s is None else
+                   1.0 - busy_s / traced_s)
+        if threads:
+            row["workers"] = threaded_session_check(ses, most,
+                                                    "ra720_s3 " + key)
+        else:
+            # what the threads could gain at best: the longest chain of
+            # dependent pictures, timed one at a time
+            row["critical_path_seconds"] = critical_path(per_picture)
+            row["references"] = {p: v[1] for p, v in per_picture.items()}
+        streams[threads] = (nals, ses.rec_pictures,
+                            [list(map(float, n.psnr)) for n in ses.nal_stats
+                             if n.nal_unit_type != SEGMENT_HEADER])
+        out[key] = row
+    (nals, rec, psnr), (tnals, trec, _) = streams[0], streams[THREADS]
+    if tnals != nals or trec != rec or len(rec) != N:
+        raise AssertionError(
+            "ra720_s3: the threaded stream or reconstructions differ from "
+            "the sequential: NALs equal %s, reconstructions equal %s (%d "
+            "and %d)" % ([a == b for a, b in zip(tnals, nals)],
+                         [a == b for a, b in zip(trec, rec)], len(trec),
+                         len(rec)))
+    seq, thr = out["threads0"], out["threads%d" % THREADS]
+    for name in ("txrd", "intra_satd", "satd"):
+        if seq["launches"][name] != thr["launches"][name]:
+            raise AssertionError("ra720_s3: %s launched %d times threaded, "
+                                 "%d sequential" % (
+                                     name, thr["launches"][name],
+                                     seq["launches"][name]))
+    data = write_nal_units(nals)
+    equal = hashlib.sha256(data).hexdigest() == ref["sha256"]
+    out.update(bytes=len(data), jax_bytes=ref["bytes"], equal=equal,
+               prepass_pictures=pictures)
+    if not equal:
+        out.update(carve_out("phase 10: ra720_s3", nals, psnr, ref,
+                             pictures))
+    elif hashlib.sha256(b"".join(rec)).hexdigest() != ref["rec_sha256"]:
+        raise AssertionError("ra720_s3: the reconstructions differ from "
+                             "the JAX package's")
+    pics = decode_stream(data, device=dev)
+    if len(pics) != N or not all(p.conforming for p in pics) or \
+            [p.bytes for p in pics] != rec:
+        raise AssertionError("ra720_s3: the card's decode differs from the "
+                             "encoder's reconstruction")
+    out["threaded_over_sequential"] = thr["seconds"] / seq["seconds"]
+    out["critical_path_over_sequential"] = \
+        seq["critical_path_seconds"] / seq["seconds"]
+    log("phase 10: ra720_s3 (1280x720, %d pictures, random access, sub-GOP "
+        "%d, speed 3) on the card: %.1f ms/picture with no picture threads, "
+        "%.1f with %d workers (%.3f of the sequential time, where the "
+        "longest chain of dependent pictures is %.3f of it; at most %d "
+        "pictures in flight; seconds a picture by POC, sequential %s, "
+        "threaded %s); the two streams and reconstructions equal, "
+        "%d bytes %s the JAX package's stream (prepass blocks unlike its "
+        "candidates per picture: %s); decoded on the card, conforming and "
+        "equal to the reconstruction; launches sequential %s, threaded %s; "
+        "idle share sequential %s, threaded %s (device busy %s / %s s)" % (
+            N, RA720_S3["sub_gop_length"], seq["ms_per_picture"],
+            thr["ms_per_picture"], thr["workers"],
+            out["threaded_over_sequential"],
+            out["critical_path_over_sequential"], thr["most_in_flight"],
+            seq["picture_seconds"], thr["picture_seconds"],
+            len(data), "equal to" if equal else "unlike",
+            ["%d of %d" % (p["unlike_jax"], p["blocks"]) for p in pictures],
+            seq["launches"], thr["launches"], seq["device_idle_share"],
+            thr["device_idle_share"], seq["device_busy_seconds"],
+            thr["device_busy_seconds"]))
+
+    # the Python CU encoder's both halves on picture threads
+    name = THREADED_INTER_CLIP
+    clip = PYTHON_CU_INTER[name]
+    w, h, n = clip["width"], clip["height"], clip["pictures"]
+    cfs = w * h * 3 // 2
+    with open(os.path.join(DATA, clip["source"]), "rb") as f:
+        cyuv = f.read()[:n * cfs]
+    with open(os.path.join(DATA, "bench", "python_cu_inter.json")) as f:
+        iref = json.load(f)[name]
+    saved = {k: os.environ.get(k) for k in clip["env"]}
+    os.environ.update(clip["env"])
+    most, undo = in_flight_counter()
+    try:
+        ses = api.EncoderSession(python_cu_inter_params(api, name, THREADS),
+                                 device=dev)
+        torch.cuda.synchronize()
+        me.reset_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        nals = []
+        for i in range(n):
+            nals += ses.encode(cyuv[i * cfs:(i + 1) * cfs])
+        nals += ses.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, stats = dict(kernels.LAUNCHES), dict(me.STATS)
+    finally:
+        undo()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    workers = threaded_session_check(ses, most, name)
+    data = write_nal_units(nals)
+    if hashlib.sha256(data).hexdigest() != iref["sha256"]:
+        raise AssertionError("%s with %d threads: the stream differs from "
+                             "the JAX package's" % (name, THREADS))
+    if launches["me_sad"] != stats["device_calls"] or any(
+            stats[k] != v for k, v in iref["me"].items()):
+        raise AssertionError("%s with %d threads: me_sad launches %d, "
+                             "device sweeps %r, the JAX package's %r" % (
+                                 name, THREADS, launches["me_sad"], stats,
+                                 iref["me"]))
+    pics = decode_stream(data, device=dev)
+    if len(pics) != n or not all(p.conforming for p in pics) or \
+            [p.bytes for p in pics][:len(ses.rec_pictures)] != \
+            ses.rec_pictures or not ses.rec_pictures:
+        raise AssertionError("%s with %d threads: the card's decode differs "
+                             "from the encoder's reconstruction" % (
+                                 name, THREADS))
+    out[name] = dict(threads=THREADS, workers=workers, seconds=dt,
+                     ms_per_picture=dt * 1e3 / n, most_in_flight=most[0],
+                     me=stats, launches={k: v for k, v in launches.items()
+                                         if v})
+    log("phase 10: %s with %d workers (XVC_ME=jax, the Python CU encoder): "
+        "%.1f ms/picture, at most %d pictures in flight, the JAX package's "
+        "stream and prefetch counts (%d prefetches, %d device sweeps = "
+        "me_sad launches, summed over the workers); decoded on the card" % (
+            name, workers, out[name]["ms_per_picture"], most[0],
+            stats["prefetches"], stats["device_calls"]))
+
+    # the apps, as a user runs them, on the first pictures as y4m
+    work = os.path.join(ROOT, "build", "phase10_apps")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        src, bs, rec_path, dec = (os.path.join(work, f) for f in (
+            "in.y4m", "out.xvc", "rec.yuv", "dec.yuv"))
+        with open(src, "wb") as f:
+            f.write(b"YUV4MPEG2 W%d H%d F60:1 Ip C420 \n" % (W, H))
+            for i in range(APP_PICTURES):
+                f.write(b"FRAME\n" + yuv[i * fs:(i + 1) * fs])
+        runs = {}
+        for app, args in (
+                ("xvcenc", ["-input-file", src, "-output-file", bs,
+                            "-rec-file", rec_path, "-qp", "32",
+                            "-speed-mode", "3", "-sub-gop-length",
+                            str(RA720_S3["sub_gop_length"]),
+                            "-checksum-mode", "1", "-threads",
+                            str(THREADS)]),
+                ("xvcdec", ["-bitstream-file", bs, "-output-file", dec,
+                            "-threads", str(THREADS)])):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "xvc_tpu_torch.cli." + app] + args,
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+            runs[app] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError("%s exited with %d: %s" % (
+                    app, res.returncode, res.stderr[-2000:]))
+            runs[app + "_report"] = (res.stdout + res.stderr).strip()
+        with open(rec_path, "rb") as f1, open(dec, "rb") as f2:
+            rec_bytes, dec_bytes = f1.read(), f2.read()
+        app_bytes = os.path.getsize(bs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if rec_bytes != dec_bytes or len(rec_bytes) != APP_PICTURES * fs:
+        raise AssertionError("the apps: xvcdec's output differs from "
+                             "xvcenc's reconstruction")
+    out["apps"] = dict(pictures=APP_PICTURES, bytes=app_bytes,
+                       xvcenc_seconds=runs["xvcenc"],
+                       xvcdec_seconds=runs["xvcdec"])
+    log("phase 10: xvcenc -threads %d on the first %d pictures of ra720_s3 "
+        "as y4m (%d bytes, %.1f s with the process start) and xvcdec "
+        "-threads %d (%.1f s): the decode equals the encoder's "
+        "reconstruction; xvcenc says %r" % (
+            THREADS, APP_PICTURES, app_bytes, runs["xvcenc"], THREADS,
+            runs["xvcdec"], runs["xvcenc_report"]))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -4236,6 +4676,7 @@ def main():
     python_cu = phase("8", phase_python_cu, torch, dev)
     python_cu_inter, sweeps = phase("9", phase_python_cu_inter, torch, dev)
     phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps, parent)
+    threads = phase("10", phase_threads, torch, dev)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -4256,6 +4697,7 @@ def main():
                     "lookahead": look, "encode": enc,
                     "python_cu": python_cu,
                     "python_cu_inter": python_cu_inter,
+                    "threads": threads,
                     "me_sad": {k: res["me_sad"][k] for k in (
                         "cases", "sweeps", "device_ms", "device_staging_ms",
                         "library_ms", "per_prefetch_call", "hd720")},

@@ -83,6 +83,100 @@ def make_hd720_s3(seed=HD720_S3["seed"]):
     return b"".join(out)
 
 
+# ra720_s3, the threaded encode clip of chip_smoke.py phase 10: random
+# access with sub-GOP 8 (so that up to four pictures of a sub-GOP are coded
+# at once), speed mode 3, the speed mode's one reference picture
+RA720_S3 = dict(width=1280, height=720, frames=9, qp=32, sub_gop_length=8,
+                seed=20261018)
+
+
+def make_ra720_s3(seed=RA720_S3["seed"]):
+    """The raw 8-bit 4:2:0 bytes of ra720_s3: 1280x720, 9 pictures, from a
+    numpy seed, with hd720_s3's content (``make_hd720_s3``) and more
+    motion: the flat quadrant brightens by 2 a picture, the stripes move 6
+    samples a picture, the noise texture by (1, 3), the ramp brightens by
+    3; smooth chroma drifting with the picture."""
+    W, H, N = RA720_S3["width"], RA720_S3["height"], RA720_S3["frames"]
+    rng = np.random.RandomState(seed)
+    tex = rng.randint(-40, 41, (H // 2 + N, W // 2 + 3 * N))
+    yy, xx = np.mgrid[0:H, 0:W]
+    cy, cx = np.mgrid[0:H // 2, 0:W // 2]
+    out = []
+    for t in range(N):
+        y = np.empty((H, W), np.int64)
+        y[:H // 2, :W // 2] = 90 + 2 * t
+        tr = (xx[:H // 2, W // 2:] + yy[:H // 2, W // 2:] // 2 + 6 * t) // 12
+        y[:H // 2, W // 2:] = 60 + 130 * (tr & 1)
+        y[H // 2:, :W // 2] = 128 + tex[t:t + H // 2, 3 * t:3 * t + W // 2]
+        y[H // 2:, W // 2:] = ((xx[H // 2:, W // 2:] - W // 2) * 200 //
+                               (W // 2) + (yy[H // 2:, W // 2:] - H // 2)
+                               // 8 + 3 * t)
+        u = 128 + (30 * np.sin(cx / 40.0 + t / 4.0)).astype(np.int64)
+        v = 120 + (cy * 40) // (H // 2) + t
+        out += [np.clip(p, 0, 255).astype(np.uint8).tobytes()
+                for p in (y, u, v)]
+    return b"".join(out)
+
+
+def ra720_s3_params(module, threads=0):
+    """EncoderParameters of ra720_s3 for ``module`` (xvc_tpu.api or
+    xvc_tpu_torch.api) with ``threads`` picture threads."""
+    return module.EncoderParameters(
+        width=RA720_S3["width"], height=RA720_S3["height"],
+        qp=RA720_S3["qp"], speed_mode=3,
+        sub_gop_length=RA720_S3["sub_gop_length"], checksum_mode=1,
+        threads=threads)
+
+
+def make_ra720_s3_refs(bench_dir):
+    """Write ``<bench_dir>/ra720_s3_enc.json`` and ``ra720_s3_cands.npz``:
+    the JAX package's EncoderSession on ra720_s3 with no picture threads.
+    The sha256 and byte count of the length-prefixed stream, every NAL's
+    sha256, each picture's PSNR (Y, U, V) and the sha256 of the
+    reconstructions in output order; the packed prepass candidates of
+    each picture (pack_intra_cands, keep 1), in coding order.  Some
+    minutes on one CPU core."""
+    import hashlib
+    import json
+    from xvc_tpu import api as japi
+    from xvc_tpu.nal import write_nal_units
+    from xvc_tpu.tpu import txrd_prepass as jtx
+    yuv = make_ra720_s3()
+    W, H, N = RA720_S3["width"], RA720_S3["height"], RA720_S3["frames"]
+    cands = []
+    pack = jtx.pack_intra_cands
+
+    def spy(*args, **kw):
+        buf = pack(*args, **kw)
+        cands.append(buf.copy())
+        return buf
+
+    jtx.pack_intra_cands = spy
+    try:
+        ses = japi.EncoderSession(ra720_s3_params(japi))
+        fs = W * H * 3 // 2
+        nals = []
+        for i in range(N):
+            nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+        nals += ses.flush()
+    finally:
+        jtx.pack_intra_cands = pack
+    assert len(cands) == N
+    data = write_nal_units(nals)
+    refs = dict(
+        clip=dict(RA720_S3), sha256=hashlib.sha256(data).hexdigest(),
+        bytes=len(data),
+        nal_sha256=[hashlib.sha256(n).hexdigest() for n in nals],
+        psnr=[list(map(float, s.psnr)) for s in ses.nal_stats
+              if s.nal_unit_type != SEGMENT_HEADER],
+        rec_sha256=hashlib.sha256(b"".join(ses.rec_pictures)).hexdigest())
+    with open(os.path.join(bench_dir, "ra720_s3_enc.json"), "w") as f:
+        json.dump(refs, f, indent=1)
+        f.write("\n")
+    np.savez_compressed(os.path.join(bench_dir, "ra720_s3_cands.npz"),
+                        cands=np.stack(cands))
+
+
 # The splices: two streams of one recipe at two sizes, joined at their
 # second segment headers (the open-GOP splice of tools/make_golden.py
 # make_scalability_vector, encoded by the JAX package's EncoderSession
@@ -294,16 +388,79 @@ PYTHON_CU_INTER = {
 }
 
 
+# More inter clips of the Python CU encoder under XVC_ME=jax, qp 32,
+# checksum mode 1, random access with sub-GOP 4 and two references, the
+# default settings (the JAX package's streams in
+# tests/data/bench/python_cu_inter_more.json).  ra64x48_me4: the first four
+# pictures of tests/data/ra64x48_in.yuv (pictures 1 and 3 predict from the
+# same two references, so that picture threads code them at once);
+# ra64x48b10_me: the first two of tests/data/ra64x48b10_in.yuv, 10-bit
+# input and coding; c422_ra64x48_me: two 8-bit 4:2:2 pictures of the
+# texture of tests/data/c422_ra64x48.xvc (``chroma_ra_clip``).
+PYTHON_CU_INTER_MORE = {
+    "ra64x48_me4": dict(
+        source="ra64x48_in.yuv", width=64, height=48, pictures=4,
+        params=dict(num_ref_pics=2, sub_gop_length=4), settings="",
+        env={"XVC_ME": "jax"}),
+    "ra64x48b10_me": dict(
+        source="ra64x48b10_in.yuv", width=64, height=48, pictures=2,
+        params=dict(num_ref_pics=2, sub_gop_length=4, input_bitdepth=10,
+                    internal_bitdepth=10), settings="",
+        env={"XVC_ME": "jax"}),
+    "c422_ra64x48_me": dict(
+        source="chroma_ra_clip", width=64, height=48, pictures=2,
+        params=dict(num_ref_pics=2, sub_gop_length=4, chroma_format=2),
+        settings="", env={"XVC_ME": "jax"}),
+}
+
+
+def inter_clip(name):
+    """The clip ``name`` of PYTHON_CU_INTER or PYTHON_CU_INTER_MORE."""
+    return PYTHON_CU_INTER.get(name) or PYTHON_CU_INTER_MORE[name]
+
+
+def frame_bytes(clip):
+    """The bytes of one raw input picture of an inter clip."""
+    w, h = clip["width"], clip["height"]
+    chroma = clip["params"].get("chroma_format", 1)
+    samples = {0: w * h, 1: w * h * 3 // 2, 2: w * h * 2, 3: w * h * 3}
+    wide = clip["params"].get("input_bitdepth", 8) > 8
+    return samples[chroma] * (2 if wide else 1)
+
+
+def chroma_ra_clip(w, h, n, chroma_format):
+    """The 8-bit pictures of the recipe of tests/data/c422_ra64x48.xvc
+    (``make_chroma_ra`` of tests/test_torch_recon.py): a textured gradient
+    moving by (3, 2) samples a picture, +8*t on the left half of the luma
+    of picture t."""
+    rng = np.random.RandomState(7)
+    tex = rng.randint(0, 256, (h + 32, w + 32))
+    yy, xx = np.mgrid[0:h + 32, 0:w + 32]
+    base = (0.5 * tex + 0.5 * ((xx * 4 + yy * 3) % 256)).astype(np.int32)
+    cw = w if chroma_format == 3 else w // 2
+    ch = h // 2 if chroma_format == 1 else h
+    out = []
+    for t in range(n):
+        y = base[2 * t:2 * t + h, 3 * t:3 * t + w].copy()
+        y[:, :w // 2] += 8 * t
+        c = base[2 * t:2 * t + ch, 3 * t:3 * t + cw] - 128
+        out += [np.clip(p, 0, 255).astype(np.uint8).tobytes()
+                for p in (y, 128 + c // 4, 128 - c // 4)]
+    return b"".join(out)
+
+
 def python_cu_inter_input(name, data_dir, decode=None):
-    """The raw 4:2:0 bytes of a PYTHON_CU_INTER clip.  ``decode(data)``
-    returns the packed pictures of a stream (the JAX package's host decode
-    when None)."""
-    clip = PYTHON_CU_INTER[name]
+    """The raw bytes of an inter clip (PYTHON_CU_INTER or
+    PYTHON_CU_INTER_MORE).  ``decode(data)`` returns the packed pictures
+    of a stream (the JAX package's host decode when None)."""
+    clip = inter_clip(name)
     w, h, n = clip["width"], clip["height"], clip["pictures"]
+    if clip["source"] == "chroma_ra_clip":
+        return chroma_ra_clip(w, h, n, clip["params"]["chroma_format"])
     with open(os.path.join(data_dir, clip["source"]), "rb") as f:
         data = f.read()
     if not clip["source"].endswith(".xvc"):
-        return data[:n * w * h * 3 // 2]
+        return data[:n * frame_bytes(clip)]
     if decode is None:
         pics = [p.bytes for p in jax_session_decode(data)]
     else:
@@ -311,30 +468,36 @@ def python_cu_inter_input(name, data_dir, decode=None):
     return crop_pictures(pics[:n], 1280, 720, w, h)
 
 
-def python_cu_inter_params(module, name):
-    """EncoderParameters of a PYTHON_CU_INTER clip for ``module``."""
-    clip = PYTHON_CU_INTER[name]
+def python_cu_inter_params(module, name, threads=0):
+    """EncoderParameters of an inter clip for ``module``, with
+    ``threads`` picture threads."""
+    clip = inter_clip(name)
     return module.EncoderParameters(
         width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
-        explicit_encoder_settings=clip["settings"], **clip["params"])
+        explicit_encoder_settings=clip["settings"], threads=threads,
+        **clip["params"])
 
 
-def make_python_cu_inter_refs(data_dir):
-    """Write ``<data_dir>/bench/python_cu_inter.json``: for each
-    PYTHON_CU_INTER clip, the sha256 and byte count of the JAX package's
-    length-prefixed stream (its EncoderSession under the clip's
-    environment), every NAL's sha256, each picture's PSNR, and how its
+def make_python_cu_inter_refs(data_dir, refs_name="python_cu_inter"):
+    """Write ``<data_dir>/bench/<table>.json``: for each clip of
+    PYTHON_CU_INTER (``refs_name`` "python_cu_inter") or PYTHON_CU_INTER_MORE
+    ("python_cu_inter_more"), the sha256 and byte count of the JAX
+    package's length-prefixed stream (its EncoderSession under the clip's
+    environment), every NAL's sha256, each picture's PSNR, the sha256 of
+    its reconstructions in output order, and how its
     ``DeviceSadTable.prefetch`` calls went: all calls, those its device
-    function evaluated and their new candidates.  About six minutes on one
-    CPU core."""
+    function evaluated and their new candidates.  About six and four
+    minutes on one CPU core."""
     import hashlib
     import json
     from xvc_tpu import api as japi
     from xvc_tpu.nal import write_nal_units
     from xvc_tpu.tpu import me as jme
-    refs = {"clips": {n: dict(c) for n, c in PYTHON_CU_INTER.items()}}
+    clips = {"python_cu_inter": PYTHON_CU_INTER,
+             "python_cu_inter_more": PYTHON_CU_INTER_MORE}[refs_name]
+    refs = {"clips": {n: dict(c) for n, c in clips.items()}}
     real = jme.DeviceSadTable.prefetch
-    for name, clip in PYTHON_CU_INTER.items():
+    for name, clip in clips.items():
         counts = dict(prefetches=0, device_calls=0, device_candidates=0)
 
         def counted(table, qp, mvs):
@@ -352,7 +515,7 @@ def make_python_cu_inter_refs(data_dir):
         jme.DeviceSadTable.prefetch = counted
         try:
             ses = japi.EncoderSession(python_cu_inter_params(japi, name))
-            fs = w * h * 3 // 2
+            fs = frame_bytes(clip)
             nals = []
             for i in range(n):
                 nals += ses.encode(yuv[i * fs:(i + 1) * fs])
@@ -370,8 +533,9 @@ def make_python_cu_inter_refs(data_dir):
             nal_sha256=[hashlib.sha256(x).hexdigest() for x in nals],
             psnr=[list(map(float, s.psnr)) for s in ses.nal_stats
                   if s.nal_unit_type != SEGMENT_HEADER],
+            rec_sha256=hashlib.sha256(
+                b"".join(ses.rec_pictures)).hexdigest(),
             me=counts)
-    with open(os.path.join(data_dir, "bench", "python_cu_inter.json"),
-              "w") as f:
+    with open(os.path.join(data_dir, "bench", refs_name + ".json"), "w") as f:
         json.dump(refs, f, indent=1)
         f.write("\n")

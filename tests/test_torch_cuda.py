@@ -13,9 +13,10 @@ streams against the same session on the CPU device (no sticky CUDA
 error), the lookahead on the card against the same call on the CPU
 device, the resampler's kernel against its plain version, output
 conversion against the goldens, threaded decodes against sequential
-ones, the motion search's SAD sweep against its plain version, and the
+ones, the motion search's SAD sweep against its plain version, the
 encoders (speed 3 on the native encoder, the lookahead and the device
-motion estimation on the Python CU encoder) against the CPU device.
+motion estimation on the Python CU encoder) against the CPU device, and
+threaded encodes on both encoders against sequential ones on the card.
 """
 import hashlib
 
@@ -1605,3 +1606,91 @@ def test_python_cu_inter_encode_on_card_matches_cpu(cuda, monkeypatch):
     pics = decode_stream(write_nal_units(got), device=cuda)
     assert len(pics) == f and all(p.conforming for p in pics)
     assert rec and [p.bytes for p in pics][:len(rec)] == rec
+
+
+# picture-threaded encoding on the card ----------------------------------
+
+def _session_encode_on(dev, params, yuv, frames, fs):
+    """NALs, reconstructions and launch counts of an EncoderSession on
+    ``dev`` (the counts set to 0 just before, read just after)."""
+    from xvc_tpu_torch import api
+    ses = api.EncoderSession(params, device=dev)
+    kernels.reset_launches()
+    nals = []
+    for i in range(frames):
+        nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+    nals += ses.flush()
+    torch.cuda.synchronize()
+    return nals, ses.rec_pictures, dict(kernels.LAUNCHES), ses
+
+
+def test_threaded_speed3_encode_on_card_equals_sequential(cuda,
+                                                          monkeypatch):
+    """Five pictures of the 192x192 clip of tests/test_wavefront_rdo.py at
+    speed 3, random access with sub-GOP 4, with 4 picture threads on the
+    card: the sequential encode's NALs, reconstructions and kernel
+    launches, decoded on the card to the reconstruction."""
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.nal import write_nal_units
+    from xvc_tpu_torch.parallel import pipeline
+    from .encode_clips import wavefront_clip
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    monkeypatch.setattr(pipeline, "WAIT_SECONDS", 120.0)
+    f = 5
+    yuv = wavefront_clip(f=f)
+
+    def params(threads):
+        return api.EncoderParameters(
+            width=192, height=192, qp=32, speed_mode=3, sub_gop_length=4,
+            checksum_mode=1, threads=threads)
+
+    want, want_rec, want_n, _ = _session_encode_on(cuda, params(0), yuv, f,
+                                                   192 * 192 * 3 // 2)
+    got, rec, n, ses = _session_encode_on(cuda, params(4), yuv, f,
+                                          192 * 192 * 3 // 2)
+    assert ses._enc.pipeline is not None
+    assert got == want and rec == want_rec and len(rec) == f
+    assert n == want_n and n["txrd"] > 0 and n["intra_satd"] > 0
+    pics = decode_stream(write_nal_units(got), device=cuda)
+    assert len(pics) == f and all(p.conforming for p in pics)
+    assert [p.bytes for p in pics] == rec
+
+
+def test_threaded_python_cu_inter_encode_on_card_equals_sequential(
+        cuda, monkeypatch):
+    """ra64x48_me4 (tests/encode_clips.py PYTHON_CU_INTER_MORE: pictures 1
+    and 3 are coded at once) under XVC_ME=jax with 4 picture threads on
+    the card: the sequential encode's NALs, reconstructions, prefetch
+    counts and me_sad launches (summed over the workers, equal to the
+    device sweeps), and the JAX package's recorded stream."""
+    import json
+    from xvc_tpu_torch import api
+    from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.nal import write_nal_units
+    from xvc_tpu_torch.parallel import pipeline
+    from . import encode_clips as clips
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    monkeypatch.setattr(pipeline, "WAIT_SECONDS", 120.0)
+    name = "ra64x48_me4"
+    clip = clips.PYTHON_CU_INTER_MORE[name]
+    for var, val in clip["env"].items():
+        monkeypatch.setenv(var, val)
+    yuv = clips.python_cu_inter_input(name, data_path(""))
+    fs = clips.frame_bytes(clip)
+    runs = []
+    for threads in (0, 4):
+        me.reset_stats()
+        runs.append(_session_encode_on(
+            cuda, clips.python_cu_inter_params(api, name, threads), yuv,
+            clip["pictures"], fs) + (dict(me.STATS),))
+    (want, want_rec, want_n, _, want_me), (got, rec, n, ses, stats) = runs
+    assert ses._enc.pipeline is not None
+    assert got == want and rec == want_rec
+    assert n == want_n and stats == want_me
+    assert n["me_sad"] == stats["device_calls"] > 0
+    with open(data_path("bench/python_cu_inter_more.json")) as f:
+        ref = json.load(f)[name]
+    data = write_nal_units(got)
+    assert hashlib.sha256(data).hexdigest() == ref["sha256"]
+    pics = decode_stream(data, device=cuda)
+    assert len(pics) == clip["pictures"] and all(p.conforming for p in pics)

@@ -10,7 +10,8 @@ byte.
 - EncoderSession: the same NALs, per-NAL statistics and reconstruction;
 - the settings the port rejects raise NotImplementedError, and those it
   takes to its Python CU encoder (tpu_intra_lookahead,
-  XVC_INTRA_PREPASS=jax) give the JAX package's bytes;
+  XVC_INTRA_PREPASS=jax) or codes on picture threads give the JAX
+  package's bytes;
 - hd720_s3, chip_smoke.py's encode clip: its recipe
   (tests/encode_clips.py ``make_hd720_s3``, and chip_smoke.py's own copy
   of it), its committed references
@@ -262,12 +263,12 @@ def test_session_chroma_formats_equal_the_jax_package_s(case):
     assert [p.bytes for p in pics] == rec
 
 
-# Settings the JAX package codes with its Python CU encoder.  The port
-# refuses, when the session is set up, those that need a part of it that
-# is not ported (the ROADMAP queue 1 item that would lift each refusal),
-# and encodes the others byte for byte as the JAX package does.
+# Settings the JAX package codes with its Python CU encoder or on picture
+# threads.  The port refuses, when the session is set up, those that need
+# a part of it that is not ported (the ROADMAP queue 1 item that would
+# lift each refusal), and encodes the others byte for byte as the JAX
+# package does.
 REJECTED = {
-    "threads": (dict(threads=2), "item 1"),
     "tile_rows": (dict(explicit_encoder_settings="tile_rows 2"), "item 4"),
     "multihost_gop": (dict(explicit_encoder_settings="multihost_gop 1"),
                       "item 7"),
@@ -279,14 +280,18 @@ ENCODED = {
     "python_path_num_ref_pics_1": dict(
         num_ref_pics=1, low_delay=1, sub_gop_length=1, speed_mode=2,
         checksum_mode=1, explicit_encoder_settings="tpu_intra_lookahead 1"),
+    # three pictures: the second sub-GOP's two are coded by two workers
+    "threads": dict(threads=2, sub_gop_length=2, speed_mode=2,
+                    checksum_mode=1, frames=3),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REJECTED) + sorted(ENCODED))
-def test_settings_that_need_the_python_cu_encoder_raise(name):
+def test_settings_that_need_the_python_cu_encoder_raise(name, monkeypatch):
     """A refused setting raises NotImplementedError naming its ROADMAP
     item; an encoded one gives the JAX package's NALs (64x48, one
-    picture)."""
+    picture, or ``frames``)."""
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
     w, h = 64, 48
     if name in REJECTED:
         kw, item = REJECTED[name]
@@ -294,12 +299,15 @@ def test_settings_that_need_the_python_cu_encoder_raise(name):
             api.EncoderSession(api.EncoderParameters(
                 width=w, height=h, **kw), device="cpu")
         return
-    yuv = txrd_clip(w, h, 1)
-    kw = ENCODED[name]
+    kw = dict(ENCODED[name])
+    frames = kw.pop("frames", 1)
+    yuv = txrd_clip(w, h, frames)
     want, _ = session_encode(japi.EncoderSession(japi.EncoderParameters(
-        width=w, height=h, **kw)), yuv, w, h, 1)
-    got, _ = session_encode(api.EncoderSession(api.EncoderParameters(
-        width=w, height=h, **kw), device="cpu"), yuv, w, h, 1)
+        width=w, height=h, **kw)), yuv, w, h, frames)
+    ses = api.EncoderSession(api.EncoderParameters(width=w, height=h, **kw),
+                             device="cpu")
+    assert (ses._enc.pipeline is not None) == ("threads" in kw)
+    got, _ = session_encode(ses, yuv, w, h, frames)
     assert got == want
 
 

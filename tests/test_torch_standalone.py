@@ -11,8 +11,9 @@ never jax and nothing of xvc_tpu.
   encode (the split DP,
   the transform-RD prepass and the native encoder) and an all-intra
   encode with tpu_intra_lookahead (the Python CU encoder) decode back to
-  the encoder's reconstruction; a source scan finds no import of either
-  in the package or in chip_smoke.py.
+  the encoder's reconstruction, and so does a speed-3 encode through the
+  apps (``xvc_tpu_torch.cli``) on two picture threads; a source scan
+  finds no import of either in the package or in chip_smoke.py.
 - tests/data/bench/<stream>_dec.sha256 of the six bench streams, the
   references chip_smoke.py compares the card's pictures with, equal the
   JAX package's host decode of each stream (drained with the blocking
@@ -128,6 +129,24 @@ nals = ses.encode(yuv[:fs]) + ses.flush()
 pics = decode_stream(write_nal_units(nals), device="cpu")
 assert len(pics) == 1 and pics[0].conforming
 assert pics[0].bytes == ses.rec_pictures[0]
+# the apps (python -m xvc_tpu_torch.cli.xvcenc / xvcdec): a threaded
+# encode at speed 3 and its threaded decode equal to its reconstruction
+import tempfile
+from xvc_tpu_torch.cli import xvcdec, xvcenc
+with tempfile.TemporaryDirectory() as tmp:
+    src, bs, rec, dec = (os.path.join(tmp, n) for n in
+                         ("in.yuv", "out.xvc", "rec.yuv", "dec.yuv"))
+    with open(src, "wb") as f:
+        f.write(yuv)
+    assert xvcenc.main(["-input-file", src, "-output-file", bs, "-rec-file",
+                        rec, "-input-width", str(w), "-input-height",
+                        str(h), "-speed-mode", "3", "-sub-gop-length", "2",
+                        "-checksum-mode", "1", "-threads", "2", "-device",
+                        "cpu"]) == 0
+    assert xvcdec.main(["-bitstream-file", bs, "-output-file", dec,
+                        "-threads", "2", "-device", "cpu"]) == 0
+    with open(rec, "rb") as f1, open(dec, "rb") as f2:
+        assert f1.read() == f2.read()
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("STANDALONE-OK", len(names))
@@ -225,6 +244,7 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device exists")
     from xvc_tpu_torch.api import (DecoderSession, EncoderParameters,
                                    EncoderSession)
+    from xvc_tpu_torch.cli import xvcdec, xvcenc
     from xvc_tpu_torch.codec.decoder import Decoder, decode_stream
     from xvc_tpu_torch.codec.encoder import Encoder
     from xvc_tpu_torch.gpu import resample
@@ -235,6 +255,13 @@ def test_entry_points_default_to_the_card():
                  lambda: decode_stream(data, num_threads=2),
                  Encoder, lambda: EncoderSession(EncoderParameters(
                      width=64, height=48)),
+                 lambda: Encoder(num_threads=2),
+                 lambda: xvcenc.main([
+                     "-input-file", data_path("sp48x32_in.yuv"),
+                     "-output-file", os.devnull, "-input-width", "48",
+                     "-input-height", "32", "-threads", "2"]),
+                 lambda: xvcdec.main([
+                     "-bitstream-file", data_path("ai64x48.xvc")]),
                  lambda: resample.resample(plane, 8, 8, 16, 16, 8, 24, 24,
                                            8)):
         with pytest.raises(RuntimeError, match="is_available"):

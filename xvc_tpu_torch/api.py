@@ -7,9 +7,9 @@ search, or the Python CU encoder where the JAX package takes its own
 ``XVC_ENC_NATIVE=0``), and runs the encoder's device stages (the split
 DP, the transform-RD prepass, the lookahead, the per-CU SATD pre-pass,
 the motion search's SAD sweeps, the Python path's deblocking) on the card
-unless ``device`` names another; what the port lacks raises
-``NotImplementedError`` when the session is made
-(``codec/encoder.py``).  ``DecoderSession(params, device=None)`` decodes
+unless ``device`` names another, with ``params.threads`` picture threads;
+what the port lacks raises ``NotImplementedError`` when the session is
+made (``codec/encoder.py``).  ``DecoderSession(params, device=None)`` decodes
 through the device paths the same way.
 """
 from dataclasses import dataclass

@@ -7,16 +7,23 @@ device stages on the card unless ``device`` names another.  Each picture
 is coded by the native encoder or, where the JAX package takes its
 Python CU encoder (``native/enc.usable_for``: ``tpu_intra_lookahead``,
 ``XVC_INTRA_PREPASS=jax``, ``XVC_ME=jax``, ``XVC_ENC_NATIVE=0``), by the
-port's copy of it, intra and inter pictures.  What is not ported raises
-``NotImplementedError`` when the session is set up, never mid-stream:
-picture-level threads (ROADMAP queue 1 item 1), CTU tile rows (item 4)
-and the cross-host GOP pipeline (item 7).
+port's copy of it, intra and inter pictures.  With ``num_threads > 0``
+the pictures of a sub-GOP burst are coded on worker threads
+(``parallel/pipeline.EncodePipeline``), each once its reference pictures
+are reconstructed, and harvested in DOC order on the session's thread:
+the same stream as the sequential encode.  The workers issue their
+device work on the card's current stream, which is the same default
+stream in every thread; a pool clamped to one worker takes the
+sequential path.  What is not ported raises ``NotImplementedError`` when
+the session is set up, never mid-stream: CTU tile rows (ROADMAP queue 1
+item 4) and the cross-host GOP pipeline (item 7).
 """
 import numpy as np
 
 from .. import constants as k
 from .. import segment as seg
 from ..engine import resolve_device
+from ..parallel.pipeline import EncodePipeline, _pool_size
 from .encoder_settings import EncoderSettings
 from .picture_encoder import PictureEncoder
 from .ref_lists import ReferenceListSorter
@@ -42,11 +49,13 @@ class EncodedNal:
 
 class Encoder:
     def __init__(self, internal_bitdepth=8, num_threads=0, device=None):
-        if num_threads > 0:
-            raise NotImplementedError(
-                "picture-level encode threads are not ported (one picture "
-                "at a time on one device; ROADMAP queue 1 item 1)")
         self.device = resolve_device(device)
+        # 1 effective worker = no overlap, only hand-off overhead; route
+        # to the sequential path (identical bitstream by construction)
+        self.pipeline = (EncodePipeline(num_threads)
+                         if num_threads > 0 and _pool_size(num_threads) > 1
+                         else None)
+        self._encode_jobs = []
         self.segment_header = seg.SegmentHeader()
         self.segment_header.codec_identifier = k.XVC_CODEC_IDENTIFIER
         self.segment_header.major_version = k.XVC_MAJOR_VERSION
@@ -209,6 +218,7 @@ class Encoder:
                     if pic.pic_data.doc == self.doc + 1:
                         self._encode_one_picture(pic)
         self.poc += 1
+        self._harvest_encode_jobs()
         self.out_rec = (None, None)
         if len(self.pic_encoders) + sh.max_sub_gop_length >= \
                 self.pic_buffering_num:
@@ -246,6 +256,7 @@ class Encoder:
                 if not found:
                     self.doc += 1
         self.poc += 1
+        self._harvest_encode_jobs()
         self.out_rec = self.reconstruct_next_picture()
         self._prepare_output_nals()
         more = (self.doc + 1 < self.poc or
@@ -421,14 +432,28 @@ class Encoder:
                               self.pic_encoders,
                               pic_enc.pic_data.ref_pic_lists,
                               sh.leading_pictures)
-        nal_bytes = pic_enc.encode(sh, self.segment_qp,
-                                   1 if pic_enc.buffer_flag else 0,
-                                   self.settings)
-        pic_enc.output_status = "finished"
-        self._on_picture_encoded(pic_enc, deps, nal_bytes)
+        buffer_flag = 1 if pic_enc.buffer_flag else 0
+        if self.pipeline is not None:
+            job = self.pipeline.submit(pic_enc, deps, sh, self.segment_qp,
+                                       buffer_flag, self.settings)
+            self._encode_jobs.append((pic_enc, deps, job))
+        else:
+            nal_bytes = pic_enc.encode(sh, self.segment_qp, buffer_flag,
+                                       self.settings)
+            pic_enc.output_status = "finished"
+            self._on_picture_encoded(pic_enc, deps, nal_bytes)
         if pic_enc.pic_data.soc == self.segment_header.soc:
             self.doc_bitstream_order.append(pic_enc.pic_data.doc)
         self.doc += 1
+
+    def _harvest_encode_jobs(self):
+        """Collect the threaded picture encodes in submission (DOC) order
+        (ref: thread_encoder.cc:61-97 WaitOne/WaitForPicture)."""
+        jobs, self._encode_jobs = self._encode_jobs, []
+        nals = EncodePipeline.harvest([job for _, _, job in jobs])
+        for (pic_enc, deps, _), nal_bytes in zip(jobs, nals):
+            pic_enc.output_status = "finished"
+            self._on_picture_encoded(pic_enc, deps, nal_bytes)
 
     def _on_picture_encoded(self, pic_enc, inter_deps, nal_bytes):
         """(ref: encoder.cc:328-376)"""

@@ -16,6 +16,7 @@ pre-pass and, on inter pictures, the motion search's fullpel SAD sweeps
 deblocking on the device (``gpu/deblock.py``, built from the CU tree).
 """
 import math
+import threading
 
 import numpy as np
 
@@ -53,6 +54,12 @@ class PictureEncoder:
         self.pic_hash = b""
         self.rec_sse = 0
         self.rec_psnr = [0.0, 0.0, 0.0]
+        # the encode of a threaded session (parallel/pipeline.py): set when
+        # the reconstruction is final (its dependents wait on it), and the
+        # exception that ended it
+        self.recon_done = threading.Event()
+        self.recon_done.set()
+        self.encode_error = None
 
     # interface used by ReferenceListSorter
     def get_alternative_rec_pic(self, segment_header):

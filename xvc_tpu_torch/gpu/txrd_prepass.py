@@ -39,6 +39,7 @@ instead of CABAC bits): the decisions it forces are encoder-side freedom
 only and every stream stays decodable.
 """
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -253,36 +254,45 @@ def log2_table():
     return np.log2(np.arange(1, 32769, dtype=np.float64)).astype(np.float32)
 
 
+# the tables on each device, made once under the lock: the pictures of a
+# threaded encode share the first one made
 _DEV_TABLES = {}
+_DEV_TABLES_LOCK = threading.Lock()
+
+
+def _cached_on_device(key, make):
+    got = _DEV_TABLES.get(key)
+    if got is None:
+        with _DEV_TABLES_LOCK:
+            got = _DEV_TABLES.get(key)
+            if got is None:
+                got = _DEV_TABLES[key] = make()
+    return got
 
 
 def _device_tables(n, bitdepth, device):
     """The int32 basis [n, n] and the log2 table on ``device`` (cached)."""
-    key = (n, bitdepth, str(device))
-    got = _DEV_TABLES.get(key)
-    if got is None:
+
+    def make():
         basis = _fwd_basis(n, bitdepth, n == 4)[0].astype(np.int32)
         # the kernel's even-odd passes at n >= 8 need every DCT-2 row even
         # or odd: m[k][n-1-j] = (-1)^k m[k][j]
         sign = np.where(np.arange(n) % 2, -1, 1)[:, None]
         if n > 4 and not np.array_equal(basis[:, ::-1], sign * basis):
             raise ValueError("txrd: the n=%d basis is not even-odd" % n)
-        got = (torch.from_numpy(basis).to(device),
-               torch.from_numpy(log2_table()).to(device))
-        _DEV_TABLES[key] = got
-    return got
+        return (torch.from_numpy(basis).to(device),
+                torch.from_numpy(log2_table()).to(device))
+
+    return _cached_on_device((n, bitdepth, str(device)), make)
 
 
 def _device_weights(n, screen_step, device):
     """The predictor's tap weights on ``device`` (cached with the tables:
     the all-mode SATD's kernel needs none, this prepass predicts with
     them)."""
-    key = ("weights", n, screen_step, str(device))
-    got = _DEV_TABLES.get(key)
-    if got is None:
-        got = intra_satd.weights_on(n, screen_step, device)
-        _DEV_TABLES[key] = got
-    return got
+    return _cached_on_device(
+        ("weights", n, screen_step, str(device)),
+        lambda: intra_satd.weights_on(n, screen_step, device))
 
 
 def txrd_plain(orig, preds, satd, n, bitdepth, keep, screen_step, params):

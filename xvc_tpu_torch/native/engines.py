@@ -9,18 +9,32 @@ their residual-block bit counting goes through the native writer
 (``count_write_coefficients``), and the RDO quantizer is native
 (``quant_rdo_native``).
 """
+import threading
+
 import numpy as np
 
 from . import family_offsets, lib
 
+# the context family offsets the C calls read through a raw address: built
+# once, under the lock, and never replaced, so that no thread's array is
+# freed while another thread's C call reads it
 _OFFSETS_ARR = None
+_OFFSETS_LOCK = threading.Lock()
 
 
 def _offsets_ptr():
+    arr = _OFFSETS_ARR
+    if arr is None:
+        arr = _build_offsets()
+    return arr.ctypes.data
+
+
+def _build_offsets():
     global _OFFSETS_ARR
-    if _OFFSETS_ARR is None:
-        _OFFSETS_ARR = family_offsets()
-    return _OFFSETS_ARR.ctypes.data
+    with _OFFSETS_LOCK:
+        if _OFFSETS_ARR is None:
+            _OFFSETS_ARR = family_offsets()
+        return _OFFSETS_ARR
 
 
 class NativeEntropyEncoder:
