@@ -204,7 +204,26 @@ Phases:
      Then the apps as a user runs them: python -m xvc_tpu_torch.cli.xvcenc
      -threads 4 on the first 5 pictures of ra720_s3 written as y4m, and
      xvcdec -threads 4, whose output must equal the app encoder's
-     reconstruction.  Then the seconds of each phase.
+     reconstruction;
+ 11  CTU tile rows (the tile extension: a size-prefixed CABAC substream a
+     tile row, prediction cut at the tile's top): hd720_tiles4
+     (tests/data/bench/hd720_tiles4.xvc, 1280x720, 12 CTU rows in 4
+     tiles, one intra and two inter pictures, made by the JAX package's
+     encoder) through DecoderSession on the card, every picture on the
+     flat path (no replayed picture, so no host tail block), conforming
+     and equal to its _dec.sha256, the picture kernels, both scans and
+     the deblock kernels launched and the group ITX / MC kernels not; ms
+     per picture beside hd720_ld's, decoded in turns; the stage profile
+     with decode.parse and the tiles it parsed; the device's idle share;
+     then with 4 picture threads, every picture equal to the sequential
+     decode; tiles64x128_lic (2 tiles, LIC on: the replay path) to its
+     _dec.sha256; then qcif_tiles (qcif_me's crops and settings in 3
+     tiles, XVC_ME=jax and XVC_INTRA_PREPASS=jax) through EncoderSession
+     on the card, its stream and reconstruction equal to the JAX
+     package's (tests/data/bench/python_cu_tiles.json), its prefetch
+     counts too, me_sad's launches equal to the device sweeps, intra_satd
+     launched, decoded on the card, conforming, to the reconstruction;
+     ms per picture.  Then the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -372,6 +391,32 @@ RA720_S3 = dict(width=1280, height=720, frames=9, qp=32, sub_gop_length=8,
 THREADS = 4
 THREADED_INTER_CLIP = "ra64x48_me"
 APP_PICTURES = 5
+# phase 11: the tile-row streams of tests/encode_clips.py TILE_STREAMS
+# (made by the JAX package's encoder; tests/test_torch_tiles_encode.py
+# holds these names and picture counts equal to its table), with their
+# pictures: hd720_tiles4, 1280x720 in 4 tiles, the flat path's;
+# tiles64x128_lic, 2 tiles with LIC on, the replay path's (tiles64x256 is
+# the card tests'); hd720_tiles4 is decoded TILES_TURNS times in turns with
+# hd720_ld
+TILE_STREAMS = {"hd720_tiles4": 3, "tiles64x256": 3, "tiles64x128_lic": 3}
+TILES_STREAM = "hd720_tiles4"
+TILES_REPLAY_STREAM = "tiles64x128_lic"
+TILES_TURNS = 2
+# phase 11's encode clip, a copy of tests/encode_clips.py PYTHON_CU_TILES
+# (tests/test_torch_tiles_encode.py holds the two equal): qcif_me's crops
+# and settings, its 3 CTU rows in 3 tiles, under XVC_ME=jax and
+# XVC_INTRA_PREPASS=jax
+PYTHON_CU_TILES = {
+    "qcif_tiles": dict(
+        source="bench/hd720_ld.xvc", width=176, height=144, pictures=2,
+        params=dict(num_ref_pics=1, sub_gop_length=1, low_delay=1,
+                    speed_mode=2),
+        settings="inter_search_range_uni_max 64 inter_search_range_uni_min "
+                 "64 tile_rows 3",
+        env={"XVC_ME": "jax", "XVC_INTRA_PREPASS": "jax"}),
+}
+PYTHON_CU_TILES_KERNELS = ("me_sad", "intra_satd", "deblock_edges",
+                           "deblock_luma", "deblock_chroma")
 # phase 2: me_sad's cases, (w, h) of every CU shape with SAD and SAD_FAST,
 # the bit depth and the candidate count cycling over these (me_sad is
 # timed on the device sweeps of phase 9's qcif_me encode)
@@ -540,6 +585,16 @@ def python_cu_inter_params(api, name, threads=0):
     return api.EncoderParameters(
         width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
         explicit_encoder_settings=clip["settings"], threads=threads,
+        **clip["params"])
+
+
+def python_cu_tiles_params(api):
+    """EncoderParameters of qcif_tiles (a copy of tests/encode_clips.py
+    python_cu_inter_params on PYTHON_CU_TILES)."""
+    clip = PYTHON_CU_TILES["qcif_tiles"]
+    return api.EncoderParameters(
+        width=clip["width"], height=clip["height"], qp=32, checksum_mode=1,
+        explicit_encoder_settings=clip["settings"], threads=0,
         **clip["params"])
 
 
@@ -4616,6 +4671,176 @@ def phase_threads(torch, dev):
     return out
 
 
+def decode_tiles(torch, dev, name, flat):
+    """A tile stream through DecoderSession on the card: a decode that
+    records the pictures the replay path took (none where ``flat``, some
+    otherwise), then a timed one held to its hash list, the picture
+    kernels launched and the group kernels not."""
+    with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
+        data = f.read()
+    count = TILE_STREAMS[name]
+    statuses = scan_statuses(torch, data, dev)  # also the warm-up
+    tails = statuses["tail_blocks"]
+    if bool(tails) == flat:
+        raise AssertionError("%s: the pictures the replay path took %r" % (
+            name, tails))
+    pics, dt, launches = timed_session(torch, name, data, {})
+    kernels_run = DECODE_KERNELS if flat else ("itx_picture", "mc_picture")
+    if len(pics) != count or any(launches[k] <= 0 for k in kernels_run) \
+            or any(launches[k] for k in OFF_DECODE_KERNELS) or \
+            launches["itx_picture"] != count:
+        raise AssertionError("%s: %d pictures, launches %r" % (
+            name, len(pics), launches))
+    return data, pics, dt, launches, statuses
+
+
+def phase_tiles(torch, dev):
+    """CTU tile rows on the card: hd720_tiles4 on the flat path (hash
+    list, kernels, no replayed picture), in turns with hd720_ld, its stage
+    profile with the tiles parsed, its idle share, with 4 picture threads;
+    tiles64x128_lic on the replay path; qcif_tiles through the Python CU
+    encoder, held to the JAX package's stream, reconstruction and counts
+    (tests/data/bench/python_cu_tiles.json) and decoded back."""
+    from xvc_tpu_torch import api, kernels, profiling
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import me
+    from xvc_tpu_torch.native import pic as native_pic
+    from xvc_tpu_torch.nal import write_nal_units
+    out = {}
+    data, pics, dt, launches, statuses = decode_tiles(torch, dev,
+                                                      TILES_STREAM, True)
+    n = len(pics)
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        ld = f.read()
+    turns = {TILES_STREAM: [], "hd720_ld": []}
+    for _ in range(TILES_TURNS):
+        for name, d, count in ((TILES_STREAM, data, n), ("hd720_ld", ld, 8)):
+            _, s, _ = timed_session(torch, name, d, {})
+            turns[name].append(s * 1e3 / count)
+    tiles = []
+    real_parse = native_pic.parse_picture
+
+    def parse(pic_decoder, *args, **kw):
+        ok = real_parse(pic_decoder, *args, **kw)
+        tiles.append(pic_decoder.pic_data.tile_rows)
+        return ok
+
+    native_pic.parse_picture = parse
+    try:
+        report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
+    finally:
+        native_pic.parse_picture = real_parse
+    traced_s, busy_s, ops = device_busy(torch, lambda: decode_stream(data))
+    tpics, tdt, tlaunches = timed_session(torch, TILES_STREAM, data, {},
+                                          threads=THREADS)
+    if [p.bytes for p in tpics] != [p.bytes for p in pics]:
+        raise AssertionError("%s: the threaded decode differs from the "
+                             "sequential one" % TILES_STREAM)
+    parse_span = report["decode.parse"]
+    out[TILES_STREAM] = dict(
+        pictures=n, seconds=dt, ms_per_picture=dt * 1e3 / n,
+        launches=launches, scan_status=statuses,
+        ms_per_picture_in_turns=turns, tiles_parsed=sum(tiles),
+        tiles_per_picture=tiles, parse_seconds=parse_span["seconds"],
+        parse_calls=parse_span["calls"], profiled_seconds=profiled_s,
+        spans=report, traced_decode_seconds=traced_s,
+        device_busy_seconds=busy_s, device_operations=ops,
+        device_idle_share=None if busy_s is None else 1.0 - busy_s / traced_s,
+        threaded_ms_per_picture=tdt * 1e3 / n, threaded_launches=tlaunches)
+    row = out[TILES_STREAM]
+    log("phase 11: %s (1280x720, %d pictures, %s tiles a picture) on the "
+        "flat path, no replayed picture (0 host tail blocks), conforming "
+        "and equal to its hash list; %.2f ms/picture; in turns %s ms/picture "
+        "against hd720_ld %s; launches %s; scans %s; decode.parse %.4f s in "
+        "%d calls, %d tiles parsed; idle share %s (traced %.3f s, busy %s s, "
+        "%s operations); 4 threads %.2f ms/picture, equal to the sequential "
+        "decode; spans (s): %s" % (
+            TILES_STREAM, n, tiles, row["ms_per_picture"],
+            turns[TILES_STREAM], turns["hd720_ld"], launches,
+            {k: v for k, v in statuses.items() if k != "tail_blocks"},
+            parse_span["seconds"], parse_span["calls"], sum(tiles),
+            row["device_idle_share"], traced_s, busy_s, ops,
+            row["threaded_ms_per_picture"],
+            {k: v["seconds"] for k, v in report.items()}))
+    _, rpics, rdt, rlaunches, rstat = decode_tiles(
+        torch, dev, TILES_REPLAY_STREAM, False)
+    out[TILES_REPLAY_STREAM] = dict(
+        pictures=len(rpics), ms_per_picture=rdt * 1e3 / len(rpics),
+        launches=rlaunches, tail_blocks=rstat["tail_blocks"])
+    log("phase 11: %s (64x128, 2 tiles, LIC on) conforming and equal to its "
+        "hash list; replayed pictures and their host tail blocks %r; "
+        "launches %s" % (TILES_REPLAY_STREAM, rstat["tail_blocks"],
+                         rlaunches))
+
+    name = "qcif_tiles"
+    clip = PYTHON_CU_TILES[name]
+    w, h, count = clip["width"], clip["height"], clip["pictures"]
+    hashes, _ = read_hashes(os.path.join(DATA, "bench",
+                                         "hd720_ld_dec.sha256"))
+    decoded = decode_stream(ld, device=dev)[:count]
+    if [hashlib.sha256(p.bytes).hexdigest() for p in decoded] != \
+            hashes[:count]:
+        raise AssertionError("hd720_ld: the card's decode differs from its "
+                             "hash list")
+    yuv = crop_pictures([p.bytes for p in decoded], 1280, 720, w, h)
+    with open(os.path.join(DATA, "bench", "python_cu_tiles.json")) as f:
+        ref = json.load(f)[name]
+    fs = w * h * 3 // 2
+    saved = {k: os.environ.get(k) for k in clip["env"]}
+    os.environ.update(clip["env"])
+    try:
+        torch.cuda.synchronize()
+        me.reset_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ses = api.EncoderSession(python_cu_tiles_params(api), device=dev)
+        nals = []
+        for i in range(count):
+            nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+        nals += ses.flush()
+        torch.cuda.synchronize()
+        edt = time.perf_counter() - t0
+        elaunches = dict(kernels.LAUNCHES)
+        stats = dict(me.STATS)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    stream = write_nal_units(nals)
+    rec = hashlib.sha256(b"".join(ses.rec_pictures)).hexdigest()
+    if hashlib.sha256(stream).hexdigest() != ref["sha256"] or \
+            rec != ref["rec_sha256"]:
+        raise AssertionError("%s: the stream or the reconstruction differs "
+                             "from the JAX package's (%d bytes against %d)"
+                             % (name, len(stream), ref["bytes"]))
+    if any(elaunches[k] <= 0 for k in PYTHON_CU_TILES_KERNELS) or \
+            elaunches["me_sad"] != stats["device_calls"] or \
+            any(stats[k] != v for k, v in ref["me"].items()):
+        raise AssertionError("%s: launches %r, device sweeps %r, the JAX "
+                             "package's %r" % (name, elaunches, stats,
+                                               ref["me"]))
+    back = decode_stream(stream, device=dev)
+    if len(back) != count or not all(p.conforming for p in back) or \
+            [p.bytes for p in back] != ses.rec_pictures:
+        raise AssertionError("%s: the card's decode differs from the "
+                             "encoder's reconstruction" % name)
+    out[name] = dict(width=w, height=h, pictures=count, seconds=edt,
+                     ms_per_picture=edt * 1e3 / count, bytes=len(stream),
+                     equal=True,
+                     launches={k: v for k, v in elaunches.items() if v},
+                     me=stats)
+    log("phase 11: %s (%dx%d, %d pictures, 3 tiles, the Python CU encoder, "
+        "XVC_ME=jax and XVC_INTRA_PREPASS=jax): %.1f ms/picture, %d bytes "
+        "and the reconstruction equal to the JAX package's; decoded on the "
+        "card, conforming and equal to the reconstruction; launches %s; "
+        "prefetches and device sweeps %s" % (
+            name, w, h, count, out[name]["ms_per_picture"], len(stream),
+            out[name]["launches"], stats))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -4677,6 +4902,7 @@ def main():
     python_cu_inter, sweeps = phase("9", phase_python_cu_inter, torch, dev)
     phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps, parent)
     threads = phase("10", phase_threads, torch, dev)
+    tiles = phase("11", phase_tiles, torch, dev)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -4697,7 +4923,7 @@ def main():
                     "lookahead": look, "encode": enc,
                     "python_cu": python_cu,
                     "python_cu_inter": python_cu_inter,
-                    "threads": threads,
+                    "threads": threads, "tiles": tiles,
                     "me_sad": {k: res["me_sad"][k] for k in (
                         "cases", "sweeps", "device_ms", "device_staging_ms",
                         "library_ms", "per_prefetch_call", "hd720")},
@@ -4734,6 +4960,7 @@ def main():
                     "deblock_luma_every_position_on_ms":
                         res["deblock_luma"]["every_position_on_ms"]}))
     stages[SPLICE] = resampling[SPLICE]["spans"]
+    stages[TILES_STREAM] = tiles[TILES_STREAM]["spans"]
     log(json.dumps({"stage_profile": stages}))
     launches = {n: dec["hd720_ld"]["launches"][n]
                 for n in DECODE_KERNELS + OFF_DECODE_KERNELS}

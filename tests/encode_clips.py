@@ -10,7 +10,11 @@ tests/test_torch_encode.py holds the two equal).  ``PYTHON_CU`` and
 tests/test_torch_python_cu.py).  ``PYTHON_CU_INTER`` and
 ``make_python_cu_inter_refs`` do the same for phase 9's inter clips
 (tests/data/bench/python_cu_inter.json; held equal by
-tests/test_torch_python_cu_inter.py).
+tests/test_torch_python_cu_inter.py) and, with ``PYTHON_CU_TILES``, for
+phase 11's tile clip (tests/data/bench/python_cu_tiles.json).
+``TILE_STREAMS`` and ``make_tile_stream`` are the recipes of the
+committed CTU-tile-row streams (tests/data/bench/hd720_tiles4.xvc and
+the small ones) and their hash lists.
 """
 import os
 
@@ -414,9 +418,29 @@ PYTHON_CU_INTER_MORE = {
 }
 
 
+# The Python CU encoder's tile clip (chip_smoke.py phase 11, which carries
+# its own copy of this table): qcif_tiles, qcif_me's input and settings
+# (XVC_ME=jax, low delay, one reference, speed mode 2, range 64) with its
+# 3 CTU rows cut into 3 tiles, under XVC_INTRA_PREPASS=jax too (the JAX
+# package's streams in tests/data/bench/python_cu_tiles.json).
+PYTHON_CU_TILES = {
+    "qcif_tiles": dict(
+        source="bench/hd720_ld.xvc", width=176, height=144, pictures=2,
+        params=dict(num_ref_pics=1, sub_gop_length=1, low_delay=1,
+                    speed_mode=2),
+        settings="inter_search_range_uni_max 64 inter_search_range_uni_min "
+                 "64 tile_rows 3",
+        env={"XVC_ME": "jax", "XVC_INTRA_PREPASS": "jax"}),
+}
+INTER_TABLES = {"python_cu_inter": PYTHON_CU_INTER,
+                "python_cu_inter_more": PYTHON_CU_INTER_MORE,
+                "python_cu_tiles": PYTHON_CU_TILES}
+
+
 def inter_clip(name):
-    """The clip ``name`` of PYTHON_CU_INTER or PYTHON_CU_INTER_MORE."""
-    return PYTHON_CU_INTER.get(name) or PYTHON_CU_INTER_MORE[name]
+    """The clip ``name`` of PYTHON_CU_INTER, PYTHON_CU_INTER_MORE or
+    PYTHON_CU_TILES."""
+    return next(t[name] for t in INTER_TABLES.values() if name in t)
 
 
 def frame_bytes(clip):
@@ -450,8 +474,8 @@ def chroma_ra_clip(w, h, n, chroma_format):
 
 
 def python_cu_inter_input(name, data_dir, decode=None):
-    """The raw bytes of an inter clip (PYTHON_CU_INTER or
-    PYTHON_CU_INTER_MORE).  ``decode(data)`` returns the packed pictures
+    """The raw bytes of an inter clip (PYTHON_CU_INTER,
+    PYTHON_CU_INTER_MORE or PYTHON_CU_TILES).  ``decode(data)`` returns the packed pictures
     of a stream (the JAX package's host decode when None)."""
     clip = inter_clip(name)
     w, h, n = clip["width"], clip["height"], clip["pictures"]
@@ -480,8 +504,9 @@ def python_cu_inter_params(module, name, threads=0):
 
 def make_python_cu_inter_refs(data_dir, refs_name="python_cu_inter"):
     """Write ``<data_dir>/bench/<table>.json``: for each clip of
-    PYTHON_CU_INTER (``refs_name`` "python_cu_inter") or PYTHON_CU_INTER_MORE
-    ("python_cu_inter_more"), the sha256 and byte count of the JAX
+    PYTHON_CU_INTER (``refs_name`` "python_cu_inter"), PYTHON_CU_INTER_MORE
+    ("python_cu_inter_more") or PYTHON_CU_TILES ("python_cu_tiles"), the
+    sha256 and byte count of the JAX
     package's length-prefixed stream (its EncoderSession under the clip's
     environment), every NAL's sha256, each picture's PSNR, the sha256 of
     its reconstructions in output order, and how its
@@ -493,8 +518,7 @@ def make_python_cu_inter_refs(data_dir, refs_name="python_cu_inter"):
     from xvc_tpu import api as japi
     from xvc_tpu.nal import write_nal_units
     from xvc_tpu.tpu import me as jme
-    clips = {"python_cu_inter": PYTHON_CU_INTER,
-             "python_cu_inter_more": PYTHON_CU_INTER_MORE}[refs_name]
+    clips = INTER_TABLES[refs_name]
     refs = {"clips": {n: dict(c) for n, c in clips.items()}}
     real = jme.DeviceSadTable.prefetch
     for name, clip in clips.items():
@@ -539,3 +563,84 @@ def make_python_cu_inter_refs(data_dir, refs_name="python_cu_inter"):
     with open(os.path.join(data_dir, "bench", refs_name + ".json"), "w") as f:
         json.dump(refs, f, indent=1)
         f.write("\n")
+
+
+def synthetic_yuv420(w, h, f, seed=5):
+    """The clip of tests/test_tiles.py synthetic_yuv420: a moving sine
+    pattern with noise in the luma, flat U rising by 1 a picture, noise
+    in V."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(f):
+        y = (128 + 80 * np.sin(2 * np.pi * (xx + 5 * t) / w) *
+             np.cos(2 * np.pi * yy / h) +
+             rng.randint(-10, 11, (h, w))).clip(0, 255).astype(np.uint8)
+        u = np.full((h // 2, w // 2), 100 + t, np.uint8)
+        v = rng.randint(100, 156, (h // 2, w // 2)).astype(np.uint8)
+        out += [y.tobytes(), u.tobytes(), v.tobytes()]
+    return b"".join(out)
+
+
+# The tile-row streams (chip_smoke.py phase 11 and the card's -k tiles
+# tests): synthetic_yuv420 through the JAX package's encode_stream, 8-bit
+# 4:2:0, qp 32, speed mode 2, checksum mode 1, low delay with one
+# reference (sub-GOP 1), the CTU rows cut into ``tile_rows`` tiles.
+# hd720_tiles4: 1280x720, 12 CTU rows in 4 tiles of 3, one intra and two
+# inter pictures (about 90 minutes of encoding on one CPU core).
+# tiles64x256: 64x256, 4 tiles, the flat path's small stream.
+# tiles64x128_lic: 64x128, 2 tiles, 16*t added to the luma of picture t
+# and the explicit setting fast_inter_local_illumination_comp 0 (speed
+# mode 2 sets it), so that the encoder turns local illumination
+# compensation on, which the flat path refuses: the replay path's small
+# stream.
+TILE_STREAMS = {
+    "hd720_tiles4": dict(width=1280, height=720, frames=3, tile_rows=4,
+                         seed=20261018, luma_step=0, settings=""),
+    "tiles64x256": dict(width=64, height=256, frames=3, tile_rows=4,
+                        seed=12, luma_step=0, settings=""),
+    "tiles64x128_lic": dict(
+        width=64, height=128, frames=3, tile_rows=2, seed=9, luma_step=16,
+        settings="fast_inter_local_illumination_comp 0"),
+}
+
+
+def tile_stream_yuv(name):
+    """The raw 4:2:0 bytes of the TILE_STREAMS entry ``name``."""
+    c = TILE_STREAMS[name]
+    w, h, f = c["width"], c["height"], c["frames"]
+    raw = bytearray(synthetic_yuv420(w, h, f, c["seed"]))
+    fs = w * h * 3 // 2
+    for t in range(f):
+        y = np.frombuffer(bytes(raw[t * fs:t * fs + w * h]), np.uint8)
+        raw[t * fs:t * fs + w * h] = np.clip(
+            y.astype(np.int32) + c["luma_step"] * t, 0, 255).astype(
+                np.uint8).tobytes()
+    return bytes(raw)
+
+
+def tile_stream_nals(name):
+    """The JAX package's NALs of the TILE_STREAMS entry ``name``."""
+    from xvc_tpu.codec.encoder import encode_stream
+    from xvc_tpu.codec.encoder_settings import EncoderSettings
+    c = TILE_STREAMS[name]
+    w, h, f = c["width"], c["height"], c["frames"]
+    s = EncoderSettings()
+    s.initialize_speed(2)
+    s.parse_explicit_settings(c["settings"])
+    s.tile_rows = c["tile_rows"]
+    return encode_stream(tile_stream_yuv(name), w, h, f,
+                         qp=32, settings=s, sub_gop_length=1,
+                         num_ref_pics=1, low_delay=True, checksum_mode=1)
+
+
+def make_tile_stream(name, bench_dir):
+    """Write ``<bench_dir>/<name>.xvc`` and its ``_dec.sha256`` (the JAX
+    package's host decode) for the TILE_STREAMS entry ``name``."""
+    from xvc_tpu.nal import write_nal_units
+    data = write_nal_units(tile_stream_nals(name))
+    with open(os.path.join(bench_dir, name + ".xvc"), "wb") as f:
+        f.write(data)
+    pics = jax_session_decode(data)
+    with open(os.path.join(bench_dir, name + "_dec.sha256"), "w") as f:
+        f.write("\n".join(hash_lines(pics)) + "\n")

@@ -7,6 +7,10 @@ reconstruction, and its decode the same pictures (y4m too), equal to the
 reconstruction.  ``-simd-mask 0`` routes the encoder app to the Python CU
 encoder (the same stream), and the decoder app, which has no decode
 without the native library, exits with a message that says so.
+``-explicit-encoder-settings "tile_rows 2"`` on a 32x128 picture (two
+CTU rows) gives the JAX app's stream and reconstruction,
+and the port's decoder app decodes it, conforming, to the
+reconstruction.
 """
 import io
 import os
@@ -125,3 +129,33 @@ def test_simd_mask_0(tmp_path, monkeypatch):
     code, err = run_port_app(xvcdec, ["-bitstream-file", bs, "-simd-mask",
                                       "0", "-device", "cpu"])
     assert code == 2 and "no pure-Python parse" in err
+
+
+def test_tile_rows_app_equals_the_jax_app(tmp_path, monkeypatch):
+    from .encode_clips import synthetic_yuv420
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    w, h, frames = 32, 128, 1
+    src = str(tmp_path / "in.yuv")
+    with open(src, "wb") as f:
+        f.write(synthetic_yuv420(w, h, frames, 3))
+    out = {}
+    for who in ("jax", "port"):
+        bs, rec = str(tmp_path / (who + ".xvc")), str(tmp_path / who)
+        args = ["-input-file", src, "-output-file", bs, "-rec-file", rec,
+                "-input-width", str(w), "-input-height", str(h), "-qp",
+                "32", "-num-ref-pics", "0", "-sub-gop-length", "1",
+                "-checksum-mode", "1",
+                "-explicit-encoder-settings", "tile_rows 2"]
+        if who == "jax":
+            run_jax_app("xvcenc.py", args)
+        else:
+            code, _ = run_port_app(xvcenc, args + ["-device", "cpu"])
+            assert code == 0
+        out[who] = [open(p, "rb").read() for p in (bs, rec)]
+    assert out["port"] == out["jax"]
+    dec = str(tmp_path / "dec.yuv")
+    code, err = run_port_app(xvcdec, ["-bitstream-file", str(
+        tmp_path / "port.xvc"), "-output-file", dec, "-device", "cpu"])
+    assert code == 0 and "is a conforming bitstream" in err
+    assert open(dec, "rb").read() == out["port"][1]
+    assert len(out["port"][1]) == frames * w * h * 3 // 2

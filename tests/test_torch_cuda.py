@@ -7,8 +7,8 @@ JAX (the machine with the card has none): each kernel is held against
 its plain PyTorch version on the same CUDA inputs, bit-exact, the
 device decode (both paths: the flat one and the replay one of
 gpu/recon.py) against every golden and the recorded host decodes
-(tests/data/bench/<stream>_dec.sha256 of the six bench streams,
-tests/data/c4*_ra64x48_dec.sha256), damaged
+(tests/data/bench/<stream>_dec.sha256 of the six bench streams and the
+small CTU-tile-row streams, tests/data/c4*_ra64x48_dec.sha256), damaged
 streams against the same session on the CPU device (no sticky CUDA
 error), the lookahead on the card against the same call on the CPU
 device, the resampler's kernel against its plain version, output
@@ -1031,6 +1031,46 @@ def test_bench_stream_decodes_on_card(cuda, name, count, inter):
     assert kernels.LAUNCHES["itx_picture"] == count
     assert kernels.LAUNCHES["mc_picture"] == inter
     assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
+
+
+@pytest.mark.parametrize("name,path", [("tiles64x256", "flat"),
+                                       ("tiles64x128_lic", "replay")])
+def test_tiles_stream_decodes_on_card(cuda, name, path, monkeypatch):
+    """The small CTU-tile-row streams of tests/encode_clips.py
+    TILE_STREAMS (64x256 in 4 tiles; 64x128 in 2 tiles with LIC on, whose
+    inter pictures the replay path takes) on the card, sequential and
+    with 2 picture threads: their hash lists (the JAX package's decodes),
+    every picture conforming, the picture kernels and the deblock kernels
+    launched (and the scans on the flat path), the group kernels not."""
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    with open(data_path("bench/%s_dec.sha256" % name)) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    paths = []
+    real = flat_recon.eligible
+
+    def eligible(pd, restr):
+        paths.append("flat" if real(pd, restr) else "replay")
+        return paths[-1] == "flat"
+
+    monkeypatch.setattr(picture_decoder.flat_recon, "eligible", eligible)
+    data = read_data("bench/%s.xvc" % name)
+    kernels.reset_launches()
+    pics = decode_stream(data, device=cuda)
+    launches = dict(kernels.LAUNCHES)
+    assert len(pics) == len(want) == 3
+    assert all(p.conforming for p in pics)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert launches["itx_picture"] == 3 and launches["mc_picture"] == 2
+    assert launches["itx"] == launches["mc"] == 0
+    for kernel in ("deblock_edges", "deblock_luma", "deblock_chroma",
+                   "intra_luma", "intra_chroma"):
+        assert launches[kernel] > 0, kernel
+    if path == "flat":
+        assert paths == ["flat"] * 3
+    else:
+        assert paths == ["flat", "replay", "replay"]
+    threaded = decode_stream(data, device=cuda, num_threads=2)
+    assert [p.bytes for p in threaded] == [p.bytes for p in pics]
 
 
 @pytest.mark.parametrize("name", ["sp_fast", "ld64x48", "cf_c444"])

@@ -7,9 +7,10 @@ through it: tests/test_torch_recon.py.)
 - ai64x48, ai64x48b10 and sp_fast (the goldens whose every picture takes
   the flat path) equal their reference decodes byte for byte, every
   picture conforming, with the picture count asserted;
-- pictures neither device path decodes (two or four CTU tile rows,
-  streams encoded here by the JAX package's encoder at 64x48) raise
-  NotImplementedError instead of falling back;
+- a 64x48 picture of a segment with two or four CTU tile rows (one CTU
+  row, so one tile with its size word; streams encoded here by the JAX
+  package's encoder) equals the JAX package's decode (the tile streams
+  at large: tests/test_torch_tiles.py);
 - a CUDA device without a card raises;
 - a decode in a fresh process never imports jax.
 """
@@ -79,8 +80,15 @@ def _tile_stream(tile_rows):
 
 @pytest.mark.parametrize("tile_rows", [2, 4])
 def test_ineligible_pictures_raise(tile_rows):
-    with pytest.raises(NotImplementedError, match="tile_rows"):
-        decode_stream(_tile_stream(tile_rows), device="cpu")
+    """Tile pictures were refused before CTU tile rows were ported; now
+    the port's decode equals the JAX package's, conforming."""
+    from .encode_clips import jax_session_decode
+    data = _tile_stream(tile_rows)
+    want = jax_session_decode(data)
+    got = decode_stream(data, device="cpu")
+    assert len(got) == len(want) == 1
+    assert [p.bytes for p in got] == [p.bytes for p in want]
+    assert all(p.conforming for p in got + want)
 
 
 def test_unsupported_options_raise():

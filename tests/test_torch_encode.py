@@ -269,7 +269,6 @@ def test_session_chroma_formats_equal_the_jax_package_s(case):
 # lift each refusal), and encodes the others byte for byte as the JAX
 # package does.
 REJECTED = {
-    "tile_rows": (dict(explicit_encoder_settings="tile_rows 2"), "item 4"),
     "multihost_gop": (dict(explicit_encoder_settings="multihost_gop 1"),
                       "item 7"),
 }
@@ -280,6 +279,11 @@ ENCODED = {
     "python_path_num_ref_pics_1": dict(
         num_ref_pics=1, low_delay=1, sub_gop_length=1, speed_mode=2,
         checksum_mode=1, explicit_encoder_settings="tpu_intra_lookahead 1"),
+    # 64x48 is one CTU row: one tile, still coded as a tile picture (its
+    # size word, the rfe flag) by the Python CU encoder
+    "tile_rows": dict(
+        num_ref_pics=0, sub_gop_length=1, speed_mode=2, checksum_mode=1,
+        explicit_encoder_settings="tile_rows 2"),
     # three pictures: the second sub-GOP's two are coded by two workers
     "threads": dict(threads=2, sub_gop_length=2, speed_mode=2,
                     checksum_mode=1, frames=3),

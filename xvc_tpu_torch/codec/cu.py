@@ -543,6 +543,15 @@ class PictureData:
         self.tmvp_valid = False
         self.tmvp_ref_list = 0
         self.tmvp_ref_idx = 0
+        # CTU-tile-row extension: while coding or reconstructing the CTUs
+        # of one tile, tile_ctx_top_y is the tile's top luma row and
+        # get_cu_at masks every lookup above it, cutting CABAC contexts,
+        # MPM, MVP, qp prediction and intra availability at the tile
+        # boundary.  Cleared (0) outside that pass, so that deblocking
+        # and the next pictures' TMVP see the whole picture.
+        self.tile_rows = 1
+        self.tile_row_starts = [0]
+        self.tile_ctx_top_y = 0
 
     def init(self, segment, tree=False, pic_qp=None,
              recalculate_lambda=False, encoder=False):
@@ -558,6 +567,8 @@ class PictureData:
         self.restrictions = r
         self.encoder = encoder
         self.pic_qp = pic_qp
+        self.tile_ctx_top_y = 0
+        self.set_tiles(segment.tile_rows)
         self.max_binary_split_depth = segment.max_binary_split_depth
         if (not r.disable_ext_two_cu_trees and self.is_intra_pic() and
                 self.max_num_components > 1):
@@ -673,9 +684,30 @@ class PictureData:
         return len(self.ctus[0])
 
     def get_cu_at(self, cu_tree, posx, posy):
+        if posy < self.tile_ctx_top_y:
+            return None  # above the current tile: unavailable
         idx = (posy // k.MIN_BLOCK_SIZE) * self.cu_stride + \
             (posx // k.MIN_BLOCK_SIZE)
         return self.cu_table[int(cu_tree)][idx]
+
+    def tile_top_y_of_row(self, ctu_row):
+        """Top luma row of the tile containing this CTU row."""
+        top = 0
+        for start in self.tile_row_starts:
+            if start > ctu_row:
+                break
+            top = start
+        return top * k.CTU_SIZE
+
+    def set_tiles(self, tile_rows):
+        """Install the CTU-tile-row split: tile r covers CTU rows
+        [starts[r], starts[r+1]).  Returns the per-tile (row0, row1)
+        list.  Clamped so every tile has at least one CTU row."""
+        r = min(max(1, tile_rows), self.ctu_num_y)
+        self.tile_rows = r
+        self.tile_row_starts = [t * self.ctu_num_y // r for t in range(r)]
+        bounds = self.tile_row_starts + [self.ctu_num_y]
+        return [(bounds[t], bounds[t + 1]) for t in range(r)]
 
     def create_cu(self, cu_tree, depth, posx, posy, width, height):
         """A CU with the reference's reset_prediction_state defaults, or

@@ -5,9 +5,10 @@ The production encode path is the native whole-picture RDO
 (``native/csrc/xvcn_enc.inc``, dispatched from ``picture_encoder.py``).
 This module is its byte-identical Python twin, which the picture encoder
 takes where the JAX package takes its own (``native/enc.usable_for``:
-the lookahead's mode reordering, the per-CU device SATD pre-pass, or the
-native encoder switched off): top-down recursive RDO over quad + binary
-splits with cloned writer state and reconstruct-state snapshots
+the lookahead's mode reordering, the per-CU device SATD pre-pass,
+device motion estimation, CTU tile rows, or the native encoder switched
+off): top-down recursive RDO over quad + binary splits with cloned
+writer state and reconstruct-state snapshots
 (ref: src/xvc_enc_lib/cu_encoder.cc behavioral contract).  Copy of
 ``xvc_tpu/codec/cu_encoder.py``, with the split DP's pruning
 (``gpu/wavefront_rdo.py``); its device hooks run on the encoder's torch

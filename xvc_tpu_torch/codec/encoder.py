@@ -6,17 +6,18 @@ on a torch device: ``Encoder(..., device=None)`` runs the encoder's
 device stages on the card unless ``device`` names another.  Each picture
 is coded by the native encoder or, where the JAX package takes its
 Python CU encoder (``native/enc.usable_for``: ``tpu_intra_lookahead``,
-``XVC_INTRA_PREPASS=jax``, ``XVC_ME=jax``, ``XVC_ENC_NATIVE=0``), by the
-port's copy of it, intra and inter pictures.  With ``num_threads > 0``
-the pictures of a sub-GOP burst are coded on worker threads
+``XVC_INTRA_PREPASS=jax``, ``XVC_ME=jax``, CTU tile rows,
+``XVC_ENC_NATIVE=0``), by the port's copy of it, intra and inter
+pictures.  With ``num_threads > 0`` the pictures of a sub-GOP burst are
+coded on worker threads
 (``parallel/pipeline.EncodePipeline``), each once its reference pictures
 are reconstructed, and harvested in DOC order on the session's thread:
 the same stream as the sequential encode.  The workers issue their
 device work on the card's current stream, which is the same default
 stream in every thread; a pool clamped to one worker takes the
 sequential path.  What is not ported raises ``NotImplementedError`` when
-the session is set up, never mid-stream: CTU tile rows (ROADMAP queue 1
-item 4) and the cross-host GOP pipeline (item 7).
+the session is set up, never mid-stream: the cross-host GOP pipeline
+(ROADMAP queue 1 item 7).
 """
 import numpy as np
 
@@ -133,10 +134,6 @@ class Encoder:
     def set_encoder_settings(self, settings):
         """(ref: encoder.cc:202-230)"""
         assert self.poc == 0
-        if settings.tile_rows >= 2:
-            raise NotImplementedError(
-                "tile_rows >= 2 (CTU tile rows) is not ported (ROADMAP "
-                "queue 1 item 4)")
         if settings.multihost_gop:
             raise NotImplementedError(
                 "multihost_gop (the cross-host GOP pipeline) is not ported "

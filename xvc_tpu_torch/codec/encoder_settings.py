@@ -2,11 +2,12 @@
 
 Behavioral equivalent of the reference settings
 (ref: src/xvc_enc_lib/encoder_settings.{h,cc}).  Copy of
-``xvc_tpu/codec/encoder_settings.py``.  The port's encoder runs the
-native CTU search only, so it rejects the settings that need the Python
-CU encoder (``tpu_intra_lookahead``, ``tile_rows >= 2``,
-``multihost_gop``; ``codec/encoder.py``); speed mode 3 (``SpeedMode.TPU``)
-runs the split DP and the transform-RD prepass on the card.
+``xvc_tpu/codec/encoder_settings.py``.  The settings that need the
+Python CU encoder (``tpu_intra_lookahead``, ``tile_rows >= 2``) route
+the session there (``native/enc.usable_for``); the port rejects
+``multihost_gop`` (``codec/encoder.py``); speed mode 3
+(``SpeedMode.TPU``) runs the split DP and the transform-RD prepass on
+the card.
 """
 from dataclasses import dataclass
 

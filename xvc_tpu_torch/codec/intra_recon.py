@@ -3,8 +3,9 @@ the replay path's host tail.
 
 Behavioral equivalent of the reference intra predictor's Predict /
 FillReferenceState (ref: src/xvc_common_lib/intra_prediction.cc).  Copy
-of ``xvc_tpu/codec/intra_recon.py``; tiles are not on the port's path,
-so the picture top is the only virtual top.
+of ``xvc_tpu/codec/intra_recon.py``: in a picture of CTU tile rows the
+top of the tile being coded or replayed (``PictureData.tile_ctx_top_y``,
+0 outside that pass) is a virtual picture top.
 """
 import numpy as np
 
@@ -46,7 +47,12 @@ class IntraReconstructor:
         width, height = cu.size(comp)
         plane = rec_pic.plane_view(comp)
         has_left = cx > 0
-        has_above = cy > 0
+        # the tile top is a virtual picture top for intra availability
+        # (tile extension; 0 outside tile coding)
+        tile_top = self.pic.tile_ctx_top_y
+        if comp != 0:
+            tile_top >>= self.pic.chroma_shift_y
+        has_above = cy > tile_top
         size_below_left = cu.get_cu_size_below_left(comp) if has_left else 0
         size_above_right = cu.get_cu_size_above_right(comp) if has_above \
             else 0
@@ -107,7 +113,7 @@ class IntraReconstructor:
             self._lm_cache_key = key
         luma_sub = self._lm_cache
         chroma_plane = rec_pic.plane_view(comp)
-        has_above = cu.pos_y > 0
+        has_above = cu.pos_y > self.pic.tile_ctx_top_y
         has_left = cu.pos_x > 0
         src_above = chroma_plane[cy - 1, cx:cx + width] if has_above else None
         src_left = chroma_plane[cy:cy + height, cx - 1] if has_left else None
@@ -125,7 +131,7 @@ class IntraReconstructor:
         luma_plane = rec_pic.plane_view(0)
         lx, ly = cu.pos_x, cu.pos_y
         width, height = cu.size(comp)
-        has_above = ly > 0
+        has_above = ly > self.pic.tile_ctx_top_y
         has_left = lx > 0
         out = np.zeros((height + 1, width + 1), dtype=np.int32)
         cf = self.pic.chroma_format

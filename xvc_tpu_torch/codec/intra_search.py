@@ -19,7 +19,10 @@ encoder's torch device:
   default intra toolset), and in the native library
   (``xvcn_intra_prepass_satd``, the JAX package's host route) for every
   other CU.  Both give the host metric's values, so the stream does not
-  depend on the route.
+  depend on the route.  In a picture of CTU tile rows the JAX package's
+  two routes read different reference rows (its device pre-pass takes no
+  tile cut); the device call here reads the rows of the route the JAX
+  package would take (``_device_prepass_satd``).
 """
 import threading
 
@@ -28,6 +31,7 @@ import torch
 
 from .. import constants as k
 from .. import native
+from ..engine import use_jax_intra_prepass
 from ..gpu import intra_satd
 from ..gpu.flat_recon import _intra_restrictions_default
 from ..ops import intra_pred as ip
@@ -233,7 +237,12 @@ class IntraSearch:
         restr = self.pic.restrictions
         plane = rec_pic.plane_view(comp)
         has_left = cx > 0
-        has_above = cy > 0
+        # Under XVC_INTRA_PREPASS=jax no tile cut, as in the JAX package's
+        # _jax_prepass_satd: the above row may cross a tile top, where sar
+        # (cut by get_cu_at) is 0.  Else the JAX package's host route's
+        # references (get_ref_samples), which are cut at the tile top.
+        tile_top = 0 if use_jax_intra_prepass() else self.pic.tile_ctx_top_y
+        has_above = cy > tile_top
         sbl = cu.get_cu_size_below_left(comp) if has_left else 0
         sar = cu.get_cu_size_above_right(comp) if has_above else 0
         top, left = ip.compute_ref_samples(

@@ -8,10 +8,14 @@ and output are copies of ``xvc_tpu/codec/picture_decoder.py``;
 two device paths: native parse -> ``FlatReconstructor`` when
 ``flat_recon.eligible`` allows it, else native parse with the CU-tree
 replay -> ``recon.Reconstructor`` (LIC, 4:2:2 / 4:4:4, restricted intra
-toolsets); then device deblock.  A picture with a bit depth above 14 or
-with two or more tile rows, which the JAX package decodes on its Python
-paths, raises ``NotImplementedError`` naming the reason; there is no
-host CU path to fall back to.  A segment header that cannot describe a
+toolsets); then device deblock.  A picture of a segment with two or more
+CTU tile rows takes the same two paths: the native parse reads its
+per-tile substreams with every lookup cut at the tile's top (the JAX
+package's ``_decode_tiles``), the reconstruction applies the same cut
+to intra availability, and deblocking stays one whole-picture pass.  A
+picture with a bit depth above 14, which the JAX package decodes on its
+Python path, raises ``NotImplementedError`` naming the reason; there is
+no host CU path to fall back to.  A segment header that cannot describe a
 picture (damaged: chroma format UNDEFINED, a zero dimension) is no such
 reason: its pictures decode as non-conforming, as in the reference.
 """
@@ -222,10 +226,6 @@ class PictureDecoder:
             # is corrupt (the reference's parse fails the same way)
             self.output_pic_bytes = b""
             return False
-        if segment.tile_rows >= 2:
-            raise NotImplementedError("tile_rows >= 2 (CTU-tile-row "
-                                      "extension) is not on the device "
-                                      "paths")
         if pd.bitdepth > 14:
             # int16 device surfaces hold samples up to 14 bit
             raise NotImplementedError("bitdepth %d > 14 is not on the "

@@ -3,7 +3,7 @@ search, deblocking, checksum, PSNR.
 
 Behavioral equivalent of the reference picture encoder
 (ref: src/xvc_enc_lib/picture_encoder.cc).  Copy of
-``xvc_tpu/codec/picture_encoder.py`` without tiles: the device stages
+``xvc_tpu/codec/picture_encoder.py``: the device stages
 (the transform-RD prepass, ``gpu/txrd_prepass.py``, and the split DP,
 ``gpu/lookahead.py`` + ``gpu/wavefront_rdo.py``) run on the encoder's
 torch device.  The picture is then coded by the native encoder
@@ -14,6 +14,9 @@ takes its Python CU encoder (``native/enc.usable_for``), by the port's
 pre-pass and, on inter pictures, the motion search's fullpel SAD sweeps
 (``XVC_ME=jax``, ``gpu/me.py``) on the device, and the picture's
 deblocking on the device (``gpu/deblock.py``, built from the CU tree).
+The Python CU encoder also codes the CTU-tile-row extension
+(``tile_rows >= 2``): each tile row with its own CABAC engine and
+contexts, prediction cut at its top, its size before the payloads.
 """
 import math
 import threading
@@ -212,14 +215,41 @@ class PictureEncoder:
                 add_span_time("encode.intra_lookahead.device",
                               st["device_s"])
         with span("encode.python"):
-            writer = SyntaxWriter(base_qp, pd.get_prediction_type(),
-                                  bit_writer, segment.restrictions)
-            for rsaddr in range(pd.get_number_of_ctus()):
-                cu_encoder.encode_ctu(rsaddr, writer)
-            writer.finish()
+            if segment.tile_rows >= 2:
+                self._encode_tiles(segment, base_qp, bit_writer, cu_encoder)
+            else:
+                writer = SyntaxWriter(base_qp, pd.get_prediction_type(),
+                                      bit_writer, segment.restrictions)
+                for rsaddr in range(pd.get_number_of_ctus()):
+                    cu_encoder.encode_ctu(rsaddr, writer)
+                writer.finish()
         if pd.deblock:
             with span("encode.deblock"):
                 self._deblock_on_device(segment)
+
+    def _encode_tiles(self, segment, base_qp, bit_writer, cu_encoder):
+        """CTU-tile-row extension: each tile row is coded with its own
+        CABAC engine and contexts and prediction cut at the tile top
+        (``pd.tile_ctx_top_y`` masks neighbour lookups); the substream
+        sizes prefix the payloads, so that a decoder can parse the tiles
+        independently.  The tile top is cleared before deblocking."""
+        pd = self.pic_data
+        payloads = []
+        for row0, row1 in pd.set_tiles(segment.tile_rows):
+            tw = BitWriter()
+            twriter = SyntaxWriter(base_qp, pd.get_prediction_type(), tw,
+                                   segment.restrictions)
+            pd.tile_ctx_top_y = row0 * k.CTU_SIZE
+            for row in range(row0, row1):
+                for cx in range(pd.ctu_num_x):
+                    cu_encoder.encode_ctu(row * pd.ctu_num_x + cx, twriter)
+            twriter.finish()
+            payloads.append(tw.get_bytes())
+        pd.tile_ctx_top_y = 0
+        for p in payloads:
+            bit_writer.write_bits(len(p), 32)
+        for p in payloads:
+            bit_writer.write_bytes(p)
 
     def _deblock_on_device(self, segment):
         """Deblock the reconstruction on the device: the visible planes

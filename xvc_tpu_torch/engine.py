@@ -3,8 +3,9 @@
 Counterpart of ``xvc_tpu/engine.py``: every entry point runs on the card
 unless the caller names another device, and a device that is not there
 is an error, never a silent move to the CPU.  Of that module's switches
-it keeps ``XVC_ME`` (``use_device_me``); the encoder's other routing
-switches are read where they route (``native/enc.usable_for``).
+it keeps ``XVC_ME`` (``use_device_me``) and ``XVC_INTRA_PREPASS``
+(``use_jax_intra_prepass``); the encoder's other routing switches are
+read where they route (``native/enc.usable_for``).
 """
 import os
 
@@ -36,3 +37,12 @@ def use_device_me():
     JAX package's switch of the same name (``xvc_tpu/engine.py``
     ``use_jax_me``), and the streams are the same bytes either way."""
     return os.environ.get("XVC_ME", "").lower() == "jax"
+
+
+def use_jax_intra_prepass():
+    """``XVC_INTRA_PREPASS=jax``, the JAX package's switch of its per-CU
+    device SATD pre-pass: it routes a session to the Python CU encoder
+    (``native/enc.usable_for``), and in a picture of CTU tile rows the
+    pre-pass then reads the above row across the tile top, as the JAX
+    package's device pre-pass does (``codec/intra_search.py``)."""
+    return os.environ.get("XVC_INTRA_PREPASS", "").lower() == "jax"

@@ -505,8 +505,13 @@ class FlatReconstructor:
         """Luma + chroma scan metadata straight from the records (the
         decode-order availability sbl/sar is exported by the native
         derive walk, xvcn_pic.inc parse_derive_cu); the luma half alone
-        without ``chroma``."""
+        without ``chroma``.  In a picture of CTU tile rows a leaf's above
+        neighbours are available only inside its tile: ``has_a`` is
+        ``y > tile_top`` (xvc_tpu/tpu/recon.py ``_device_intra_luma`` /
+        ``_device_intra_chroma``); the parse already cut ``sar``."""
         pd = self.pd
+        tops = np.array([pd.tile_top_y_of_row(r)
+                         for r in range(pd.ctu_num_y)], np.int32)
         lsel = leaves[(leaves[:, C_TREE] == 0) & (leaves[:, C_PRED] == 0)]
         lmeta = None
         if len(lsel):
@@ -514,7 +519,8 @@ class FlatReconstructor:
             np2 = dsp.pad_pow2(n)
             lmeta = np.zeros((np2, intra_scan.META_COLS), np.int32)
             has_l = (lsel[:, C_X] > 0).astype(np.int32)
-            has_a = (lsel[:, C_Y] > 0).astype(np.int32)
+            has_a = (lsel[:, C_Y] >
+                     tops[lsel[:, C_Y] // k.CTU_SIZE]).astype(np.int32)
             lmeta[:n] = np.stack([
                 lsel[:, C_X], lsel[:, C_Y], lsel[:, C_W], lsel[:, C_H],
                 lsel[:, C_IML], has_l, has_a, has_l & has_a,
@@ -552,7 +558,8 @@ class FlatReconstructor:
         ccx = csel[:, C_X] >> sx
         ccy = csel[:, C_Y] >> sy
         has_l = (ccx > 0).astype(np.int32)
-        has_a = (ccy > 0).astype(np.int32)
+        has_a = (ccy > (tops[csel[:, C_Y] // k.CTU_SIZE] >> sy)).astype(
+            np.int32)
         n = len(csel)
         base = np.stack([
             ccx, ccy, csel[:, C_W] >> sx, csel[:, C_H] >> sy,

@@ -144,14 +144,22 @@ class Reconstructor(flat_recon.FlatReconstructor):
         """Decode-order leaf walk with incremental availability marking
         (ref: cu_decoder.cc:86-100): per CTU the primary tree, then the
         secondary.  The replay set no marks, so the walk starts from a
-        clear table."""
+        clear table.  In a picture of CTU tile rows each CTU's lookups are
+        cut at its tile's top, as they were in its parse
+        (xvc_tpu/tpu/recon.py ``_for_each_leaf``)."""
         pic = self.pd
         trees = [k.CuTree.PRIMARY]
         if pic.has_secondary_cu_tree():
             trees.append(k.CuTree.SECONDARY)
+        tiled = pic.tile_rows > 1
         for rsaddr in range(pic.get_number_of_ctus()):
+            if tiled:
+                pic.tile_ctx_top_y = pic.tile_top_y_of_row(
+                    rsaddr // pic.ctu_num_x)
             for tree in trees:
                 self._visit(pic.get_ctu(tree, rsaddr), visitor)
+        if tiled:
+            pic.tile_ctx_top_y = 0
 
     def _visit(self, cu, visitor):
         if cu.split != k.SplitType.NONE:

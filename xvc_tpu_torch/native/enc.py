@@ -19,7 +19,7 @@ import os
 
 import numpy as np
 
-from ..engine import use_device_me
+from ..engine import use_device_me, use_jax_intra_prepass
 from . import lib
 from .pic import (XvcnRefPic as _XvcnRefPic, _fam_arrays, _restr_vec,
                   _tx_tables, mvfield_shape)
@@ -119,12 +119,14 @@ def usable_for(settings):
     (``tpu_intra_lookahead``), the per-CU device SATD pre-pass
     (``XVC_INTRA_PREPASS=jax``, the JAX package's switch under its own
     name), device motion estimation (``XVC_ME=jax``,
-    ``engine.use_device_me``) and ``XVC_ENC_NATIVE=0``.  CTU tile rows,
-    which the JAX package also routes there, are refused by the encoder
-    (``codec/encoder.py``)."""
+    ``engine.use_device_me``), CTU tile rows (``tile_rows >= 2``: the
+    native encoder writes one substream a picture) and
+    ``XVC_ENC_NATIVE=0``."""
     if os.environ.get("XVC_ENC_NATIVE", "1") == "0":
         return False
-    if os.environ.get("XVC_INTRA_PREPASS", "").lower() == "jax":
+    if settings.tile_rows >= 2:
+        return False
+    if use_jax_intra_prepass():
         return False
     if use_device_me():
         return False

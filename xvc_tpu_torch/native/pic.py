@@ -90,6 +90,8 @@ class XvcnPicParams(c.Structure):
         ("coeff_ns", c.c_int64),
         ("status", c.c_int32),
         ("profile", c.c_int32),
+        ("tile_rows", c.c_int32),
+        ("num_ctx", c.c_int32),
     ]
 
 
@@ -233,6 +235,11 @@ def parse_picture(pic_decoder, segment, bit_reader, qp, replay=False):
     (gpu/flat_recon.py).  With ``replay`` it also rebuilds the CU tree
     of ``pd`` (initialised with ``tree=True``) from the records, in the
     span ``decode.parse.replay``, for the replay path (gpu/recon.py).
+    A segment with two or more tile rows is parsed as the JAX package's
+    ``_decode_tiles`` parses it: one 32-bit size a tile (the split of
+    ``PictureData.set_tiles``), then each tile's substream with fresh
+    contexts and every lookup above the tile's top unavailable; the
+    reader ends after the last payload.
 
     Returns conformance success; raises ValueError on parse errors."""
     pd = pic_decoder.pic_data
@@ -287,6 +294,8 @@ def parse_picture(pic_decoder, segment, bit_reader, qp, replay=False):
     p.tc_offset = pd.tc_offset
     p.poc = pd.poc
     p.profile = 0
+    p.tile_rows = segment.tile_rows if segment.tile_rows >= 2 else 0
+    p.num_ctx = ctx.state.size
     keep_alive = [buf_arr, mvfield, ctx.state, fam41, fam18, tx_blob,
                   tx_offsets, restr_vec]
     rpl = pd.ref_pic_lists
