@@ -202,7 +202,7 @@ Phases:
      tests/data/bench/python_cu_inter.json (sums over the workers),
      me_sad launches equal to the device sweeps, decoded on the card.
      Then the apps as a user runs them: python -m xvc_tpu_torch.cli.xvcenc
-     -threads 4 on the first 5 pictures of ra720_s3 written as y4m, and
+     -threads 4 on the first 2 pictures of ra720_s3 written as y4m, and
      xvcdec -threads 4, whose output must equal the app encoder's
      reconstruction;
  11  CTU tile rows (the tile extension: a size-prefixed CABAC substream a
@@ -223,11 +223,32 @@ Phases:
      package's (tests/data/bench/python_cu_tiles.json), its prefetch
      counts too, me_sad's launches equal to the device sweeps, intra_satd
      launched, decoded on the card, conforming, to the reconstruction;
-     ms per picture.  Then the seconds of each phase.
+     ms per picture;
+ 12  bit depth 15 and the Python parse: tests/data/bench/hd720_b15.xvc
+     (1280x720, 15-bit 4:2:0, low delay, 4 pictures, made by the JAX
+     package's encoder, recipe tests/encode_clips.py B15_STREAMS) through
+     DecoderSession on the card, every picture through the Python parse
+     (codec/cu_decoder.py over syntax/reader.py, the record table from
+     gpu/tree_records.py) and the replay path, none through the native
+     parse, conforming and equal to its hash list (the JAX package's
+     encoder's reconstructions), the picture kernels, both scans and the
+     deblock kernels launched and the group kernels not; ms per picture,
+     the stage profile (decode.parse, recon.*, deblock.*) and the idle
+     share; the first 2 pictures of hd720_ld with XVC_PIC_NATIVE=0 in
+     turns with the native parse, each equal to its hash list; then at 15
+     bit itx_picture and mc_picture on the records of every picture of
+     hd720_b15 and on synthetic 15-bit tables (DC-only blocks, 32x32
+     transform skip, full int16 levels), the scans on synthetic 15-bit
+     cases and picture 0's inputs, the deblock kernels on synthetic
+     15-bit cases and on the edges and planes of pictures 0 and 1, each
+     bit-exact against its plain version and timed on the real inputs
+     beside it and its bound, with its launches a hd720_b15 decode.  Then
+     the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
-per-kernel results and the nvidia-smi line; the last line is
+per-kernel results, one of the same kernels at 15 bit (phase 12) and the
+nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
 """
@@ -390,7 +411,7 @@ RA720_S3 = dict(width=1280, height=720, frames=9, qp=32, sub_gop_length=8,
                 seed=20261018)
 THREADS = 4
 THREADED_INTER_CLIP = "ra64x48_me"
-APP_PICTURES = 5
+APP_PICTURES = 2
 # phase 11: the tile-row streams of tests/encode_clips.py TILE_STREAMS
 # (made by the JAX package's encoder; tests/test_torch_tiles_encode.py
 # holds these names and picture counts equal to its table), with their
@@ -420,6 +441,17 @@ PYTHON_CU_TILES_KERNELS = ("me_sad", "intra_satd", "deblock_edges",
 # phase 2: me_sad's cases, (w, h) of every CU shape with SAD and SAD_FAST,
 # the bit depth and the candidate count cycling over these (me_sad is
 # timed on the device sweeps of phase 9's qcif_me encode)
+# phase 12: the 15-bit stream (tests/data/bench/hd720_b15.xvc, the JAX
+# package's encoder, recipe tests/encode_clips.py B15_STREAMS), the
+# kernels of its path, and hd720_ld's first pictures through the Python
+# parse in turns with the native parse
+B15_STREAM = "hd720_b15"
+B15_PICTURES = 4
+B15_KERNELS = ("itx_picture", "mc_picture", "deblock_edges",
+               "deblock_luma", "deblock_chroma", "intra_luma",
+               "intra_chroma")
+B15_TURNS = 1
+PYTHON_PARSE_PICTURES = 2
 ME_SIZES = (4, 8, 16, 32, 64)
 ME_BITDEPTHS = (8, 10, 12, 16)
 ME_COUNTS = (1, 44, 86, 754)
@@ -1053,34 +1085,37 @@ def time_scans(torch, scans):
 # Phases
 # ---------------------------------------------------------------------------
 
-def capture_inputs(data):
+def capture_inputs(data, scan_pictures=SCAN_PICTURES):
     """Decode ``data`` on the card and keep copies of what the luma and
-    chroma scans of SCAN_PICTURES were given (before they wrote), of
+    chroma scans of ``scan_pictures`` were given (before they wrote), of
     what every ``edge_params`` call of the first two pictures was given,
     and of those pictures' planes before deblocking; and the bytes of
     picture 0 as decoded."""
     from xvc_tpu_torch.codec import picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
-    from xvc_tpu_torch.gpu import deblock, flat_recon
+    from xvc_tpu_torch.gpu import deblock, flat_recon, recon
     from xvc_tpu_torch.gpu import intra_scan as scan
     got = {"pictures": [], "scans": {}}
-    flat = []  # one entry per picture the flat path reconstructs
+    flat = []  # one entry per picture either path reconstructs
     orig_l, orig_c = scan.intra_scan, scan.intra_chroma_scan
     orig_e, orig_d = deblock.edge_params, picture_decoder.deblock_picture
-    orig_r = flat_recon.FlatReconstructor.run
+    classes = (flat_recon.FlatReconstructor, recon.Reconstructor)
+    runs = [cls.run for cls in classes]
 
-    def rec_r(self):
-        flat.append(None)
-        return orig_r(self)
+    def counted(run):
+        def rec_r(self):
+            flat.append(None)
+            return run(self)
+        return rec_r
 
     def rec_l(plane, resi, meta, bd):
-        if len(flat) - 1 in SCAN_PICTURES:
+        if len(flat) - 1 in scan_pictures:
             got["scans"].setdefault(len(flat) - 1, {})["luma"] = (
                 plane.clone(), resi.clone(), meta.clone(), bd)
         return orig_l(plane, resi, meta, bd)
 
     def rec_c(planes, resi, luma, meta, bd):
-        if len(flat) - 1 in SCAN_PICTURES:
+        if len(flat) - 1 in scan_pictures:
             got["scans"].setdefault(len(flat) - 1, {})["chroma"] = (
                 planes.clone(), resi.clone(), luma.clone(), meta.clone(), bd)
         return orig_c(planes, resi, luma, meta, bd)
@@ -1103,17 +1138,19 @@ def capture_inputs(data):
 
     scan.intra_scan, scan.intra_chroma_scan = rec_l, rec_c
     deblock.edge_params, picture_decoder.deblock_picture = rec_e, rec_d
-    flat_recon.FlatReconstructor.run = rec_r
+    for cls, run in zip(classes, runs):
+        cls.run = counted(run)
     try:
         got["picture0"] = decode_stream(data)[0].bytes
     finally:
         scan.intra_scan, scan.intra_chroma_scan = orig_l, orig_c
         deblock.edge_params, picture_decoder.deblock_picture = orig_e, orig_d
-        flat_recon.FlatReconstructor.run = orig_r
+        for cls, run in zip(classes, runs):
+            cls.run = run
     got["pictures"] = got["pictures"][:2]
-    if sorted(got["scans"]) != list(SCAN_PICTURES):
+    if sorted(got["scans"]) != list(scan_pictures):
         raise AssertionError("no scan inputs of pictures %r" % (
-            sorted(set(SCAN_PICTURES) - set(got["scans"])),))
+            sorted(set(scan_pictures) - set(got["scans"])),))
     return got
 
 
@@ -1534,7 +1571,7 @@ def phase_picture_kernels(torch, dev, res):
                  dict(seed=8, dual=True, bitdepth=10),
                  dict(seed=8, no_dst=True, hp_tx=False),
                  dict(seed=8, bitdepth=10, hp_mv=False, chroma_subpel=False,
-                      nrefs=(3, 1))] + [dict(seed=s) for s in range(20, 30)]
+                      nrefs=(3, 1))] + [dict(seed=s) for s in range(20, 24)]
     for kw in synthetic:
         (e_itx, e_mc), _ = both(flat_cases.synthetic_picture(**kw))
         err["itx_picture"] = max(err["itx_picture"], e_itx)
@@ -4841,6 +4878,294 @@ def phase_tiles(torch, dev):
     return out
 
 
+def b15_kernel_rows(torch, dev, data, launches):
+    """The kernels of the 15-bit decode path against their plain versions
+    at 15 bit: the picture kernels on every picture of ``data`` (parsed on
+    the CPU by the Python parse) and on synthetic 15-bit tables
+    (flat_cases.b15_picture: DC-only blocks, 32x32 transform skip;
+    synthetic_picture at 15 bit: the full int16 levels, whose dequant
+    product takes 64 bits); the deblock kernels and the scans on what the
+    decode of ``data`` on the card gave them (the scans of picture 0, the
+    edges and planes of pictures 0 and 1) and on synthetic 15-bit cases.
+    Each timed on the real inputs beside its plain version and its bound.
+    Returns {kernel: row}."""
+    import numpy as np
+    from xvc_tpu_torch.gpu import deblock, flat_cases, itx, mc
+    from xvc_tpu_torch.gpu import deblock_cases as dcases
+    from xvc_tpu_torch.gpu import intra_scan as scan
+    from xvc_tpu_torch.gpu import scan_cases as scases
+    T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # a copy
+    err = dict.fromkeys(B15_KERNELS, 0)
+
+    def same(kernel, got, want, what):
+        torch.cuda.synchronize()
+        e = max_err(torch, got, want)
+        err[kernel] = max(err[kernel], e)
+        if e:
+            raise AssertionError("%s at 15 bit differs from its plain "
+                                 "version by %d: %s" % (kernel, e, what))
+
+    real = flat_cases.parse_pictures(data, set(range(B15_PICTURES)))
+    tables = list(real.values()) + \
+        [flat_cases.b15_picture(s) for s in (3, 4, 5, 6)] + \
+        [flat_cases.synthetic_picture(s, bitdepth=15) for s in (3, 4)]
+    for n, pic in enumerate(tables):
+        a, a2 = flat_cases.itx_args(pic, dev), flat_cases.itx_args(pic, dev)
+        itx.itx_picture(*a)
+        itx.itx_picture_plain(*a2)
+        for g, w in zip(a[:2], a2[:2]):
+            same("itx_picture", g, w, "table %d" % n)
+        if pic["inter"]:
+            b, b2 = (flat_cases.mc_args(pic, dev, 11) for _ in (0, 1))
+            mc.mc_picture(*b)
+            mc.mc_picture_plain(*b2)
+            for g, w in zip(b[:4], b2[:4]):
+                if g is not None:
+                    same("mc_picture", g, w, "table %d" % n)
+    per = {"itx_picture": [], "mc_picture": []}
+    for n, pic in sorted(real.items()):
+        a = flat_cases.itx_args(pic, dev)
+        ib = itx_picture_bound(pic)
+        per["itx_picture"].append(dict(
+            bytes=ib["nbytes"], operations=ib["ops"],
+            ms=cuda_ms(torch, lambda: itx.itx_picture(*a)),
+            plain_ms=cuda_ms(torch, lambda: itx.itx_picture_plain(*a), 2)))
+        if pic["inter"]:
+            b = flat_cases.mc_args(pic, dev, 11)
+            mb = mc_picture_bound(pic)
+            per["mc_picture"].append(dict(
+                bytes=mb["nbytes"], operations=mb["ops"],
+                ms=cuda_ms(torch, lambda: mc.mc_picture(*b)),
+                plain_ms=cuda_ms(torch, lambda: mc.mc_picture_plain(*b), 2)))
+    rows = {}
+    for kernel, rs in per.items():
+        mean = lambda key: sum(r[key] for r in rs) / len(rs)  # noqa: E731
+        rows[kernel] = dict(bound(mean("bytes"), mean("operations")),
+                            ms=mean("ms"), plain_ms=mean("plain_ms"),
+                            shape="%s, the mean over its %d %spictures" % (
+                                B15_STREAM, len(rs), "inter "
+                                if kernel == "mc_picture" else ""))
+
+    got = capture_inputs(data, scan_pictures=(0,))
+    # the scans: synthetic 15-bit cases, then picture 0
+    for kind in ("luma", "chroma"):
+        name = "intra_" + kind
+        cs = [scases.corner_case(kind, 15), scases.tiled_case(kind, 15)]
+        for c in cs:
+            luma = None if c["luma"] is None else T(c["luma"])
+            args = (T(c["resi"]), T(c["meta"]), 15) if kind == "luma" else \
+                (T(c["resi"]), luma, T(c["meta"]), 15)
+            plane = T(c["plane"])
+            fn, plain = (scan.intra_scan, scan.intra_scan_plain) \
+                if kind == "luma" else (scan.intra_chroma_scan,
+                                        scan.intra_chroma_scan_plain)
+            same(name, fn(plane.clone(), *args), plain(plane.clone(), *args),
+                 "synthetic %s" % kind)
+        calls = got["scans"][0][kind]
+        plane, args = calls[0], calls[1:]
+        fn(plane.clone(), *args)
+        _, _, steps, _ = scan_schedule(torch, scan, kind,
+                                       args[-2].cpu().numpy(),
+                                       tuple(plane.shape))
+        same(name, fn(plane.clone(), *args), plain(plane.clone(), *args),
+             "%s picture 0" % B15_STREAM)
+        rows[name] = dict(
+            scan_bound(kind, args[-2].cpu().numpy(), steps),
+            ms=cuda_ms(torch, lambda q: fn(q, *args), 3, fresh=plane.clone),
+            plain_ms=cuda_ms(torch, lambda q: plain(q, *args), 1,
+                             fresh=plane.clone),
+            shape="%s picture 0: %d rows" % (B15_STREAM, len(args[-2])))
+    scan._DEV.clear()
+
+    # the deblock kernels: edges of pictures 0 and 1, the passes on
+    # synthetic 15-bit cases and on picture 0's planes
+    derived = []
+    for n, pic in enumerate(got["pictures"]):
+        if pic is None or pic["bitdepth"] != 15:
+            raise AssertionError("no 15-bit deblock inputs of picture %d"
+                                 % n)
+        for args in pic["edges"]:
+            g = deblock.edge_params(*args)
+            for x, y in zip(g, deblock.edge_params_plain(*args)):
+                same("deblock_edges", x, y, "picture %d" % n)
+            if n == 0:
+                derived.append((args[2], g[1]))
+    for kind in dcases.LUMA_KINDS:
+        for direction in (0, 1):
+            case = dcases.luma_case(kind, 15, direction, SEED, (200, 328))
+            outs = []
+            for fn in (deblock.luma_pass, deblock.luma_pass_plain):
+                pl, *a = [T(x) for x in case]
+                fn(pl, *a, 15, (False,) * 5, direction)
+                outs.append(pl)
+            same("deblock_luma", outs[0], outs[1], (kind, direction))
+    for direction in (0, 1):
+        case = dcases.chroma_case(15, direction, SEED, (360, 640))
+        outs = []
+        for fn in (deblock.chroma_pass, deblock.chroma_pass_plain):
+            pl, *a = [T(x) for x in case]
+            fn(pl, *a, 15, direction)
+            outs.append(pl)
+        same("deblock_chroma", outs[0], outs[1], direction)
+    pic0 = got["pictures"][0]
+    attrs0, n0, lay0 = pic0["edges"][0][:3]
+    rest0 = pic0["edges"][0][3:]
+    map0, params0 = deblock.edge_params(attrs0, n0, lay0, *rest0)
+    rows["deblock_edges"] = dict(
+        edges_bound(*(t.cpu().numpy() for t in (attrs0, map0, params0))),
+        ms=cuda_ms(torch, lambda: deblock.edge_params(attrs0, n0, lay0,
+                                                      *rest0)),
+        plain_ms=cuda_ms(torch, lambda: deblock.edge_params_plain(
+            attrs0, n0, lay0, *rest0), 2),
+        shape="%s picture 0, primary tree: %d CUs" % (B15_STREAM, n0))
+    lay_l, par_l = derived[0]
+    flags = pic0["flags"]
+    src = pic0["planes"][0]
+    xs, mask, tc, beta = deblock.luma_tensors(par_l, lay_l, 0)
+    g = src.clone()
+    deblock.luma_filter(g, par_l, lay_l, 0, 15, flags)
+    w = src.clone()
+    deblock.luma_pass_plain(w, xs, mask, tc, beta, 15, flags, 0)
+    same("deblock_luma", g, w, "picture 0")
+    rows["deblock_luma"] = dict(
+        luma_deblock_bound(src.cpu().numpy(), mask.cpu().numpy(),
+                           lay_l.nx[0] * lay_l.ny[0] * 4),
+        ms=cuda_ms(torch, lambda q: deblock.luma_filter(
+            q, par_l, lay_l, 0, 15, flags), fresh=src.clone),
+        plain_ms=cuda_ms(torch, lambda q: deblock.luma_pass_plain(
+            q, xs, mask, tc, beta, 15, flags, 0), 1, fresh=src.clone),
+        shape="%s picture 0, across columns" % B15_STREAM)
+    lay_c, par_c = derived[-1]
+    uv = [pic0["planes"][1], pic0["planes"][2]]
+    edges, apply, ctc = deblock.chroma_tensors(par_c, lay_c, 0)
+    g = [q.clone() for q in uv]
+    deblock.chroma_filter(g, par_c, lay_c, 0, 15)
+    for c in (0, 1):
+        w = uv[c].clone()
+        deblock.chroma_pass_plain(w, edges, apply, ctc, 15, 0)
+        same("deblock_chroma", g[c], w, "picture 0 plane %d" % (c + 1))
+    rows["deblock_chroma"] = dict(
+        chroma_deblock_bound([q.cpu().numpy() for q in uv],
+                             apply.cpu().numpy(),
+                             lay_c.nce[0] * lay_c.ny[0] * 4),
+        ms=cuda_ms(torch, lambda qs: deblock.chroma_filter(
+            qs, par_c, lay_c, 0, 15), fresh=lambda: [q.clone() for q in uv]),
+        plain_ms=cuda_ms(torch, lambda qs: [deblock.chroma_pass_plain(
+            q, edges, apply, ctc, 15, 0) for q in qs], 1,
+            fresh=lambda: [q.clone() for q in uv]),
+        shape="%s picture 0, U and V across columns" % B15_STREAM)
+    for kernel, row in rows.items():
+        row.update(max_abs_err=err[kernel], launches=launches[kernel])
+    return rows
+
+
+def phase_b15(torch, dev):
+    """Bit depth 15 and the Python parse on the card: hd720_b15 through
+    DecoderSession, every picture through the Python parse and the replay
+    path, conforming and equal to its hash list, the kernels of the path
+    launched and the group kernels not, its stage profile and idle share;
+    the first PYTHON_PARSE_PICTURES pictures of hd720_ld with the native
+    parse switched off (XVC_PIC_NATIVE=0) in turns with the native route,
+    both equal to its hash list; then the kernels at 15 bit
+    (``b15_kernel_rows``)."""
+    from xvc_tpu_torch import profiling
+    from xvc_tpu_torch.codec import picture_decoder
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.native import pic as native_pic
+    out = {}
+    with open(os.path.join(DATA, "bench", B15_STREAM + ".xvc"), "rb") as f:
+        data = f.read()
+    routes = {"python": 0, "native": 0}
+    real_python = picture_decoder.PictureDecoder._python_parse
+    real_native = native_pic.parse_picture
+
+    def python(self, *args):
+        routes["python"] += 1
+        return real_python(self, *args)
+
+    def native(*args, **kw):
+        routes["native"] += 1
+        return real_native(*args, **kw)
+
+    picture_decoder.PictureDecoder._python_parse = python
+    native_pic.parse_picture = native
+    try:
+        decode_stream(data)  # the warm-up
+        pics, dt, launches = timed_session(torch, B15_STREAM, data, {})
+    finally:
+        picture_decoder.PictureDecoder._python_parse = real_python
+        native_pic.parse_picture = real_native
+    n = len(pics)
+    if routes != {"python": 2 * n, "native": 0} or n != B15_PICTURES or \
+            launches["itx_picture"] != n or \
+            any(launches[k] <= 0 for k in B15_KERNELS) or \
+            any(launches[k] for k in OFF_DECODE_KERNELS):
+        raise AssertionError("%s: %d pictures, parses %r, launches %r" % (
+            B15_STREAM, n, routes, launches))
+    report, profiled_s, _ = profiling.profile_decode(data, warmup=0)
+    traced_s, busy_s, ops = device_busy(torch, lambda: decode_stream(data))
+    spans = {k: v for k, v in report.items()
+             if k.startswith(("decode.", "recon.", "deblock."))}
+    out[B15_STREAM] = dict(
+        pictures=n, seconds=dt, ms_per_picture=dt * 1e3 / n,
+        launches={k: v for k, v in launches.items() if v}, spans=spans,
+        profiled_seconds=profiled_s, traced_decode_seconds=traced_s,
+        device_busy_seconds=busy_s, device_operations=ops,
+        device_idle_share=None if busy_s is None else 1.0 - busy_s / traced_s)
+    log("phase 12: %s (1280x720, 15 bit, %d pictures) through the Python "
+        "parse and the replay path, conforming and equal to its hash list: "
+        "%.2f ms/picture; launches %s; idle share %s (traced %.3f s, busy "
+        "%s s, %s operations); spans (s, calls): %s" % (
+            B15_STREAM, n, out[B15_STREAM]["ms_per_picture"],
+            out[B15_STREAM]["launches"],
+            out[B15_STREAM]["device_idle_share"], traced_s, busy_s, ops,
+            {k: (round(v["seconds"], 4), v["calls"])
+             for k, v in spans.items()}))
+
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        ld = f.read()
+    hashes, _ = read_hashes(os.path.join(DATA, "bench",
+                                         "hd720_ld_dec.sha256"))
+    count = PYTHON_PARSE_PICTURES
+    turns = {"native": [], "python": []}
+    saved = os.environ.get("XVC_PIC_NATIVE")
+    try:
+        for _ in range(B15_TURNS):
+            for route in ("native", "python"):
+                os.environ["XVC_PIC_NATIVE"] = "0" if route == "python" \
+                    else "1"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = decode_stream(ld, max_pics=count)
+                torch.cuda.synchronize()
+                turns[route].append((time.perf_counter() - t0) * 1e3 / count)
+                if [hashlib.sha256(p.bytes).hexdigest() for p in got] != \
+                        hashes[:count] or not all(p.conforming for p in got):
+                    raise AssertionError("hd720_ld through the %s parse "
+                                         "differs from its hash list" % route)
+    finally:
+        if saved is None:
+            os.environ.pop("XVC_PIC_NATIVE", None)
+        else:
+            os.environ["XVC_PIC_NATIVE"] = saved
+    out["hd720_ld_python_parse"] = dict(pictures=count,
+                                        ms_per_picture_in_turns=turns)
+    log("phase 12: hd720_ld pictures 0-%d with XVC_PIC_NATIVE=0 equal to the "
+        "native route and its hash list; ms/picture in turns: Python parse "
+        "%s, native parse %s" % (count - 1, turns["python"],
+                                 turns["native"]))
+
+    rows = b15_kernel_rows(torch, dev, data, launches)
+    out["kernels"] = rows
+    for kernel, r in rows.items():
+        log("phase 12: %s at 15 bit bit-exact against its plain version; "
+            "%s: kernel %.4f ms, plain %.4f ms, bound %.6f ms (%s); %d "
+            "launches a %s decode" % (
+                kernel, r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+                r["bound_by"], r["launches"], B15_STREAM))
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--parent"):
@@ -4903,6 +5228,7 @@ def main():
     phase("9 me_sad", phase_me_sad_timing, torch, dev, res, sweeps, parent)
     threads = phase("10", phase_threads, torch, dev)
     tiles = phase("11", phase_tiles, torch, dev)
+    b15 = phase("12", phase_b15, torch, dev)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -4924,6 +5250,7 @@ def main():
                     "python_cu": python_cu,
                     "python_cu_inter": python_cu_inter,
                     "threads": threads, "tiles": tiles,
+                    "b15": {k: v for k, v in b15.items() if k != "kernels"},
                     "me_sad": {k: res["me_sad"][k] for k in (
                         "cases", "sweeps", "device_ms", "device_staging_ms",
                         "library_ms", "per_prefetch_call", "hd720")},
@@ -4961,7 +5288,13 @@ def main():
                         res["deblock_luma"]["every_position_on_ms"]}))
     stages[SPLICE] = resampling[SPLICE]["spans"]
     stages[TILES_STREAM] = tiles[TILES_STREAM]["spans"]
+    stages[B15_STREAM] = b15[B15_STREAM]["spans"]
     log(json.dumps({"stage_profile": stages}))
+    log(json.dumps({"kernels_at_15_bit": [
+        dict(name=n, launches=r["launches"], max_abs_err=r["max_abs_err"],
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], shape=r["shape"])
+        for n, r in b15["kernels"].items()]}))
     launches = {n: dec["hd720_ld"]["launches"][n]
                 for n in DECODE_KERNELS + OFF_DECODE_KERNELS}
     launches.update({n: look["launches"][n] for n in LOOKAHEAD_KERNELS})

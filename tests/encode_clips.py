@@ -644,3 +644,194 @@ def make_tile_stream(name, bench_dir):
     pics = jax_session_decode(data)
     with open(os.path.join(bench_dir, name + "_dec.sha256"), "w") as f:
         f.write("\n".join(hash_lines(pics)) + "\n")
+
+
+# The 15-bit streams (tests/test_torch_highbit.py, tests/test_torch_cuda.py
+# -k b15 and chip_smoke.py phase 12): 4:2:0 clips lifted to 15 bit,
+# through the JAX package's encode_stream (its native encoder), qp 20
+# (ra64x48b15, tiles64x128b15) or 32, checksum mode 1.
+# ra64x48b15: the first five pictures of tests/data/ra64x48_in.yuv as
+# sample << 7 plus seeded noise in the low 7 bits, with two flat 16x16
+# squares holding a brighter 8x8 core (their residuals are DC-only
+# blocks) and a one-sample checkerboard at (40, 0) (transform skip);
+# random access, sub-GOP 4, two references.  The generator asserts that
+# its parsed tree holds bi-prediction, full-pel and sub-pel motion
+# vectors, DC-only blocks of the DCT-2 family, transform skip and LM.
+# tiles64x128b15: synthetic_yuv420 lifted the same way, low delay with
+# one reference, 2 CTU tile rows, speed mode 2.  bench/hd720_b15: the
+# same at 1280x720, low delay, 4 pictures, speed mode 2 (about 140 s of
+# the native encoder on one CPU core).
+B15_STREAMS = {
+    "ra64x48b15": dict(
+        source="ra64x48_in.yuv", width=64, height=48, frames=5, seed=6,
+        qp=20, params=dict(num_ref_pics=2, sub_gop_length=4),
+        squares=[(0, 16), (32, 48)], checker=(40, 0), tile_rows=1,
+        speed_mode=1),
+    "tiles64x128b15": dict(
+        source="synthetic", width=64, height=128, frames=3, seed=11,
+        qp=20, params=dict(num_ref_pics=1, sub_gop_length=1,
+                           low_delay=True),
+        squares=[], checker=None, tile_rows=2, speed_mode=2),
+    "bench/hd720_b15": dict(
+        source="synthetic", width=1280, height=720, frames=4, seed=15,
+        qp=32, params=dict(num_ref_pics=1, sub_gop_length=1,
+                           low_delay=True),
+        squares=[], checker=None, tile_rows=1, speed_mode=2),
+}
+B15_FEATURES = ("bi", "fullpel", "subpel", "dc_dct2", "tskip", "lm")
+
+
+def b15_yuv(name, data_dir):
+    """The raw 15-bit 4:2:0 input of the B15_STREAMS entry ``name``
+    (little-endian 16-bit samples)."""
+    c = B15_STREAMS[name]
+    w, h, f = c["width"], c["height"], c["frames"]
+    fs = w * h * 3 // 2
+    if c["source"] == "synthetic":
+        raw = synthetic_yuv420(w, h, f, c["seed"])
+    else:
+        with open(os.path.join(data_dir, c["source"]), "rb") as fh:
+            raw = fh.read()[:fs * f]
+    a = np.frombuffer(raw, np.uint8).astype(np.int64)
+    rng = np.random.RandomState(c["seed"])
+    a = (a << 7) | rng.randint(0, 128, a.shape)
+    checker = 30000 * ((np.arange(8)[:, None] + np.arange(8)[None, :]) % 2)
+    for t in range(f):
+        y = a[t * fs:t * fs + w * h].reshape(h, w)
+        for by, bx in c["squares"]:
+            y[by:by + 16, bx:bx + 16] = 12000
+            y[by + 4:by + 12, bx + 4:bx + 12] = 20000
+        if c["checker"] is not None:
+            cy, cx = c["checker"]
+            y[cy:cy + 8, cx:cx + 8] = checker
+    return np.clip(a, 0, 32767).astype("<u2").tobytes()
+
+
+def b15_encode(name, data_dir):
+    """(NALs, reconstructions in output order) of the JAX package's
+    encoder for the B15_STREAMS entry ``name`` (``encode_stream``'s
+    settings, with the encoder's reconstructed pictures kept)."""
+    from xvc_tpu.codec.encoder import Encoder
+    from xvc_tpu.codec.encoder_settings import EncoderSettings
+    c = B15_STREAMS[name]
+    w, h, f = c["width"], c["height"], c["frames"]
+    p = c["params"]
+    s = EncoderSettings()
+    s.initialize_speed(c["speed_mode"])
+    s.tile_rows = c["tile_rows"]
+    s.default_num_ref_pics = p["num_ref_pics"]
+    enc = Encoder(15)
+    enc.set_resolution(w, h)
+    enc.set_chroma_format(1)
+    enc.set_deblock(1)
+    enc.set_checksum_mode(1)
+    enc.set_qp(c["qp"])
+    enc.set_low_delay(p.get("low_delay", False))
+    enc.input_bitdepth = 15
+    enc.set_encoder_settings(s)
+    enc.set_num_ref_pics(p["num_ref_pics"])
+    enc.set_sub_gop_length(p["sub_gop_length"])
+    sub = p["sub_gop_length"]
+    enc.set_segment_length((640 // sub) * sub)
+    enc.set_closed_gop_interval(((1 << 62) // sub) * sub)
+    yuv = b15_yuv(name, data_dir)
+    fs = w * h * 3
+    nals, recs = [], []
+
+    def collect(out):
+        nals.extend(n.bytes for n in out)
+        poc, rec = enc.out_rec
+        if poc is not None:
+            recs.append(rec)
+        enc.out_rec = (None, None)
+
+    for t in range(f):
+        collect(enc.encode(yuv[t * fs:(t + 1) * fs]))
+    while True:
+        out, more = enc.flush()
+        collect(out)
+        if not more:
+            break
+    return nals, recs
+
+
+def b15_features(data):
+    """The features of B15_FEATURES that the JAX package's parse of the
+    stream ``data`` holds, each with its count of blocks; its host decode,
+    with the residual of a DC-only block of the DCT-2 family set to the
+    encoder's (0) instead of raising, must conform."""
+    from xvc_tpu import constants as jk
+    from xvc_tpu.codec import cu_decoder as jcd
+    from xvc_tpu.ops import transform as jtx
+    found = dict.fromkeys(B15_FEATURES, 0)
+    real = jcd.CuDecoder._decompress_component
+
+    def integer(mv):
+        return ((mv[0] | mv[1]) & 15) == 0
+
+    def seen(self, cu, comp, qp):
+        try:
+            return real(self, cu, comp, qp)
+        finally:
+            if cu.is_intra():
+                if comp and cu.intra_mode_chroma == jk.INTRA_MODE_LM_CHROMA:
+                    found["lm"] += 1
+            elif comp == 0:
+                lists = [0, 1] if cu.inter_dir == jk.InterDir.BI else \
+                    [0 if cu.inter_dir == jk.InterDir.L0 else 1]
+                found["bi"] += cu.inter_dir == jk.InterDir.BI
+                found["fullpel"] += all(integer(cu.mv[i][0]) for i in lists)
+                found["subpel"] += not all(integer(cu.mv[i][0])
+                                           for i in lists)
+            t0 = cu.get_transform_type(comp, 0)
+            t1 = cu.get_transform_type(comp, 1)
+            if cu.cbf[comp] and cu.transform_skip[comp]:
+                found["tskip"] += 1
+            elif (cu.cbf[comp] and cu.dc_only[comp] and t0 <= 1 and
+                  t1 <= 1 and not (comp == 0 and cu.is_intra() and
+                                   cu.size(0) == (4, 4))):
+                found["dc_dct2"] += 1
+
+    def dc_zero(coeff, tx_ver, tx_hor, bitdepth, high_precision,
+                dc_only=False):
+        # the residual the encoder gave such a block (F5), so that the
+        # picture's parse goes on past it
+        if dc_only and bitdepth > 14 and tx_ver <= 1 and tx_hor <= 1:
+            return np.zeros(coeff.shape, np.int32)
+        return real_itx(coeff, tx_ver, tx_hor, bitdepth, high_precision,
+                        dc_only)
+
+    real_itx = jtx.inverse_transform_np
+    jcd.CuDecoder._decompress_component = seen
+    jtx.inverse_transform_np = dc_zero
+    try:
+        pics = jax_session_decode(data)
+    finally:
+        jcd.CuDecoder._decompress_component = real
+        jtx.inverse_transform_np = real_itx
+    assert all(p.conforming for p in pics)
+    return found
+
+
+def make_b15_stream(name, data_dir):
+    """Write ``<data_dir>/<name>.xvc`` and ``<name>_dec.sha256`` for the
+    B15_STREAMS entry ``name``.  The hash list is of the JAX package's
+    encoder's reconstructions, which the stream's checksums record: the
+    JAX package's decode reports a picture with a DC-only block of the
+    DCT-2 family as non-conforming (ROADMAP queue 3 F5), so its samples
+    are no reference there.  ra64x48b15 must hold every feature of
+    B15_FEATURES."""
+    import hashlib
+    from xvc_tpu.nal import write_nal_units
+    nals, recs = b15_encode(name, data_dir)
+    data = write_nal_units(nals)
+    if name == "ra64x48b15":
+        found = b15_features(data)
+        missing = [f for f in B15_FEATURES if not found[f]]
+        assert not missing, "ra64x48b15 lacks %r" % (missing,)
+    with open(os.path.join(data_dir, name + ".xvc"), "wb") as f:
+        f.write(data)
+    lines = ["%s  poc %d" % (hashlib.sha256(r).hexdigest(), poc)
+             for poc, r in enumerate(recs)]
+    with open(os.path.join(data_dir, name + "_dec.sha256"), "w") as f:
+        f.write("\n".join(lines) + "\n")

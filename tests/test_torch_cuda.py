@@ -1734,3 +1734,94 @@ def test_threaded_python_cu_inter_encode_on_card_equals_sequential(
     assert hashlib.sha256(data).hexdigest() == ref["sha256"]
     pics = decode_stream(data, device=cuda)
     assert len(pics) == clip["pictures"] and all(p.conforming for p in pics)
+
+
+# ---------------------------------------------------------------------------
+# Bit depth 15 (-k b15): the picture kernels, the deblock kernels and the
+# scans against their plain versions, and the 15-bit streams through the
+# Python parse and the replay path
+# ---------------------------------------------------------------------------
+
+B15_STREAMS = ["ra64x48b15", "tiles64x128b15", "bench/hd720_b15"]
+
+
+@pytest.mark.parametrize("kind", ["levels 1-199", "full int16 levels"])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_b15_picture_kernels_match_plain(cuda, seed, kind):
+    """itx_picture (DC-only blocks, 32x32 transform skip, the 64-bit
+    dequant product) and mc_picture (uni, bi, full-pel and sub-pel) at 15
+    bit."""
+    pic = flat_cases.b15_picture(seed) if kind == "levels 1-199" else \
+        flat_cases.synthetic_picture(seed, bitdepth=15)
+    outs = []
+    for itx_fn, mc_fn in ((itx.itx_picture, mc.mc_picture),
+                          (itx.itx_picture_plain, mc.mc_picture_plain)):
+        kernels.reset_launches()
+        a = flat_cases.itx_args(pic, cuda)
+        itx_fn(*a)
+        b = flat_cases.mc_args(pic, cuda, seed)
+        mc_fn(*b)
+        torch.cuda.synchronize()
+        outs.append([t.cpu().numpy() for t in a[:2] + b[:4]
+                     if t is not None])
+        if itx_fn is itx.itx_picture:
+            assert kernels.LAUNCHES["itx_picture"] == 1
+            assert kernels.LAUNCHES["mc_picture"] == 1
+    for g, w in zip(*outs):
+        np.testing.assert_array_equal(g, w)
+    assert outs[0][0].any() and outs[0][2].any()
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("kind", dcases.LUMA_KINDS)
+def test_b15_deblock_kernels_match_plain(cuda, kind, direction):
+    case = dcases.luma_case(kind, 15, direction, size=(200, 328))
+    outs = []
+    for fn in (deblock.luma_pass, deblock.luma_pass_plain):
+        pl, *a = _to(cuda, *case)
+        fn(pl, *a, 15, LUMA_FLAGS[0], direction)
+        outs.append(pl.cpu().numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    case = dcases.chroma_case(15, direction, size=(360, 640))
+    outs = []
+    for fn in (deblock.chroma_pass, deblock.chroma_pass_plain):
+        pl, *a = _to(cuda, *case)
+        fn(pl, *a, 15, direction)
+        outs.append(pl.cpu().numpy())
+    assert (outs[0] != case[0]).any()
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("kind", ["luma", "chroma"])
+def test_b15_scan_kernels_match_plain(cuda, kind):
+    dims = cases.LUMA_DIMS if kind == "luma" else cases.CHROMA_DIMS
+    for w in dims:
+        for h in dims:
+            _scan_both(cuda, cases.shape_case(kind, w, h, 15))
+    _scan_both(cuda, cases.corner_case(kind, 15))
+    _scan_both(cuda, cases.tiled_case(kind, 15))
+
+
+@pytest.mark.parametrize("name", B15_STREAMS)
+def test_b15_streams_decode_on_card(cuda, name):
+    with open(data_path(name + "_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    kernels.reset_launches()
+    pics = decode_stream(read_data(name + ".xvc"), device=cuda)
+    assert all(p.conforming for p in pics)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert kernels.LAUNCHES["itx_picture"] == len(pics)
+    assert kernels.LAUNCHES["mc_picture"] > 0
+    assert kernels.LAUNCHES["intra_luma"] > 0
+    assert kernels.LAUNCHES["intra_chroma"] > 0
+    assert kernels.LAUNCHES["itx"] == kernels.LAUNCHES["mc"] == 0
+
+
+def test_b15_python_parse_of_hd720_ld_equals_the_native_route(cuda,
+                                                              monkeypatch):
+    data = read_data("bench/hd720_ld.xvc")
+    native = decode_stream(data, device=cuda, max_pics=2)
+    monkeypatch.setenv("XVC_PIC_NATIVE", "0")
+    python = decode_stream(data, device=cuda, max_pics=2)
+    assert all(p.conforming for p in python)
+    assert [p.bytes for p in python] == [p.bytes for p in native]

@@ -4,9 +4,9 @@ States are stored as a single byte: (state_idx << 1) | mps.
 
 Copy of ``init_state`` and of the state-transition and entropy-bit tables
 of ``xvc_tpu/cabac/context_model.py``, which the Python CU encoder's
-counting entropy encoder reads (``cabac/entropy_encoder.py``); the
-arithmetic coder's range tables live in the native library, which writes
-every real bitstream.
+counting entropy encoder reads (``cabac/entropy_encoder.py``), and of the
+range and renormalization tables of the Python parse's pure-Python
+arithmetic decoder (``cabac/entropy_decoder.py``).
 """
 import numpy as np
 
@@ -48,6 +48,38 @@ ENTROPY_BITS = np.array([
     0x0041f, 0x2c0ad, 0x003e7, 0x2ca8d, 0x003ba, 0x2d323, 0x0010c, 0x3bfbb,
 ], dtype=np.uint32)
 
+
+
+RENORM_TABLE = np.array([
+    6, 5, 4, 4, 3, 3, 3, 3, 2, 2, 2, 2, 2, 2, 2, 2,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+], dtype=np.uint8)
+
+# LPS range per (state, (range>>6)&3)
+RANGE_TABLE = np.array([
+    [128, 176, 208, 240], [128, 167, 197, 227], [128, 158, 187, 216],
+    [123, 150, 178, 205], [116, 142, 169, 195], [111, 135, 160, 185],
+    [105, 128, 152, 175], [100, 122, 144, 166], [95, 116, 137, 158],
+    [90, 110, 130, 150], [85, 104, 123, 142], [81, 99, 117, 135],
+    [77, 94, 111, 128], [73, 89, 105, 122], [69, 85, 100, 116],
+    [66, 80, 95, 110], [62, 76, 90, 104], [59, 72, 86, 99],
+    [56, 69, 81, 94], [53, 65, 77, 89], [51, 62, 73, 85],
+    [48, 59, 69, 80], [46, 56, 66, 76], [43, 53, 63, 72],
+    [41, 50, 59, 69], [39, 48, 56, 65], [37, 45, 54, 62],
+    [35, 43, 51, 59], [33, 41, 48, 56], [32, 39, 46, 53],
+    [30, 37, 43, 50], [29, 35, 41, 48], [27, 33, 39, 45],
+    [26, 31, 37, 43], [24, 30, 35, 41], [23, 28, 33, 39],
+    [22, 27, 32, 37], [21, 26, 30, 35], [20, 24, 29, 33],
+    [19, 23, 27, 31], [18, 22, 26, 30], [17, 21, 25, 28],
+    [16, 20, 23, 27], [15, 19, 22, 25], [14, 18, 21, 24],
+    [14, 17, 20, 23], [13, 16, 19, 22], [12, 15, 18, 21],
+    [12, 14, 17, 20], [11, 14, 16, 19], [11, 13, 15, 18],
+    [10, 12, 15, 17], [10, 12, 14, 16], [9, 11, 13, 15],
+    [9, 11, 12, 14], [8, 10, 12, 14], [8, 9, 11, 13],
+    [7, 9, 11, 12], [7, 9, 10, 12], [7, 8, 10, 11],
+    [6, 8, 9, 11], [6, 7, 9, 10], [6, 7, 8, 9],
+    [2, 2, 2, 2],
+], dtype=np.uint8)
 
 
 def init_state(qp: int, init_value: int) -> int:

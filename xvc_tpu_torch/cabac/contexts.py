@@ -3,10 +3,11 @@
 Behavioral equivalent of the reference context system
 (ref: src/xvc_common_lib/cabac.{h,cc}).  Contexts live in one flat uint8
 array; a "context" is an integer index into it, which maps directly onto
-the native C engine.  Copy of the layout and initialization half of
-``xvc_tpu/cabac/contexts.py``, and of the context selection of the
-syntax elements the Python CU encoder counts (``syntax/writer.py``); the
-parse and the residual coder select their contexts natively.
+the native C engine.  Copy of ``xvc_tpu/cabac/contexts.py``: the layout
+and initialization, the context selection of the syntax elements the
+Python CU encoder counts (``syntax/writer.py``) and the Python parse
+reads (``syntax/reader.py``), and the residual coder's, which the
+Python parse takes on its pure-Python engine (``XVC_NATIVE=0``).
 """
 import numpy as np
 
@@ -141,6 +142,10 @@ _MODE_TO_CTX_EXT = np.array(
 _MODE_TO_CTX = np.array(
     [1, 1] + [2] * 17 + [3] * 16, dtype=np.int32)
 
+_CTX_INDEX_MAP_4x4 = np.array(
+    [0, 1, 4, 5, 2, 3, 4, 5, 6, 6, 8, 8, 7, 7, 8, 8], dtype=np.int32)
+
+
 def _size_to_log2(s):
     return s.bit_length() - 1
 
@@ -152,8 +157,8 @@ _RESET_CACHE = {}
 
 class CabacContexts:
     """Flat context-state array, initialized per picture, and the
-    selection of the split, intra-mode and inter (skip, direction,
-    full-pel, affine) contexts."""
+    selection of the split, intra-mode, inter (skip, direction,
+    full-pel, affine) and residual contexts."""
 
     def __init__(self, restrictions):
         self.restr = restrictions
@@ -304,3 +309,197 @@ class CabacContexts:
         if cu_above is not None and cu_above.fullpel_mv:
             offset += 1
         return OFFSETS["inter_fullpel_mv"] + offset
+
+    def get_subblock_csbf_ctx(self, is_luma, sublock_csbf, posx, posy,
+                              width, height):
+        """Returns (ctx_idx, pattern_sig_ctx)."""
+        right = 0
+        below = 0
+        if not self.restr.disable_ext2_cabac_alt_residual_ctx:
+            base = OFFSETS["coeff_ext_csbf_luma"] if is_luma else \
+                OFFSETS["coeff_ext_csbf_chroma"]
+        else:
+            base = OFFSETS["coeff_csbf_luma"] if is_luma else \
+                OFFSETS["coeff_csbf_chroma"]
+        if posx < width - 1:
+            right = 1 if sublock_csbf[posy * width + posx + 1] else 0
+        if posy < height - 1:
+            below = 1 if sublock_csbf[(posy + 1) * width + posx] else 0
+        pattern_sig_ctx = right + (below << 1)
+        if self.restr.disable_cabac_subblock_csbf_ctx:
+            return base, pattern_sig_ctx
+        return base + (right | below), pattern_sig_ctx
+
+    def get_coeff_sig_ctx(self, is_luma, pattern_sig_ctx, scan_order,
+                          posx, posy, coeff, width_log2, height_log2):
+        """coeff: 2-D numpy int array holding partially-decoded levels."""
+        if not self.restr.disable_ext2_cabac_alt_residual_ctx:
+            width = 1 << width_log2
+            height = 1 << height_log2
+            size = (width_log2 + height_log2) >> 1
+            posxy = posx + posy
+            if self.restr.disable_cabac_coeff_sig_ctx:
+                return OFFSETS["coeff_ext_sig_luma"]
+            offset = 0
+            if posx < width - 1:
+                offset += 1 if coeff[posy, posx + 1] else 0
+                if posx < width - 2:
+                    offset += 1 if coeff[posy, posx + 2] else 0
+                if posy < height - 1:
+                    offset += 1 if coeff[posy + 1, posx + 1] else 0
+            if posy < height - 1:
+                offset += 1 if coeff[posy + 1, posx] else 0
+                if posy < height - 2:
+                    offset += 1 if coeff[posy + 2, posx] else 0
+            offset = min(offset, 5)
+            start_offset = 6 if posxy < 2 else 0
+            start_offset += 6 if (is_luma and posxy < 5) else 0
+            if size > 2 and is_luma:
+                start_offset += 18 << min(1, size - 3)
+            base = OFFSETS["coeff_ext_sig_luma"] if is_luma else \
+                OFFSETS["coeff_ext_sig_chroma"]
+            return base + start_offset + offset
+        else:
+            base = OFFSETS["coeff_sig_luma"] if is_luma else \
+                OFFSETS["coeff_sig_chroma"]
+            if (posx == 0 and posy == 0) or \
+                    self.restr.disable_cabac_coeff_sig_ctx:
+                return base
+            if width_log2 == 2 and height_log2 == 2:
+                return base + int(_CTX_INDEX_MAP_4x4[4 * posy + posx])
+            start_offset = 21 if is_luma else 12
+            if width_log2 == 3 and height_log2 == 3:
+                start_offset = 9 if scan_order == k.ScanOrder.DIAGONAL else 15
+            pos_x_in_subset = posx & 3
+            pos_y_in_subset = posy & 3
+            if pattern_sig_ctx == 0:
+                if pos_x_in_subset + pos_y_in_subset <= 2:
+                    cnt = 2 if pos_x_in_subset + pos_y_in_subset == 0 else 1
+                else:
+                    cnt = 0
+            elif pattern_sig_ctx == 1:
+                cnt = (2 if pos_y_in_subset == 0 else 1) \
+                    if pos_y_in_subset <= 1 else 0
+            elif pattern_sig_ctx == 2:
+                cnt = (2 if pos_x_in_subset == 0 else 1) \
+                    if pos_x_in_subset <= 1 else 0
+            else:
+                cnt = 2
+            comp_offset = 3 if (is_luma and
+                                ((posx >> 2) + (posy >> 2)) > 0) else 0
+            return base + start_offset + comp_offset + cnt
+
+    def _ext_greater_ctx(self, is_luma, posx, posy, is_last_coeff,
+                         coeff, width, height, threshold):
+        posxy = posx + posy
+        base_l = OFFSETS["coeff_ext_greater1_luma"]
+        base_c = OFFSETS["coeff_ext_greater1_chroma"]
+        if is_last_coeff:
+            return base_l if is_luma else base_c
+        offset = 0
+        if posx < width - 1:
+            offset += 1 if abs(int(coeff[posy, posx + 1])) > threshold else 0
+            if posx < width - 2:
+                offset += 1 if abs(int(coeff[posy, posx + 2])) > threshold \
+                    else 0
+            if posy < height - 1:
+                offset += (1 if abs(int(coeff[posy + 1, posx + 1])) > threshold
+                           else 0)
+        if posy < height - 1:
+            offset += 1 if abs(int(coeff[posy + 1, posx])) > threshold else 0
+            if posy < height - 2:
+                offset += 1 if abs(int(coeff[posy + 2, posx])) > threshold \
+                    else 0
+        offset = min(offset, 4) + 1
+        if is_luma:
+            start_offset = 10 if posxy < 3 else (5 if posxy < 10 else 0)
+            return base_l + start_offset + offset
+        return base_c + offset
+
+    def get_coeff_greater1_ctx(self, is_luma, ctx_set, c1, posx, posy,
+                               is_last_coeff, coeff, width, height):
+        if not self.restr.disable_ext2_cabac_alt_residual_ctx:
+            if self.restr.disable_cabac_coeff_greater1_ctx:
+                return OFFSETS["coeff_ext_greater1_luma"] if is_luma else \
+                    OFFSETS["coeff_ext_greater1_chroma"]
+            return self._ext_greater_ctx(is_luma, posx, posy, is_last_coeff,
+                                         coeff, width, height, 1)
+        if self.restr.disable_cabac_coeff_greater1_ctx:
+            return OFFSETS["coeff_greater1_luma"] if is_luma else \
+                OFFSETS["coeff_greater1_chroma"]
+        offset = 4 * ctx_set + c1
+        return (OFFSETS["coeff_greater1_luma"] if is_luma else
+                OFFSETS["coeff_greater1_chroma"]) + offset
+
+    def get_coeff_greater2_ctx(self, is_luma, ctx_set, posx, posy,
+                               is_last_coeff, coeff, width, height):
+        if not self.restr.disable_ext2_cabac_alt_residual_ctx:
+            if self.restr.disable_cabac_coeff_greater2_ctx:
+                return OFFSETS["coeff_ext_greater1_luma"] if is_luma else \
+                    OFFSETS["coeff_ext_greater1_chroma"]
+            return self._ext_greater_ctx(is_luma, posx, posy, is_last_coeff,
+                                         coeff, width, height, 2)
+        if self.restr.disable_cabac_coeff_greater2_ctx:
+            return OFFSETS["coeff_ext_greater1_luma"] if is_luma else \
+                OFFSETS["coeff_ext_greater1_chroma"]
+        return (OFFSETS["coeff_greater2_luma"] if is_luma else
+                OFFSETS["coeff_greater2_chroma"]) + ctx_set
+
+    def get_coeff_golomb_rice_k(self, posx, posy, width, height, coeff):
+        offset = 0
+        num = 0
+        if posx < width - 1:
+            c = int(coeff[posy, posx + 1])
+            offset += abs(c)
+            num += 1 if c else 0
+            if posx < width - 2:
+                c = int(coeff[posy, posx + 2])
+                offset += abs(c)
+                num += 1 if c else 0
+            if posy < height - 1:
+                c = int(coeff[posy + 1, posx + 1])
+                offset += abs(c)
+                num += 1 if c else 0
+        if posy < height - 1:
+            c = int(coeff[posy + 1, posx])
+            offset += abs(c)
+            num += 1 if c else 0
+            if posy < height - 2:
+                c = int(coeff[posy + 2, posx])
+                offset += abs(c)
+                num += 1 if c else 0
+        threshold = 4 + offset - num
+        for kk in range(10):
+            if (1 << (kk + 3)) > threshold:
+                return kk
+        return 9
+
+    def get_coeff_last_pos_ctx(self, is_luma, width, height, pos, is_pos_x):
+        size = width if is_pos_x else height
+        r = self.restr
+        if is_luma:
+            base = OFFSETS["coeff_last_pos_x_luma"] if is_pos_x else \
+                OFFSETS["coeff_last_pos_y_luma"]
+            if (r.disable_cabac_coeff_last_pos_ctx and
+                    r.disable_ext_cabac_alt_last_pos_ctx):
+                return base
+            if not r.disable_ext_cabac_alt_last_pos_ctx:
+                offset_map = (0, 0, 0, 3, 6, 10, 15, 21)
+                size_log2 = _size_to_log2(size)
+                offset = offset_map[size_log2]
+                shift = (size_log2 + 1) >> 2
+            else:
+                size_bits = _size_to_log2(size) - 2
+                offset = size_bits * 3 + ((size_bits + 1) >> 2)
+                shift = (size_bits + 3) >> 2
+            return base + offset + (pos >> shift)
+        base = OFFSETS["coeff_last_pos_x_chroma"] if is_pos_x else \
+            OFFSETS["coeff_last_pos_y_chroma"]
+        if (r.disable_cabac_coeff_last_pos_ctx and
+                r.disable_ext_cabac_alt_last_pos_ctx):
+            return base
+        if not r.disable_ext_cabac_alt_last_pos_ctx:
+            shift = min(max(size >> 3, 0), 2)
+        else:
+            shift = _size_to_log2(size) - 2
+        return base + (pos >> shift)

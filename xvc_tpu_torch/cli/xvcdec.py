@@ -4,14 +4,17 @@ Copy of ``cli/xvcdec.py`` on this package: accepts the reference decoder
 app's arguments (ref: app/xvc_dec_app/decoder_app.cc) and decodes on the
 card, or on the device ``-device`` names.  ``-threads N`` decodes on N
 picture threads (``parallel/pipeline.DecodePipeline``).  ``-simd-mask 0``
-asks for a decode without the native library, which the port cannot do
-(its parse is native; it has no pure-Python parse): the app says so and
-exits with code 2::
+decodes without the native parse, as the JAX app does: every picture
+takes the Python parse on the pure-Python arithmetic decoder
+(``XVC_PIC_NATIVE=0`` and ``XVC_NATIVE=0`` for the decode), and the
+reconstruction stays on the device::
 
     python -m xvc_tpu_torch.cli.xvcdec -bitstream-file out.xvc \\
         -output-file dec.yuv -threads 4
 """
 import argparse
+import contextlib
+import os
 import struct
 import sys
 import time
@@ -41,14 +44,34 @@ def make_parser():
     return p
 
 
+@contextlib.contextmanager
+def _python_parse(on):
+    """XVC_PIC_NATIVE=0 and XVC_NATIVE=0 for the decode inside (``on``),
+    as before after."""
+    names = ("XVC_PIC_NATIVE", "XVC_NATIVE")
+    saved = {name: os.environ.get(name) for name in names}
+    if on:
+        os.environ.update(dict.fromkeys(names, "0"))
+    try:
+        yield
+    finally:
+        if on:
+            for name, value in saved.items():
+                if value is None:
+                    os.environ.pop(name, None)
+                else:
+                    os.environ[name] = value
+
+
 def main(argv=None):
     args = vars(make_parser().parse_args(argv))
+    # the analog of the reference's -simd-mask 0: no native code parses
+    with _python_parse(args.get("simd_mask") == 0):
+        return _main(args)
+
+
+def _main(args):
     g = lambda name: args[name.replace("-", "_")]  # noqa: E731
-    if args.get("simd_mask") == 0:
-        print("xvcdec: -simd-mask 0 asks for a decode without the native "
-              "library; the port's parse is native and it has no "
-              "pure-Python parse", file=sys.stderr)
-        return 2
     params = DecoderParameters(
         output_width=g("output-width"), output_height=g("output-height"),
         output_chroma_format=g("output-chroma-format"),

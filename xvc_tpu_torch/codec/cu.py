@@ -561,8 +561,9 @@ class PictureData:
         encoder passes the picture's ``Qp`` (the light init of the JAX
         package's native encode path); the Python CU encoder also passes
         ``tree`` and ``encoder``, which gives every CU the encoder's
-        fields, and the qp table's lambdas follow ``recalculate_lambda``
-        (adaptive qp)."""
+        fields (its syntax elements and coefficients, which the Python
+        parse fills too, so it passes both as well), and the qp table's
+        lambdas follow ``recalculate_lambda`` (adaptive qp)."""
         r = segment.restrictions
         self.restrictions = r
         self.encoder = encoder

@@ -1,31 +1,38 @@
-"""Per-picture decoding on a torch device: header parse, native CABAC
-parse, device reconstruction, device deblock, checksum and output.
+"""Per-picture decoding on a torch device: header parse, CABAC parse,
+device reconstruction, device deblock, checksum and output.
 
 Behavioral equivalent of the reference picture decoder
 (ref: src/xvc_dec_lib/picture_decoder.cc).  Header handling, checksum
 and output are copies of ``xvc_tpu/codec/picture_decoder.py``;
 ``decode`` dispatches as that module's ``_decode_impl`` does between its
-two device paths: native parse -> ``FlatReconstructor`` when
+parses and device paths: native parse -> ``FlatReconstructor`` when
 ``flat_recon.eligible`` allows it, else native parse with the CU-tree
 replay -> ``recon.Reconstructor`` (LIC, 4:2:2 / 4:4:4, restricted intra
-toolsets); then device deblock.  A picture of a segment with two or more
-CTU tile rows takes the same two paths: the native parse reads its
-per-tile substreams with every lookup cut at the tile's top (the JAX
-package's ``_decode_tiles``), the reconstruction applies the same cut
-to intra availability, and deblocking stays one whole-picture pass.  A
-picture with a bit depth above 14, which the JAX package decodes on its
-Python path, raises ``NotImplementedError`` naming the reason; there is
-no host CU path to fall back to.  A segment header that cannot describe a
-picture (damaged: chroma format UNDEFINED, a zero dimension) is no such
-reason: its pictures decode as non-conforming, as in the reference.
+toolsets).  A picture above 14 bit, or any picture under
+``XVC_PIC_NATIVE=0``, takes the Python parse (``CuDecoder.decode_ctu``
+over ``SyntaxReader``; ``gpu/tree_records.py`` makes its record table)
+and then the replay path, never the flat one.  Then device deblock.  A
+picture of a segment with two or more CTU tile rows takes the same
+paths: the native parse, or the Python parse's ``_parse_tiles`` (the
+JAX package's ``_decode_tiles``), reads its per-tile substreams with
+every lookup cut at the tile's top, the reconstruction applies the same
+cut to intra availability, and deblocking stays one whole-picture pass.
+A picture above 15 bit raises ``NotImplementedError``: its samples do
+not fit the int16 device surfaces.  A segment header that cannot
+describe a picture (damaged: chroma format UNDEFINED, a zero dimension)
+is no such reason: its pictures decode as non-conforming, as in the
+reference.
 """
 import threading
 from dataclasses import dataclass
 
 from .. import constants as k
 from .. import segment as seg
+from ..bitio import BitReader
+from ..engine import use_native_pic_decode
 from ..gpu import flat_recon
 from ..gpu import recon
+from ..gpu import tree_records
 from ..gpu.deblock import deblock_picture
 from ..native import pic as native_pic
 from ..ops import resample
@@ -34,7 +41,9 @@ from ..ops.quant import Qp
 from ..profiling import span
 from . import checksum as cksum
 from . import output
+from ..syntax.reader import SyntaxReader
 from .cu import PictureData
+from .cu_decoder import CuDecoder
 from .yuv import YuvPicture
 
 
@@ -226,19 +235,26 @@ class PictureDecoder:
             # is corrupt (the reference's parse fails the same way)
             self.output_pic_bytes = b""
             return False
-        if pd.bitdepth > 14:
-            # int16 device surfaces hold samples up to 14 bit
-            raise NotImplementedError("bitdepth %d > 14 is not on the "
-                                      "device paths" % pd.bitdepth)
-        flat = flat_recon.eligible(pd, restr)
+        if pd.bitdepth > 15:
+            # 16-bit samples do not fit the int16 device surfaces
+            raise NotImplementedError(
+                "bitdepth %d > 15 is not on the device paths (ROADMAP "
+                "queue 1 item 6)" % pd.bitdepth)
+        python_parse = pd.bitdepth > 14 or not use_native_pic_decode()
+        flat = not python_parse and flat_recon.eligible(pd, restr)
         qp = Qp(self.pic_qp, pd.chroma_format, pd.bitdepth, 0.0,
                 segment.chroma_qp_offset_table, segment.chroma_qp_offset_u,
                 segment.chroma_qp_offset_v)
-        pd.init(segment, tree=not flat)
         pd._parse_records = None
         with span("decode.parse"):
-            success = native_pic.parse_picture(self, segment, bit_reader, qp,
-                                               replay=not flat)
+            if python_parse:
+                pd.init(segment, tree=True, pic_qp=qp,
+                        recalculate_lambda=True, encoder=True)
+                success = self._python_parse(segment, bit_reader, qp)
+            else:
+                pd.init(segment, tree=not flat)
+                success = native_pic.parse_picture(
+                    self, segment, bit_reader, qp, replay=not flat)
         if flat:
             with span("decode.flat"):
                 planes = flat_recon.FlatReconstructor(self, segment,
@@ -271,6 +287,47 @@ class PictureDecoder:
                 on_recon()
             success = self.postprocess(segment, bit_reader,
                                        pad_needed) and success
+        return success
+
+    def _python_parse(self, segment, bit_reader, qp):
+        """Parse the picture with the Python parse, then build its record
+        table and coefficient arena (``pd._parse_records``,
+        ``pd._parse_coeff``) from the CU tree.  Returns conformance
+        success (the terminating bin of every substream)."""
+        pd = self.pic_data
+        restr = segment.restrictions
+        cu_decoder = CuDecoder(self.rec_pic, pd, restr)
+        if pd.tile_rows >= 2:
+            success = self._parse_tiles(cu_decoder, bit_reader, qp, restr)
+        else:
+            reader = SyntaxReader(qp, pd.get_prediction_type(), bit_reader,
+                                  restr)
+            for rsaddr in range(pd.get_number_of_ctus()):
+                cu_decoder.decode_ctu(rsaddr, reader)
+            success = reader.finish()
+        pd._parse_records, pd._parse_coeff = tree_records.build(cu_decoder)
+        return success
+
+    def _parse_tiles(self, cu_decoder, bit_reader, qp, restr):
+        """The CTU-tile-row extension on the Python parse (the parse half
+        of the JAX package's ``_decode_tiles``): one 32-bit size a tile
+        (the split of ``PictureData.set_tiles``), then each tile's
+        payload with its own reader and fresh contexts, every lookup
+        above the tile's top unavailable."""
+        pd = self.pic_data
+        tiles = pd.set_tiles(pd.tile_rows)
+        sizes = [bit_reader.read_bits(32) for _ in tiles]
+        success = True
+        for (row0, row1), size in zip(tiles, sizes):
+            reader = SyntaxReader(qp, pd.get_prediction_type(),
+                                  BitReader(bit_reader.read_bytes(size)),
+                                  restr)
+            pd.tile_ctx_top_y = row0 * k.CTU_SIZE
+            for rsaddr in range(row0 * pd.ctu_num_x, row1 * pd.ctu_num_x):
+                cu_decoder.decode_ctu(rsaddr, reader)
+            if not reader.finish():
+                success = False
+        pd.tile_ctx_top_y = 0
         return success
 
     def _resolved_output_format(self):

@@ -3,8 +3,9 @@
 Counterpart of ``xvc_tpu/engine.py``: every entry point runs on the card
 unless the caller names another device, and a device that is not there
 is an error, never a silent move to the CPU.  Of that module's switches
-it keeps ``XVC_ME`` (``use_device_me``) and ``XVC_INTRA_PREPASS``
-(``use_jax_intra_prepass``); the encoder's other routing switches are
+it keeps ``XVC_ME`` (``use_device_me``), ``XVC_INTRA_PREPASS``
+(``use_jax_intra_prepass``) and ``XVC_PIC_NATIVE``
+(``use_native_pic_decode``); the encoder's other routing switches are
 read where they route (``native/enc.usable_for``).
 """
 import os
@@ -46,3 +47,13 @@ def use_jax_intra_prepass():
     pre-pass then reads the above row across the tile top, as the JAX
     package's device pre-pass does (``codec/intra_search.py``)."""
     return os.environ.get("XVC_INTRA_PREPASS", "").lower() == "jax"
+
+
+def use_native_pic_decode():
+    """The native parse of a picture (``native/pic.parse_picture``), on
+    by default.  ``XVC_PIC_NATIVE=0``, the JAX package's switch of the
+    same name (``xvc_tpu/engine.py``), parses every picture with the
+    Python parse (``codec/cu_decoder.py``, ``syntax/reader.py``), as a
+    picture above 14 bit always is; the reconstruction then takes the
+    replay path on the device."""
+    return os.environ.get("XVC_PIC_NATIVE", "1") != "0"

@@ -18,6 +18,8 @@ of each reference of each list).
   and family pair, uni (L0 and L1) and bi leaves, MVs that clip, affine
   CUs with uneven subblocks and a uniform one, 4:2:0 or monochrome, one
   or two CU trees;
+- ``b15_picture``: a synthetic picture at 15 bit with DC-only blocks
+  and 32x32 transform skip, its levels of a real stream's size;
 - ``damaged_rows``: record rows that each break one guard of the
   kernels, to be dropped;
 - ``itx_args`` / ``mc_args``: a picture's wrapper arguments on a device,
@@ -31,8 +33,8 @@ from ..codec.yuv import PAD
 from . import itx
 from . import mc
 from .flat_recon import padded_shape
-from .records import (C_AFFINE, C_CBF0, C_COEFF0, C_DIR, C_H, C_MV,
-                      C_ORDER, C_PRED, C_QP, C_REF0, C_SPLIT, C_TREE,
+from .records import (C_AFFINE, C_CBF0, C_COEFF0, C_DCONLY0, C_DIR, C_H,
+                      C_MV, C_ORDER, C_PRED, C_QP, C_REF0, C_SPLIT, C_TREE,
                       C_TSKIP0, C_TT00, C_W, C_X, C_Y)
 
 STRIDE = 72          # native/pic.py PARSE_REC_STRIDE
@@ -251,6 +253,38 @@ def synthetic_picture(seed, width=136, height=72, bitdepth=8, mono=False,
     return _picture(records, coeff.astype(np.int32), bitdepth, width, height,
                     mono, hp_tx, no_dst, hp_mv, chroma_subpel,
                     (0, 0, 0), dims, nrefs)
+
+
+def b15_picture(seed):
+    """A synthetic 15-bit picture (``synthetic_picture`` at 160x96) with
+    levels of a real stream's size (1-199, whose dequantized values the
+    host takes exactly; the full int16 range of ``synthetic_picture``
+    tests the wraps), the parse's DC-only flag on every block whose only
+    nonzero level is its first, and every coded 32x32 luma block in
+    transform skip."""
+    pic = synthetic_picture(seed, width=160, height=96, bitdepth=15)
+    rng = np.random.RandomState(seed)
+    arena = pic["coeff"]
+    small = rng.randint(1, 200, arena.shape) * rng.choice([-1, 1],
+                                                          arena.shape)
+    arena[:] = np.where(arena != 0, small, 0)
+    for row in pic["records"]:
+        if row[C_SPLIT]:
+            continue
+        # the codec gives blocks with a side below 4 the DCT-2 only
+        if min(row[C_W], row[C_H]) < 8:
+            row[C_TT00 + 2:C_TT00 + 4] = 0
+        if row[C_W] == 32 and row[C_H] == 32 and row[C_CBF0]:
+            row[C_TSKIP0] = 1
+        for c in range(3):
+            off = row[C_COEFF0 + c]
+            if not row[C_CBF0 + c] or off < 0:
+                continue
+            s = 0 if c == 0 else 1
+            block = arena[off:off + (row[C_W] >> s) * (row[C_H] >> s)]
+            row[C_DCONLY0 + c] = int(block[0] != 0 and
+                                     np.count_nonzero(block) == 1)
+    return pic
 
 
 def damaged_rows(pic, kind):

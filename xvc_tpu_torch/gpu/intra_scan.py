@@ -578,15 +578,19 @@ def _log2floor(v):
 
 def derive_lm(sums, nbr, has_a, has_l, bitdepth):
     """derive_lm_params (ops/intra_pred.py:304-387) from the four
-    neighbour sums, with the JAX version's int32 semantics.  Returns
-    (scale, offset, shift)."""
-    sum_x, sum_y, sum_xx, sum_xy = (_i32(s) for s in sums)
+    neighbour sums, with the JAX version's int32 semantics.  Above 14 bit,
+    where the sums of squares pass 2^31, the sums are rounded down by the
+    size shift before they are taken to int32, as the host's exact sums
+    are (the shift is then at least 1).  Returns (scale, offset, shift)."""
+    if bitdepth <= 14:
+        sums = [_i32(s) for s in sums]
+    sum_x, sum_y, sum_xx, sum_xy = sums
     lg = _log2floor(nbr)
     size_shift = max(lg + (1 if (1 << lg) < nbr else 0), 1)
     sh = max(size_shift - (15 - bitdepth), 0)
     if sh > 0:
         rnd = 1 << (sh - 1)
-        sum_x, sum_y, sum_xx, sum_xy = ((s + rnd) >> sh for s in
+        sum_x, sum_y, sum_xx, sum_xy = (_i32((s + rnd) >> sh) for s in
                                         (sum_x, sum_y, sum_xx, sum_xy))
     size_shift -= sh
     avg_x = sum_x >> size_shift

@@ -29,9 +29,9 @@ from ..ops import transform as tx
 from ..ops.quant import Qp
 from .. import kernels
 from . import dsp
-from .records import (C_CBF0, C_COEFF0, C_H, C_PRED, C_QP, C_SPLIT,
-                      C_TSKIP0, C_TT00, C_TT01, C_TT10, C_TT11, C_W, C_X,
-                      C_Y, MIN_COLS)
+from .records import (C_CBF0, C_COEFF0, C_DCONLY0, C_H, C_PRED, C_QP,
+                      C_SPLIT, C_TSKIP0, C_TT00, C_TT01, C_TT10, C_TT11,
+                      C_W, C_X, C_Y, MIN_COLS)
 
 _MODE = {"gen": 0, "dst4": 0, "dc": 2, "skip": 3}
 
@@ -253,10 +253,12 @@ def itx_jobs(records, ncoeff, qp_scales, bitdepth, no_dst, sx, sy, dims):
     of the chroma planes (absent for monochrome).  A record that fails a
     guard (a side that is no power of two in 2..64, coefficients past the
     arena, an origin outside the plane, a qp outside the table) drops its
-    block, as the kernel does."""
+    block, as the kernel does; so does a DC-only block of the DCT-2
+    family above 14 bit, whose residual is 0."""
     r = records.long()
     leaf = r[:, C_SPLIT] == 0
     DEFAULT = int(k.TransformType.DEFAULT)
+    DCT2 = int(k.TransformType.DCT2)
     jobs = []
     for comp in range(1 if len(dims) == 1 else 3):
         csx, csy = (0, 0) if comp == 0 else (sx, sy)
@@ -282,9 +284,16 @@ def itx_jobs(records, ncoeff, qp_scales, bitdepth, no_dst, sx, sy, dims):
                 (t1 == DEFAULT) & (w == 4) & (h == 4) & (not no_dst))
         # 0 gen (DC-only blocks too), 1 dst4, 3 skip: as in the JAX package
         var = torch.where(tskip, 3, torch.where(dst4, 1, 0))
-        jobs.append(dict(comp=comp, x=x[i], y=y[i], w=w, h=h, var=var,
-                         scale=scale, off=off[i],
-                         fam1=t0.clamp(min=1) - 1, fam2=t1.clamp(min=1) - 1))
+        # above 14 bit a DC-only block of the DCT-2 family has a residual
+        # of 0 (dsp.dc_only_residual): no job
+        sel = torch.ones_like(tskip)
+        if bitdepth > 14:
+            sel = ~((var == 0) & (r[i, C_DCONLY0 + comp] != 0) &
+                    (t0 <= DCT2) & (t1 <= DCT2))
+        jobs.append(dict(comp=comp, x=x[i][sel], y=y[i][sel], w=w[sel],
+                         h=h[sel], var=var[sel], scale=scale[sel],
+                         off=off[i][sel], fam1=t0[sel].clamp(min=1) - 1,
+                         fam2=t1[sel].clamp(min=1) - 1))
     return jobs
 
 

@@ -2,9 +2,12 @@
 
 Port of ``xvc_tpu/tpu/recon.py`` (``JaxReconstructor``) for the pictures
 ``flat_recon.ineligible_reason`` names: LIC (local illumination
-compensation) on, chroma 4:2:2 or 4:4:4, or a restricted intra toolset.
-The native parse has also rebuilt the picture's CU tree
-(``native/pic.py`` ``_replay_tree``).  Then, in this order:
+compensation) on, chroma 4:2:2 or 4:4:4, or a restricted intra toolset;
+and for every picture of the Python parse (above 14 bit, or under
+``XVC_PIC_NATIVE=0``).  The picture's CU tree is there: the native parse
+rebuilt it (``native/pic.py`` ``_replay_tree``), or the Python parse
+read it and ``tree_records.build`` made its record table.  Then, in
+this order:
 
   1. the device half of the flat path (``FlatReconstructor``, whose
      subclass this is): one upload, ITX of every coded block and MC of
@@ -143,14 +146,16 @@ class Reconstructor(flat_recon.FlatReconstructor):
     def _for_each_leaf(self, visitor):
         """Decode-order leaf walk with incremental availability marking
         (ref: cu_decoder.cc:86-100): per CTU the primary tree, then the
-        secondary.  The replay set no marks, so the walk starts from a
-        clear table.  In a picture of CTU tile rows each CTU's lookups are
+        secondary.  The walk starts from a clear table (the Python
+        parse's table holds every leaf).  In a picture of CTU tile rows each CTU's lookups are
         cut at its tile's top, as they were in its parse
         (xvc_tpu/tpu/recon.py ``_for_each_leaf``)."""
         pic = self.pd
         trees = [k.CuTree.PRIMARY]
         if pic.has_secondary_cu_tree():
             trees.append(k.CuTree.SECONDARY)
+        for tree in trees:
+            pic.cu_table[tree] = [None] * len(pic.cu_table[tree])
         tiled = pic.tile_rows > 1
         for rsaddr in range(pic.get_number_of_ctus()):
             if tiled:

@@ -313,21 +313,29 @@ struct LmParams {
   int scale, offset, shift;
 };
 
+// The sum s rounded down by sh: up to 14 bit in the int32 wrap of the
+// JAX version; above, where the squares' sums pass 2^31, exact, as the
+// host's derive_lm_params sums (sh is then at least 1, and the result
+// fits in an int).
+__device__ __forceinline__ int lm_round(unsigned long long s, int sh,
+                                        int bitdepth) {
+  if (bitdepth > 14)
+    return (int)(((long long)s + (1LL << (sh - 1))) >> sh);
+  const int v = (int)(unsigned)s;
+  return sh > 0 ? wadd(v, 1 << (sh - 1)) >> sh : v;
+}
+
 // derive_lm_params (xvc_tpu/tpu/intra_scan.py derive_lm, after the sums).
-__device__ __forceinline__ LmParams derive_lm(int sum_x, int sum_y,
-                                              int sum_xx, int sum_xy, int nbr,
-                                              bool has_a, bool has_l,
-                                              int bitdepth) {
+__device__ __forceinline__ LmParams derive_lm(
+    unsigned long long sx, unsigned long long sy, unsigned long long sxx,
+    unsigned long long sxy, int nbr, bool has_a, bool has_l, int bitdepth) {
   const int lg = log2floor(nbr);
   int size_shift = max(lg + ((1 << lg) < nbr ? 1 : 0), 1);
   const int sh = max(size_shift - (15 - bitdepth), 0);
-  if (sh > 0) {
-    const int rnd = 1 << (sh - 1);
-    sum_x = wadd(sum_x, rnd) >> sh;
-    sum_y = wadd(sum_y, rnd) >> sh;
-    sum_xx = wadd(sum_xx, rnd) >> sh;
-    sum_xy = wadd(sum_xy, rnd) >> sh;
-  }
+  const int sum_x = lm_round(sx, sh, bitdepth);
+  const int sum_y = lm_round(sy, sh, bitdepth);
+  const int sum_xx = lm_round(sxx, sh, bitdepth);
+  const int sum_xy = lm_round(sxy, sh, bitdepth);
   size_shift -= sh;
   const int avg_x = sum_x >> size_shift;
   const int avg_y = sum_y >> size_shift;
@@ -405,7 +413,7 @@ __device__ __forceinline__ LmParams lm_params(const int16_t* __restrict__ win,
   const bool has_l = lf.has_l != 0, has_a = lf.has_a != 0;
   const int dx = (has_l && w / h > 1) ? w / h : 1;
   const int dy = (has_a && h / w > 1) ? h / w : 1;
-  unsigned sx = 0, sy = 0, sxx = 0, sxy = 0;
+  unsigned long long sx = 0, sy = 0, sxx = 0, sxy = 0;
   int nbr = 0;
   for (int t = lane; t < 128; t += 32) {
     const int j = t & 63;
@@ -420,8 +428,8 @@ __device__ __forceinline__ LmParams lm_params(const int16_t* __restrict__ win,
                                            : left[clampi(j, 0, 127)]);
       sx += xv;
       sy += yv;
-      sxx += xv * xv;
-      sxy += xv * yv;
+      sxx += (unsigned long long)xv * xv;
+      sxy += (unsigned long long)xv * yv;
       nbr += 1;
     }
   }
@@ -432,8 +440,7 @@ __device__ __forceinline__ LmParams lm_params(const int16_t* __restrict__ win,
     sxy += __shfl_xor_sync(kFull, sxy, o);
     nbr += __shfl_xor_sync(kFull, nbr, o);
   }
-  return derive_lm((int)sx, (int)sy, (int)sxx, (int)sxy, nbr, has_a, has_l,
-                   bitdepth);
+  return derive_lm(sx, sy, sxx, sxy, nbr, has_a, has_l, bitdepth);
 }
 
 // ---------------------------------------------------------------------------
@@ -858,7 +865,7 @@ extern "C" int xvc_intra_luma_scan(void* plane, const void* resi,
                                    int bitdepth, void* scratch, void* stream) {
   if (N <= 0) return 0;
   // the caller holds the canvas to the windows' sizes
-  if (bitdepth < 1 || bitdepth > 14) return (int)cudaErrorInvalidValue;
+  if (bitdepth < 1 || bitdepth > 15) return (int)cudaErrorInvalidValue;
   return launch<false>((int16_t*)plane, (const int32_t*)resi, nullptr,
                        (const int32_t*)meta, N, Hp, Wp, 0, 0, bitdepth,
                        (int32_t*)scratch, (cudaStream_t)stream);
@@ -870,7 +877,7 @@ extern "C" int xvc_intra_chroma_scan(void* planes, const void* resi,
                                      int bitdepth, void* scratch,
                                      void* stream) {
   if (N <= 0) return 0;
-  if (bitdepth < 1 || bitdepth > 14) return (int)cudaErrorInvalidValue;
+  if (bitdepth < 1 || bitdepth > 15) return (int)cudaErrorInvalidValue;
   return launch<true>((int16_t*)planes, (const int32_t*)resi,
                       (const int16_t*)luma, (const int32_t*)meta, N, Hp, Wp,
                       HpL, WpL, bitdepth, (int32_t*)scratch,

@@ -71,8 +71,15 @@ __device__ __forceinline__ int clip16(int x) {
   return x < -32768 ? -32768 : (x > 32767 ? 32767 : x);
 }
 
-// (c * s + rnd) >> shift, or (c * s) << -shift, in wrapping int32
-__device__ __forceinline__ int dequant(int c, int s, int shift) {
+// (c * s + rnd) >> shift, or (c * s) << -shift, in wrapping int32; in
+// 64 bits when `wide` (above 14 bit, as the host dequantization takes it)
+__device__ __forceinline__ int dequant(int c, int s, int shift, bool wide) {
+  if (wide) {
+    const long long prod = (long long)c * s;
+    const long long v = shift > 0 ? (prod + (1LL << (shift - 1))) >> shift
+                                  : prod << (-shift);
+    return v < -32768 ? -32768 : (v > 32767 ? 32767 : (int)v);
+  }
   const unsigned prod = (unsigned)c * (unsigned)s;
   if (shift > 0)
     return clip16((int)(prod + (1u << (shift - 1))) >> shift);
@@ -82,6 +89,7 @@ __device__ __forceinline__ int dequant(int c, int s, int shift) {
 // One block's arithmetic: where it goes and how it is transformed.
 struct ItxJob {
   int s;                      // dequant scale
+  bool wide;                  // the dequant product in 64 bits
   int width, height, mode;
   int dq_shift, aux_shift, aux_scale;
   const int32_t* m1;          // [j][i], min(h, 32) x h
@@ -103,7 +111,8 @@ __device__ void itx_block(const G& g, const C* __restrict__ c,
       const int y = i / width, x = i - (i / width) * width;
       const int oy = j.cy + y, ox = j.cx + x;
       if (oy < 0 || oy >= j.H || ox < 0 || ox >= j.W) continue;
-      const int d = dequant((int16_t)c[i], j.s, j.dq_shift) * j.aux_scale;
+      const int d =
+          dequant((int16_t)c[i], j.s, j.dq_shift, j.wide) * j.aux_scale;
       const int v = j.aux_shift > 0
                         ? (d + (1 << (j.aux_shift - 1))) >> j.aux_shift
                         : (int)((unsigned)d << (-j.aux_shift));
@@ -112,9 +121,13 @@ __device__ void itx_block(const G& g, const C* __restrict__ c,
     return;
   }
   if (j.mode == kDc) {
-    const int d = dequant((int16_t)c[0], j.s, j.dq_shift);
-    const int v = (int)(int16_t)((((d + 1) >> 1) +
-                                  (1 << (j.aux_shift - 1))) >> j.aux_shift);
+    // aux_shift = 14 - bitdepth; at 0 and below what the native code that
+    // reconstructs every stream computes (gpu/dsp.py dc_only_residual)
+    const int d = dequant((int16_t)c[0], j.s, j.dq_shift, j.wide);
+    const int half = (d + 1) >> 1;
+    const int v = (int)(int16_t)(
+        j.aux_shift > 0 ? (half + (1 << (j.aux_shift - 1))) >> j.aux_shift
+                        : (j.aux_shift == 0 ? half : 0));
     for (int i = g.tid; i < width * height; i += G::n) {
       const int y = i / width, x = i - (i / width) * width;
       const int oy = j.cy + y, ox = j.cx + x;
@@ -128,7 +141,7 @@ __device__ void itx_block(const G& g, const C* __restrict__ c,
   const int cols = width < kZeroOut ? width : kZeroOut;
   for (int i = g.tid; i < in1 * cols; i += G::n) {
     const int r = i / cols, k = i - (i / cols) * cols;
-    dq[i] = dequant((int16_t)c[r * width + k], j.s, j.dq_shift);
+    dq[i] = dequant((int16_t)c[r * width + k], j.s, j.dq_shift, j.wide);
   }
   g.sync();
   // first pass: tmp[i][k] = clip16((sum_j m1[j][i] dq[j][k] + rnd) >> s1)
@@ -182,6 +195,7 @@ itx_scatter_kernel(const int16_t* __restrict__ coeff,
   const int f2 = fam_rows ? clampi(params[4 * B + b], 0, nfam - 1) : 0;
   ItxJob j;
   j.s = scale[b];
+  j.wide = bitdepth > 14;
   j.width = width;
   j.height = height;
   j.mode = mode;
@@ -234,6 +248,7 @@ __device__ bool itx_item(const int32_t* __restrict__ recs, const ItxCfg& c,
   const bool bias = ((wl2 + hl2) & 1) != 0;
   const int s = qp_scales[comp * c.nqp + qi];
   j.s = bias ? (int)((unsigned)s * 181u) : s;
+  j.wide = c.bitdepth > 14;
   const int t0 = r[comp ? rec::kTt10 : rec::kTt00];
   const int t1 = r[comp ? rec::kTt11 : rec::kTt01];
   const int tshift = 15 - c.bitdepth - ((wl2 + hl2) >> 1);  // MAX_TR_DYNAMIC_RANGE
@@ -254,6 +269,11 @@ __device__ bool itx_item(const int32_t* __restrict__ recs, const ItxCfg& c,
     j.s1 = info[2 * e + 1];
     j.s2 = 20 - c.bitdepth;
   } else {  // 'gen', DC-only blocks too; DEFAULT -> the DCT-2 family
+    // above 14 bit a DC-only block of the DCT-2 family has a residual of
+    // 0 (gpu/dsp.py dc_only_residual): no job, the plane stays 0
+    if (c.bitdepth > 14 && r[rec::kDconly0 + comp] != 0 && t0 <= 1 &&
+        t1 <= 1)
+      return false;
     const int e1 = (hl2 - 1) * kNfam + clampi((t0 > 1 ? t0 : 1) - 1, 0, 4);
     const int e2 = (wl2 - 1) * kNfam + clampi((t1 > 1 ? t1 : 1) - 1, 0, 4);
     j.m1 = mats + info[2 * e1];
@@ -341,7 +361,7 @@ extern "C" int xvc_itx_picture(const void* recs, const void* coeff,
   if (c.n <= 0) return 0;
   if (c.stride < rec::kMinCols || (c.ncomp != 1 && c.ncomp != 3) ||
       (c.ncomp == 3 && resi_c == nullptr) || c.ncoeff < 0 ||
-      c.bitdepth < 8 || c.bitdepth > 14 || c.nqp <= 0 ||
+      c.bitdepth < 8 || c.bitdepth > 15 || c.nqp <= 0 ||
       (long long)c.n * c.ncomp > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const long long blocks = ((long long)c.n * c.ncomp + kWarps - 1) / kWarps;

@@ -204,7 +204,10 @@ __device__ void mc_job(const G& g, const McOut& o, const McJob& j,
     int v;
     if (fx == 0 && fy == 0) {
       const int c = wv[(yy + half) * stride + xx + half];
-      v = short_out ? wrap16(wrap16(c << prec_diff) - kInternalOffset)
+      // above 14 bit prec_diff is negative; the shift's int16 store is 0
+      // there (gpu/dsp.py fullpel_short)
+      v = short_out ? wrap16(wrap16(prec_diff >= 0 ? c << prec_diff : 0) -
+                             kInternalOffset)
                     : clampi(c, 0, max_val);
     } else if (fy == 0) {
       const int16_t* row = wv + (yy + half) * stride + xx;
@@ -537,7 +540,7 @@ extern "C" int xvc_mc_picture(const void* recs, const void* refs,
   const int nl = c.hp_mv ? 16 * 8 : 4 * 8, nc = c.hp_mv ? 32 * 4 : 8 * 4;
   if (c.stride < rec::kMinCols || (c.ncomp != 1 && c.ncomp != 3) ||
       (c.ncomp == 3 && (!chroma_stack || !pred_c || !mask_c)) ||
-      ntables != nl + nc || c.bitdepth < 8 || c.bitdepth > 14 ||
+      ntables != nl + nc || c.bitdepth < 8 || c.bitdepth > 15 ||
       c.S <= 0 || c.Hp < kMaxBlock + 7 || c.Wp < kMaxBlock + 7 ||
       (c.ncomp == 3 && (c.Hpc < kMaxBlock + 3 || c.Wpc < kMaxBlock + 3)) ||
       !staged_aligned(luma_stack, c.Wp) ||

@@ -11,8 +11,8 @@ namespace rec {
 
 enum Column {
   kTree = 0, kX = 2, kY = 3, kW = 4, kH = 5, kSplit = 6, kPred = 11,
-  kQp = 12, kDir = 16, kAffine = 18, kCbf0 = 21, kTskip0 = 24, kTt00 = 30,
-  kTt01 = 31, kTt10 = 32, kTt11 = 33, kRef0 = 35, kMv = 41, kCoeff0 = 65,
+  kQp = 12, kDir = 16, kAffine = 18, kCbf0 = 21, kTskip0 = 24,
+  kDconly0 = 27, kTt00 = 30, kTt01 = 31, kTt10 = 32, kTt11 = 33, kRef0 = 35, kMv = 41, kCoeff0 = 65,
   kMinCols = 71
 };
 

@@ -177,6 +177,36 @@ def _bind_block_coder(handle):
         getattr(handle, name).restype = None
 
 
+
+def _bind_parse_reader(handle):
+    """The arithmetic decoder and residual reader of the Python parse
+    (``native/engines.NativeEntropyDecoder``)."""
+    c = ctypes
+    p = c.c_void_p
+    handle.xvcn_dec_create.restype = c.c_void_p
+    handle.xvcn_dec_create.argtypes = [c.c_char_p, c.c_int64, c.c_int64,
+                                       c.c_int]
+    handle.xvcn_dec_destroy.argtypes = [p]
+    handle.xvcn_dec_destroy.restype = None
+    handle.xvcn_dec_get_pos.restype = c.c_int64
+    handle.xvcn_dec_get_pos.argtypes = [p]
+    handle.xvcn_dec_get_error.restype = c.c_int
+    handle.xvcn_dec_get_error.argtypes = [p]
+    handle.xvcn_dec_decode_bin.restype = c.c_int
+    handle.xvcn_dec_decode_bin.argtypes = [p, p, c.c_int]
+    handle.xvcn_dec_decode_bypass.restype = c.c_int
+    handle.xvcn_dec_decode_bypass.argtypes = [p]
+    handle.xvcn_dec_decode_bypass_bins.restype = c.c_uint32
+    handle.xvcn_dec_decode_bypass_bins.argtypes = [p, c.c_int]
+    handle.xvcn_dec_decode_bin_trm.restype = c.c_int
+    handle.xvcn_dec_decode_bin_trm.argtypes = [p]
+    handle.xvcn_dec_finish.argtypes = [p]
+    handle.xvcn_dec_finish.restype = None
+    handle.xvcn_read_coefficients.restype = c.c_int
+    handle.xvcn_read_coefficients.argtypes = [
+        p, p, p, c.c_uint64, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        p, c.c_int]
+
 _lock = threading.Lock()
 _lib = None
 
@@ -216,6 +246,7 @@ def lib():
             handle.xvcn_encode_picture_intra.restype = c.c_int
             handle.xvcn_encode_picture_intra.argtypes = [c.c_void_p]
             _bind_block_coder(handle)
+            _bind_parse_reader(handle)
             for name in ("xvcn_intra_filter_ref", "xvcn_intra_pred_dc",
                          "xvcn_intra_pred_planar", "xvcn_intra_pred_angular",
                          "xvcn_mc_unipred"):

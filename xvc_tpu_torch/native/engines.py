@@ -1,7 +1,9 @@
 """Python facades over the native CABAC engine, residual coder and RDO
-quantizer of the Python CU encoder.
+quantizer of the Python CU encoder, and the native arithmetic decoder of
+the Python parse.
 
-Copy of the encoder half of ``xvc_tpu/native/engines.py``: the real
+Copy of ``xvc_tpu/native/engines.py``.  The parse reads through
+``NativeEntropyDecoder`` (``syntax/reader.py``).  On the encode side the real
 bitstream is written by ``NativeEntropyEncoder``; the counting-mode
 encoders of the RD search stay in Python (``cabac/entropy_encoder.py``:
 their per-element work is light and they are cloned constantly), but
@@ -35,6 +37,65 @@ def _build_offsets():
         if _OFFSETS_ARR is None:
             _OFFSETS_ARR = family_offsets()
         return _OFFSETS_ARR
+
+
+class NativeEntropyDecoder:
+    """The CABAC reader of a picture's (or tile's) payload for the Python
+    parse (``syntax/reader.py``), over xvcn: the mirror of
+    ``cabac/entropy_decoder.EntropyDecoder``."""
+
+    __slots__ = ("bit_reader", "state", "ctx_update", "_buf", "_h", "_sp",
+                 "_lib")
+
+    def __init__(self, bit_reader, ctx_state, ctx_update=True):
+        self.bit_reader = bit_reader
+        self.state = ctx_state
+        self.ctx_update = ctx_update
+        self._buf = bit_reader.buf
+        self._h = None
+        self._sp = ctx_state.ctypes.data
+        self._lib = lib()
+
+    def start(self):
+        assert self.bit_reader.bit_mask == 0x80
+        self._h = self._lib.xvcn_dec_create(self._buf, len(self._buf),
+                                            self.bit_reader.pos,
+                                            1 if self.ctx_update else 0)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.xvcn_dec_destroy(self._h)
+            self._h = None
+
+    def decode_bin(self, ctx):
+        return self._lib.xvcn_dec_decode_bin(self._h, self._sp, ctx)
+
+    def decode_bypass(self):
+        return self._lib.xvcn_dec_decode_bypass(self._h)
+
+    def decode_bypass_bins(self, num_bins):
+        return self._lib.xvcn_dec_decode_bypass_bins(self._h, num_bins)
+
+    def decode_bin_trm(self):
+        return self._lib.xvcn_dec_decode_bin_trm(self._h)
+
+    def finish(self):
+        self._lib.xvcn_dec_finish(self._h)
+        if self._lib.xvcn_dec_get_error(self._h):
+            raise ValueError("corrupt bitstream")
+        # the BitReader goes on after the CABAC payload
+        self.bit_reader.pos = self._lib.xvcn_dec_get_pos(self._h)
+        self.bit_reader.bit_mask = 0x80
+
+    def read_coefficients_native(self, restr_mask, width, height,
+                                 subblock_shift, is_luma, scan_order, dst):
+        n = self._lib.xvcn_read_coefficients(
+            self._h, self._sp, _offsets_ptr(), restr_mask, width, height,
+            subblock_shift, 1 if is_luma else 0, scan_order,
+            dst.ctypes.data, dst.shape[1])
+        if self._lib.xvcn_dec_get_error(self._h):
+            raise ValueError("corrupt bitstream")
+        return n
 
 
 class NativeEntropyEncoder:

@@ -2,16 +2,32 @@
 
 (ref: src/xvc_common_lib/transform.cc:47-76 scan tables,
  transform.cc:1614-1680 scan-order derivation and subblock scan.)
-Copy of ``xvc_tpu/scan.py`` without the tables of its Python residual
-coder (the port codes residuals natively): the Python CU encoder's
-quantizer and residual writer read it (``codec/rdo_quant.py``,
-``syntax/writer.py``).
+Copy of ``xvc_tpu/scan.py``: the Python CU encoder's quantizer and
+residual writer read it (``codec/rdo_quant.py``, ``syntax/writer.py``),
+and so does the Python parse (``syntax/reader.py``).
 """
 from functools import lru_cache
 
+import numpy as np
+
 from . import constants as k
 
-# 4x4 coefficient scan table per ScanOrder (diag, hor, ver)
+LAST_POS_GROUP_IDX = np.array(
+    [0, 1, 2, 3, 4, 4, 5, 5] + [6] * 4 + [7] * 4 + [8] * 8 + [9] * 8 +
+    [10] * 16 + [11] * 16 + [12] * 32 + [13] * 32, dtype=np.int32)
+
+LAST_POS_MIN_IN_GROUP = np.array(
+    [0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96], dtype=np.int32)
+
+GOLOMB_RICE_RANGE_EXT = np.array([6, 5, 6, 3, 3, 3, 3, 3, 3, 3],
+                                 dtype=np.int32)
+
+# 2x2 and 4x4 coefficient scan tables per ScanOrder (diag, hor, ver)
+SCAN_COEFF_2X2 = (
+    (0, 2, 1, 3),
+    (0, 1, 2, 3),
+    (0, 2, 1, 3),
+)
 SCAN_COEFF_4X4 = (
     (0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10, 7, 14, 11, 15),
     (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15),
