@@ -242,8 +242,25 @@ Phases:
      cases and picture 0's inputs, the deblock kernels on synthetic
      15-bit cases and on the edges and planes of pictures 0 and 1, each
      bit-exact against its plain version and timed on the real inputs
-     beside it and its bound, with its launches a hd720_b15 decode.  Then
-     the seconds of each phase.
+     beside it and its bound, with its launches a hd720_b15 decode;
+ 13  meshes of slots of the card (xvc_tpu_torch/parallel/mesh.py: a slot
+     is a device, a stream and a frame store): phase 5's lookahead over 4
+     slots (one intra_satd launch a slot a size) equal to the unsharded
+     maps, its n = 4 step unsharded, sharded and one shard timed beside
+     the shard's bound; ra720_s3 on 4 picture threads pinned to 4 slots,
+     the stream and reconstructions of phase 10, ms a picture beside
+     phase 10's; hd720_ld and fhd1080_ra on 4 picture threads pinned to
+     2 slots, to their hash lists, in turns with unmeshed decodes, the
+     reference moves between the slots' stores and their bytes;
+     hd720_lic's replay pictures through the block-sharded dispatch (a
+     mesh and no pin), planes equal to the unsharded dispatch's; two
+     processes of a gloo group on the card (this script with
+     --multihost-rank): the lookahead over the global mesh equal to the
+     unsharded maps and a multihost_gop encode of ra720_s3's first 5
+     pictures (speed 3, the GOP pipeline's restriction profile) equal to
+     the one-process encode; the device bench (gpu/device_bench.py);
+     a torch.profiler trace of hd720_ld's first 2 pictures that names
+     the picture kernels.  Then the seconds of each phase.
 
 Any mismatch raises, so the exit code is nonzero.  The lines before the
 last are a JSON object with the stage profile, a JSON object of
@@ -493,6 +510,23 @@ RESIZED_STREAMS = {
     "qhd1440_ra10_out1920x1080b8": ("qhd1440_ra10", dict(
         output_width=1920, output_height=1080, output_bitdepth=8))}
 THREADED_STREAMS = (("hd720_ld", 4), ("fhd1080_ra", 4))
+# phase 13: meshes of slots on the card (parallel/mesh.py): the lookahead
+# over MESH_SLOTS slots, ra720_s3 on THREADS picture threads pinned to
+# MESH_SLOTS slots, the threaded decodes of THREADED_STREAMS pinned to
+# MESH_DECODE_SLOTS slots, MESH_REPLAY_STREAM's replay pictures through
+# the block-sharded dispatch, two processes of a gloo group (the
+# lookahead over the global mesh and a multihost_gop encode of ra720_s3's
+# first MESH_GOP_PICTURES pictures; each process given MESH_WORKER_S),
+# the device bench and a trace of TRACE_PICTURES pictures of hd720_ld
+MESH_SLOTS = 4
+MESH_DECODE_SLOTS = 2
+MESH_REPLAY_STREAM = "hd720_lic"
+MESH_GOP_PICTURES = 5
+MESH_WORKER_S = 300
+TRACE_PICTURES = 2
+GOP_PIPELINE_PROFILE = ("disable_inter_tmvp_mvp",
+                        "disable_inter_tmvp_merge",
+                        "disable_inter_tmvp_ref_list_derivation")
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The sheet gives
 # no int32 rate: the CUDA cores' float32 rate stands in for their integer
@@ -3314,6 +3348,416 @@ def timed_session(torch, name, data, params, threads=0):
     return pics, dt, launches
 
 
+def gop_profile_encode(multihost_gop, frames=MESH_GOP_PICTURES):
+    """ra720_s3's first ``frames`` pictures at speed 3 under the GOP
+    pipeline's restriction profile through ``encode_stream`` on the card,
+    with ``multihost_gop`` set or not: (NAL bytes, seconds)."""
+    from xvc_tpu_torch.codec.encoder import encode_stream
+    from xvc_tpu_torch.codec.encoder_settings import EncoderSettings
+    W, H = RA720_S3["width"], RA720_S3["height"]
+    s = EncoderSettings()
+    s.initialize_speed(3)
+    s.explicit_restrictions = GOP_PIPELINE_PROFILE
+    s.multihost_gop = multihost_gop
+    yuv = make_ra720_s3()[:frames * W * H * 3 // 2]
+    t0 = time.perf_counter()
+    nals = encode_stream(yuv, W, H, frames, qp=RA720_S3["qp"], settings=s,
+                         sub_gop_length=RA720_S3["sub_gop_length"],
+                         checksum_mode=1)
+    return b"".join(nals), time.perf_counter() - t0
+
+
+def multihost_worker(rank, port, outdir):
+    """One process of phase 13's gloo group (``chip_smoke.py
+    --multihost-rank RANK PORT DIR``): the lookahead over the global mesh
+    (one slot of the card a process) on ``DIR/luma.npy``, then the
+    multihost_gop encode; its maps, stream and times go to DIR."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from xvc_tpu_torch import engine
+    from xvc_tpu_torch.codec import picture_encoder
+    from xvc_tpu_torch.gpu.lookahead import frame_intra_lookahead
+    from xvc_tpu_torch.parallel import multihost
+    from xvc_tpu_torch.restrictions import Restrictions
+    if not multihost.init("127.0.0.1:%s" % port, 2, rank):
+        raise AssertionError("no group formed")
+    luma = np.load(os.path.join(outdir, "luma.npy"))
+    mesh = multihost.global_mesh()
+    engine.set_mesh(mesh)
+    try:
+        frame_intra_lookahead(luma[:64, :64], 8, Restrictions())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = frame_intra_lookahead(luma, 8, Restrictions())
+        torch.cuda.synchronize()
+        lookahead_s = time.perf_counter() - t0
+    finally:
+        engine.set_mesh(None)
+    np.savez(os.path.join(outdir, "maps%d.npz" % rank),
+             **{str(n): maps[n] for n in maps})
+    coded = []
+    encode = picture_encoder.PictureEncoder.encode
+
+    def counted(self, *args):
+        coded.append(self.pic_data.poc)
+        return encode(self, *args)
+
+    picture_encoder.PictureEncoder.encode = counted
+    data, encode_s = gop_profile_encode(1)
+    with open(os.path.join(outdir, "gop%d.bin" % rank), "wb") as f:
+        f.write(data)
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(dict(slots=mesh.size, lookahead_seconds=lookahead_s,
+                       encode_seconds=encode_s, coded_pocs=coded), f)
+    # both ranks are done before either tears the group down
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multihost_pair(torch, luma):
+    """Run the two processes of the gloo group, each bounded by
+    MESH_WORKER_S, while this process encodes the same pictures alone;
+    returns (the ranks' results, the maps and streams, the one-process
+    stream and seconds).  Every process started is ended."""
+    import shutil
+    import socket
+    import numpy as np
+    outdir = os.path.join(ROOT, "build", "multihost")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    np.save(os.path.join(outdir, "luma.npy"), luma)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+         str(rank), port, outdir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        single, single_s = gop_profile_encode(0)
+        logs = []
+        for rank, proc in enumerate(procs):
+            try:
+                logs.append(proc.communicate(timeout=MESH_WORKER_S)[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError("multihost rank %d ran past %d s"
+                                     % (rank, MESH_WORKER_S))
+            if proc.returncode != 0:
+                raise AssertionError("multihost rank %d exited %d:\n%s" % (
+                    rank, proc.returncode, logs[-1][-3000:]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks, maps, streams = [], [], []
+    for rank in range(2):
+        with open(os.path.join(outdir, "rank%d.json" % rank)) as f:
+            ranks.append(json.load(f))
+        with np.load(os.path.join(outdir, "maps%d.npz" % rank)) as z:
+            maps.append({int(n): z[n] for n in z.files})
+        with open(os.path.join(outdir, "gop%d.bin" % rank), "rb") as f:
+            streams.append(f.read())
+    return ranks, maps, streams, single, single_s
+
+
+def phase_mesh(torch, dev, pic0, threads):
+    """Phase 13: multi-device execution on the card's slots
+    (parallel/mesh.py), every path through its entry points with the
+    launch counts set to 0 just before and read just after: the 1280x720
+    lookahead of phase 5 over MESH_SLOTS slots equal to the unsharded
+    maps (one intra_satd launch a slot a size; the n = 4 step unsharded,
+    sharded and one shard timed); ra720_s3 with THREADS picture threads
+    pinned to MESH_SLOTS slots, its stream and reconstructions those of
+    phase 10 (``threads``), ms a picture beside phase 10's; hd720_ld and
+    fhd1080_ra with 4 picture threads pinned to MESH_DECODE_SLOTS slots,
+    to their hash lists, in turns with unmeshed decodes, the reference
+    moves between the slots and their bytes; MESH_REPLAY_STREAM's replay
+    pictures through the block-sharded dispatch (a mesh, no pin), planes
+    equal to the unsharded dispatch's; two processes of a gloo group:
+    the lookahead over the global mesh equal to the unsharded maps, and a
+    multihost_gop encode of ra720_s3's first pictures equal to the same
+    settings in one process; the device bench; a trace of hd720_ld's
+    first TRACE_PICTURES pictures naming the picture kernels."""
+    import numpy as np
+    from xvc_tpu_torch import api, engine, kernels, profiling
+    from xvc_tpu_torch.codec import picture_encoder
+    from xvc_tpu_torch.codec.decoder import decode_stream
+    from xvc_tpu_torch.gpu import analysis, device_bench, dsp, intra_satd
+    from xvc_tpu_torch.gpu import recon
+    from xvc_tpu_torch.gpu.lookahead import SIZES, frame_intra_lookahead
+    from xvc_tpu_torch.nal import write_nal_units
+    from xvc_tpu_torch.parallel import mesh as mesh_mod
+    from xvc_tpu_torch.restrictions import Restrictions
+    out = {}
+    H, W = 720, 1280
+    luma = np.frombuffer(pic0.bytes, np.uint8, count=H * W).reshape(H, W)
+    restr = Restrictions()
+
+    def meshed(slots, fn):
+        engine.set_mesh(mesh_mod.make_mesh([dev] * slots))
+        try:
+            return fn()
+        finally:
+            engine.set_mesh(None)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    # the lookahead
+    ref, plain_s, _ = timed(lambda: frame_intra_lookahead(luma, 8, restr))
+    got, mesh_s, launches = timed(lambda: meshed(
+        MESH_SLOTS, lambda: frame_intra_lookahead(luma, 8, restr)))
+    if sorted(got) != list(SIZES) or any(
+            not np.array_equal(got[n], ref[n]) for n in SIZES):
+        raise AssertionError("phase 13: the sharded lookahead's maps differ "
+                             "from the unsharded")
+    if launches["intra_satd"] != MESH_SLOTS * len(SIZES):
+        raise AssertionError("phase 13: intra_satd launched %d times over %d "
+                             "slots and %d sizes" % (launches["intra_satd"],
+                                                     MESH_SLOTS, len(SIZES)))
+    args = [torch.from_numpy(a).to(dev)
+            for a in analysis.extract_blocks(luma, 4, 8, restr)]
+    blocks = args[0].shape[0]
+    per = blocks // MESH_SLOTS
+    unsharded = analysis.make_intra_satd_fn(4, 8)
+    mesh = mesh_mod.make_mesh([dev] * MESH_SLOTS)
+    sharded = mesh_mod.make_sharded_intra_satd_fn(mesh, 4, 8)
+    if not torch.equal(sharded(*args), unsharded(*args)):
+        raise AssertionError("phase 13: the sharded n = 4 step differs")
+    shard = [a[:per] for a in args]
+    steps = dict(
+        unsharded_ms=cuda_ms(torch, lambda: unsharded(*args), 5),
+        sharded_ms=cuda_ms(torch, lambda: sharded(*args), 5),
+        shard_ms=cuda_ms(torch, lambda: intra_satd.intra_satd(
+            *shard, 4, 8, 1), 5),
+        blocks=blocks, shard_blocks=per)
+    steps.update({"shard_" + k: v for k, v in
+                  intra_satd_bound(per, 4, 67).items()})
+    steps.update({"unsharded_" + k: v for k, v in
+                  intra_satd_bound(blocks, 4, 67).items()})
+    del args, shard
+    out["lookahead"] = dict(unsharded_ms=plain_s * 1e3, mesh_ms=mesh_s * 1e3,
+                            slots=MESH_SLOTS,
+                            intra_satd_launches=launches["intra_satd"],
+                            step_n4=steps)
+    log("phase 13: lookahead 1280x720 over %d slots of the card: maps equal "
+        "the unsharded call's; %.1f ms (unsharded %.1f ms), intra_satd "
+        "launches %d (%d a size); the n = 4 step (%d blocks): unsharded "
+        "%.4f ms, over the slots %.4f ms, one shard of %d blocks %.4f ms "
+        "(its bound %.6f ms by %s)" % (
+            MESH_SLOTS, mesh_s * 1e3, plain_s * 1e3, launches["intra_satd"],
+            MESH_SLOTS, blocks, steps["unsharded_ms"], steps["sharded_ms"],
+            per, steps["shard_ms"], steps["shard_bound_ms"],
+            steps["shard_bound_by"]))
+
+    # the pinned encode: ra720_s3 on THREADS workers over MESH_SLOTS slots
+    Wr, Hr, N = RA720_S3["width"], RA720_S3["height"], RA720_S3["frames"]
+    fs = Wr * Hr * 3 // 2
+    yuv = make_ra720_s3()
+    pins = []
+    orig_encode = picture_encoder.PictureEncoder.encode
+
+    def pinned(self, *a):
+        pins.append(engine.get_pin_device())
+        return orig_encode(self, *a)
+
+    def encode():
+        ses = api.EncoderSession(ra720_s3_params(api, THREADS))
+        nals = []
+        for i in range(N):
+            nals += ses.encode(yuv[i * fs:(i + 1) * fs])
+        return nals + ses.flush(), ses.rec_pictures
+
+    picture_encoder.PictureEncoder.encode = pinned
+    try:
+        (nals, rec), enc_s, launches = timed(
+            lambda: meshed(MESH_SLOTS, encode))
+    finally:
+        picture_encoder.PictureEncoder.encode = orig_encode
+    data = write_nal_units(nals)
+    if hashlib.sha256(data).hexdigest() != threads["stream_sha256"] or \
+            hashlib.sha256(b"".join(rec)).hexdigest() != \
+            threads["rec_sha256"]:
+        raise AssertionError("phase 13: ra720_s3 pinned to slots gives "
+                             "another stream or reconstruction than phase 10")
+    worker_pins = [p for p in pins if p is not None]
+    if len({p.index for p in worker_pins}) < 2:
+        raise AssertionError("phase 13: the pinned encode used slots %r"
+                             % sorted({p.index for p in worker_pins}))
+    for name in ENCODE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError("phase 13: the pinned encode launched no "
+                                 "%s" % name)
+    out["pinned_encode"] = dict(
+        threads=THREADS, slots=MESH_SLOTS, ms_per_picture=enc_s * 1e3 / N,
+        phase10_ms_per_picture=threads["threads%d" % THREADS][
+            "ms_per_picture"],
+        pictures_on_workers=len(worker_pins),
+        slots_used=sorted({p.index for p in worker_pins}),
+        launches={k: v for k, v in launches.items() if v})
+    log("phase 13: ra720_s3 on %d picture threads pinned to %d slots: the "
+        "stream and reconstructions of phase 10 (%s the JAX package's); "
+        "%.1f ms/picture, phase 10's unmeshed %.1f (under torch.profiler); "
+        "slots used %s; launches %s" % (
+            THREADS, MESH_SLOTS, "equal to" if threads["equal"]
+            else "inside the carve-out of", out["pinned_encode"][
+                "ms_per_picture"], out["pinned_encode"][
+                "phase10_ms_per_picture"], out["pinned_encode"]["slots_used"],
+            out["pinned_encode"]["launches"]))
+
+    # the pinned decodes, in turns with unmeshed ones
+    for name, nthreads in THREADED_STREAMS:
+        with open(os.path.join(DATA, "bench", name + ".xvc"), "rb") as f:
+            stream = f.read()
+        runs = {"mesh": [], "plain": []}
+        moves = []
+        for kind in ("mesh", "plain", "plain", "mesh"):
+            before = dict(dsp.STATS)
+            if kind == "mesh":
+                pics, dt, launches = meshed(
+                    MESH_DECODE_SLOTS, lambda: timed_session(
+                        torch, name, stream, {}, nthreads))
+                moves.append((dsp.STATS["moves"] - before["moves"],
+                               dsp.STATS["move_bytes"] -
+                               before["move_bytes"]))
+            else:
+                pics, dt, launches = timed_session(torch, name, stream, {},
+                                                   nthreads)
+            runs[kind].append(dt * 1e3 / len(pics))
+        if not all(m > 0 for m, _ in moves):
+            raise AssertionError("phase 13: %s moved no reference between "
+                                 "the slots: %r" % (name, moves))
+        for kernel in DECODE_KERNELS:
+            if launches[kernel] <= 0:
+                raise AssertionError("phase 13: %s launched no %s pinned"
+                                     % (name, kernel))
+        out[name + "_pinned"] = dict(
+            threads=nthreads, slots=MESH_DECODE_SLOTS,
+            ms_per_picture=runs["mesh"],
+            unmeshed_ms_per_picture=runs["plain"],
+            moves=[m for m, _ in moves], move_bytes=[b for _, b in moves])
+        log("phase 13: %s with %d picture threads pinned to %d slots: %d "
+            "pictures equal to its hash list; ms/picture %s, unmeshed %s (in "
+            "turns); reference moves between the slots %s, bytes %s" % (
+                name, nthreads, MESH_DECODE_SLOTS, len(pics), runs["mesh"],
+                runs["plain"], out[name + "_pinned"]["moves"],
+                out[name + "_pinned"]["move_bytes"]))
+
+    # the block-sharded replay dispatch
+    orig_half = recon.Reconstructor._device_half
+    halves = []
+
+    def twice(self, leaves, lmeta, cmeta):
+        orig_half(self, leaves, lmeta, cmeta)
+        want = [None if t is None else t.clone() for t in
+                (self.plane_l, self.rpad_l, self.plane_c, self.rpad_c)]
+        kernels.reset_launches()
+        meshed(MESH_SLOTS, lambda: orig_half(self, leaves, lmeta, cmeta))
+        got = (self.plane_l, self.rpad_l, self.plane_c, self.rpad_c)
+        if any((w is None) != (g is None) or
+               (w is not None and not torch.equal(w, g))
+               for w, g in zip(want, got)):
+            raise AssertionError("phase 13: the sharded dispatch of %s poc "
+                                 "%d differs" % (MESH_REPLAY_STREAM,
+                                                 self.pd.poc))
+        halves.append((kernels.LAUNCHES["itx_picture"],
+                       kernels.LAUNCHES["mc_picture"]))
+
+    with open(os.path.join(DATA, "bench", MESH_REPLAY_STREAM + ".xvc"),
+              "rb") as f:
+        stream = f.read()
+    recon.Reconstructor._device_half = twice
+    try:
+        pics = decode_stream(stream, device=dev)
+    finally:
+        recon.Reconstructor._device_half = orig_half
+    check_hashes(MESH_REPLAY_STREAM, pics, *read_hashes(os.path.join(
+        DATA, "bench", MESH_REPLAY_STREAM + "_dec.sha256")))
+    if not halves or any(itx != MESH_SLOTS for itx, _ in halves):
+        raise AssertionError("phase 13: itx_picture launches a sharded "
+                             "dispatch: %r" % (halves,))
+    out["sharded_replay"] = dict(pictures=len(halves), slots=MESH_SLOTS,
+                                 launches_per_picture=halves)
+    log("phase 13: %s: %d replay pictures through the block-sharded "
+        "dispatch over %d slots, planes equal to the unsharded dispatch's, "
+        "the decode equal to its hash list; (itx_picture, mc_picture) "
+        "launches a picture %s" % (MESH_REPLAY_STREAM, len(halves),
+                                   MESH_SLOTS, halves))
+
+    # two processes of a gloo group
+    ranks, maps, streams, single, single_s = multihost_pair(torch, luma)
+    for rank in range(2):
+        if sorted(maps[rank]) != list(SIZES) or any(
+                not np.array_equal(maps[rank][n], ref[n]) for n in SIZES):
+            raise AssertionError("phase 13: rank %d's lookahead over the "
+                                 "global mesh differs" % rank)
+        if streams[rank] != single:
+            raise AssertionError("phase 13: rank %d's multihost_gop stream "
+                                 "differs from the one-process encode"
+                                 % rank)
+    coded = [r["coded_pocs"] for r in ranks]
+    if not all(coded) or sorted(coded[0] + coded[1]) != \
+            list(range(MESH_GOP_PICTURES)):
+        raise AssertionError("phase 13: the ranks coded pictures %r"
+                             % (coded,))
+    out["multihost"] = dict(
+        global_slots=ranks[0]["slots"],
+        lookahead_ms=[r["lookahead_seconds"] * 1e3 for r in ranks],
+        encode_seconds=[r["encode_seconds"] for r in ranks],
+        one_process_encode_seconds=single_s, coded_pocs=coded,
+        bytes=len(single))
+    log("phase 13: two processes of a gloo group on the card: the lookahead "
+        "over the global mesh (%d slots) equal to the unsharded maps, %s ms "
+        "a rank; a multihost_gop encode of ra720_s3's first %d pictures "
+        "(speed 3, the GOP pipeline profile) %d bytes in both ranks, equal "
+        "to the one-process encode; POCs coded by each rank %s; seconds %s "
+        "(one process alone: %.1f s, run beside them)" % (
+            ranks[0]["slots"], [round(v, 1) for v in
+                                out["multihost"]["lookahead_ms"]],
+            MESH_GOP_PICTURES, len(single), coded,
+            [round(v, 1) for v in out["multihost"]["encode_seconds"]],
+            single_s))
+
+    # the device bench
+    out["device_bench"] = dict(mc=device_bench.mc_device_bench(),
+                               itx=device_bench.itx_device_bench())
+    log("phase 13: device bench %s" % json.dumps(out["device_bench"]))
+
+    # a trace of hd720_ld's first pictures
+    with open(os.path.join(DATA, "bench", "hd720_ld.xvc"), "rb") as f:
+        stream = f.read()
+    decode_stream(stream, max_pics=TRACE_PICTURES)
+    profiling.start_trace(os.path.join(ROOT, "build", "trace"))
+    try:
+        decode_stream(stream, max_pics=TRACE_PICTURES)
+        torch.cuda.synchronize()
+    finally:
+        path = profiling.stop_trace()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {ev.get("name", "") for ev in events}
+    found = sorted(n for n in names if "picture_kernel" in n)
+    spans = sorted(n for n in names if n.startswith("decode."))
+    if not any("itx_picture_kernel" in n for n in found) or \
+            not any("mc_picture_kernel" in n for n in found):
+        raise AssertionError("phase 13: the trace names no picture kernel: "
+                             "%r" % found)
+    out["trace"] = dict(events=len(events), bytes=os.path.getsize(path),
+                        picture_kernels=found, spans=spans)
+    log("phase 13: trace of hd720_ld's first %d pictures: %d events, %d "
+        "bytes, kernels %s, spans %s" % (TRACE_PICTURES, len(events),
+                                         out["trace"]["bytes"], found, spans))
+    return out
+
+
 def phase_resampling(torch):
     """Phase 7: the decoder paths that resample, through the default
     entry points (no device argument: the card).  The splice
@@ -4560,7 +5004,9 @@ def phase_threads(torch, dev):
     data = write_nal_units(nals)
     equal = hashlib.sha256(data).hexdigest() == ref["sha256"]
     out.update(bytes=len(data), jax_bytes=ref["bytes"], equal=equal,
-               prepass_pictures=pictures)
+               prepass_pictures=pictures,
+               stream_sha256=hashlib.sha256(data).hexdigest(),
+               rec_sha256=hashlib.sha256(b"".join(rec)).hexdigest())
     if not equal:
         out.update(carve_out("phase 10: ra720_s3", nals, psnr, ref,
                              pictures))
@@ -5168,6 +5614,8 @@ def phase_b15(torch, dev):
 
 def main():
     args = sys.argv[1:]
+    if args[:1] == ["--multihost-rank"] and len(args) == 4:
+        return multihost_worker(int(args[1]), args[2], args[3])
     if args and (len(args) != 2 or args[0] != "--parent"):
         print("usage: chip_smoke.py [--parent TREE]", file=sys.stderr)
         return 2
@@ -5229,6 +5677,7 @@ def main():
     threads = phase("10", phase_threads, torch, dev)
     tiles = phase("11", phase_tiles, torch, dev)
     b15 = phase("12", phase_b15, torch, dev)
+    mesh = phase("13", phase_mesh, torch, dev, pic0, threads)
     log("phase seconds: %s" % (
         {k: round(v, 1) for k, v in phase_seconds.items()},))
     for module in ("jax", "xvc_tpu"):
@@ -5249,7 +5698,7 @@ def main():
                     "lookahead": look, "encode": enc,
                     "python_cu": python_cu,
                     "python_cu_inter": python_cu_inter,
-                    "threads": threads, "tiles": tiles,
+                    "threads": threads, "tiles": tiles, "mesh": mesh,
                     "b15": {k: v for k, v in b15.items() if k != "kernels"},
                     "me_sad": {k: res["me_sad"][k] for k in (
                         "cases", "sweeps", "device_ms", "device_staging_ms",

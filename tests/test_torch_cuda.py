@@ -1601,9 +1601,10 @@ def test_me_prefetch_call_is_one_launch_between_two_copies(cuda):
     assert len(tabs[cuda].cache) == len(set(mvs))
     assert kernels.LAUNCHES["me_sad"] == 1
     assert me.STATS["reference_uploads"] == 2  # one a device
+    assert set(pic.device_luma[1]) == {torch.device("cpu"), cuda}
     np.testing.assert_array_equal(
-        pic.device_luma[1].cpu().numpy(), pic.padded_plane(0))
-    assert pic.device_luma[1].device.type == "cuda"
+        pic.device_luma[1][cuda].cpu().numpy(), pic.padded_plane(0))
+    assert pic.device_luma[1][cuda].device.type == "cuda"
 
     def call():
         tab = me.DeviceSadTable(None, Cu(), metric, pic, orig, cuda)
@@ -1825,3 +1826,85 @@ def test_b15_python_parse_of_hd720_ld_equals_the_native_route(cuda,
     python = decode_stream(data, device=cuda, max_pics=2)
     assert all(p.conforming for p in python)
     assert [p.bytes for p in python] == [p.bytes for p in native]
+
+
+def _mesh_of(slots):
+    from xvc_tpu_torch import engine
+    from xvc_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(slots)
+    engine.set_mesh(mesh)
+    return mesh
+
+
+def test_mesh_lookahead_on_two_slots_equals_unsharded(cuda):
+    """The 720p-wide lookahead over two slots of the card (one stream
+    each): the unsharded maps, one ``intra_satd`` launch a slot a size."""
+    from xvc_tpu_torch import engine
+    rng = np.random.RandomState(11)
+    frame = rng.randint(0, 256, size=(96, 1280)).astype(np.int32)
+    ref = lookahead.frame_intra_lookahead(frame, 8, Restrictions(),
+                                          device=cuda)
+    mesh = _mesh_of([cuda, cuda])
+    assert mesh.slots[0].stream is not mesh.slots[1].stream
+    kernels.reset_launches()
+    try:
+        got = lookahead.frame_intra_lookahead(frame, 8, Restrictions(),
+                                              device=cuda)
+    finally:
+        engine.set_mesh(None)
+    assert kernels.LAUNCHES["intra_satd"] == 2 * len(ref)
+    for n in ref:
+        np.testing.assert_array_equal(got[n], ref[n])
+
+
+@pytest.mark.parametrize("threads", [0, 4])
+def test_mesh_pinned_decode_on_two_slots_equals_unmeshed(cuda, monkeypatch,
+                                                         threads):
+    """hd720_ld decoded with a mesh of two slots of the card, each picture
+    pinned (all to one slot sequentially; pairs rotating with 4 picture
+    threads, whose references then move between the slots' stores): its
+    hash list."""
+    from xvc_tpu_torch import engine
+    from xvc_tpu_torch.gpu import dsp
+    monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
+    with open(data_path("bench/hd720_ld_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+    _mesh_of([cuda, cuda])
+    moves = dsp.STATS["moves"]
+    try:
+        pics = decode_stream(read_data("bench/hd720_ld.xvc"), device=cuda,
+                             num_threads=threads)
+    finally:
+        engine.set_mesh(None)
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    assert all(p.conforming for p in pics)
+    assert (dsp.STATS["moves"] > moves) == (threads > 0)
+
+
+def test_mesh_sharded_replay_dispatch_on_two_slots(cuda, monkeypatch):
+    """ld64x48 (LIC: the replay path) decoded on the card, each replay
+    picture's device half run unsharded and then over two slots with no
+    pin: equal canvases, and the golden."""
+    from xvc_tpu_torch import engine
+    from xvc_tpu_torch.gpu import recon
+    orig = recon.Reconstructor._device_half
+    checked = []
+
+    def twice(self, leaves, lmeta, cmeta):
+        orig(self, leaves, lmeta, cmeta)
+        ref = [None if t is None else t.clone() for t in
+               (self.plane_l, self.rpad_l, self.plane_c, self.rpad_c)]
+        _mesh_of([cuda, cuda])
+        try:
+            orig(self, leaves, lmeta, cmeta)
+        finally:
+            engine.set_mesh(None)
+        for r, g in zip(ref, (self.plane_l, self.rpad_l, self.plane_c,
+                              self.rpad_c)):
+            assert (r is None and g is None) or torch.equal(r, g)
+        checked.append(self.pd.poc)
+
+    monkeypatch.setattr(recon.Reconstructor, "_device_half", twice)
+    pics = decode_stream(read_data("ld64x48.xvc"), device=cuda)
+    assert checked
+    assert b"".join(p.bytes for p in pics) == read_data("ld64x48_dec.yuv")

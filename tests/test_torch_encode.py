@@ -264,13 +264,14 @@ def test_session_chroma_formats_equal_the_jax_package_s(case):
 
 
 # Settings the JAX package codes with its Python CU encoder or on picture
-# threads.  The port refuses, when the session is set up, those that need
-# a part of it that is not ported (the ROADMAP queue 1 item that would
-# lift each refusal), and encodes the others byte for byte as the JAX
-# package does.
+# threads, which the port encodes byte for byte as the JAX package does;
+# and settings both packages refuse when the session is set up, with the
+# same error: multihost_gop without the GOP pipeline's restriction
+# profile (with it, test_multihost_gop_in_one_process_equals_the_jax_
+# package; across processes, tests/test_torch_multihost.py).
 REJECTED = {
     "multihost_gop": (dict(explicit_encoder_settings="multihost_gop 1"),
-                      "item 7"),
+                      "GOP pipeline restriction profile"),
 }
 ENCODED = {
     "tpu_intra_lookahead": dict(
@@ -292,16 +293,20 @@ ENCODED = {
 
 @pytest.mark.parametrize("name", sorted(REJECTED) + sorted(ENCODED))
 def test_settings_that_need_the_python_cu_encoder_raise(name, monkeypatch):
-    """A refused setting raises NotImplementedError naming its ROADMAP
-    item; an encoded one gives the JAX package's NALs (64x48, one
+    """A refused setting raises the JAX package's ValueError, word for
+    word; an encoded one gives the JAX package's NALs (64x48, one
     picture, or ``frames``)."""
     monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
     w, h = 64, 48
     if name in REJECTED:
-        kw, item = REJECTED[name]
-        with pytest.raises(NotImplementedError, match=item):
-            api.EncoderSession(api.EncoderParameters(
-                width=w, height=h, **kw), device="cpu")
+        kw, match = REJECTED[name]
+        errors = []
+        for module, extra in ((japi, {}), (api, {"device": "cpu"})):
+            with pytest.raises(ValueError, match=match) as err:
+                module.EncoderSession(module.EncoderParameters(
+                    width=w, height=h, **kw), **extra)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
         return
     kw = dict(ENCODED[name])
     frames = kw.pop("frames", 1)
@@ -313,6 +318,36 @@ def test_settings_that_need_the_python_cu_encoder_raise(name, monkeypatch):
     assert (ses._enc.pipeline is not None) == ("threads" in kw)
     got, _ = session_encode(ses, yuv, w, h, frames)
     assert got == want
+
+
+def test_multihost_gop_in_one_process_equals_the_jax_package():
+    """multihost_gop with ``GOP_PIPELINE_PROFILE`` in a single process
+    (no group: every picture is this process's, and the broadcasts hand
+    each picture back to itself): the JAX package's NALs, which are also
+    the port's without multihost_gop."""
+    from xvc_tpu.parallel.multihost import GOP_PIPELINE_PROFILE as JAX_GOP
+    from xvc_tpu_torch.parallel.multihost import GOP_PIPELINE_PROFILE
+    assert GOP_PIPELINE_PROFILE == JAX_GOP
+    w, h, f = 32, 24, 5
+    yuv = txrd_clip(w, h, f)
+
+    def settings(cls, mh):
+        s = cls()
+        s.initialize_speed(2)
+        s.explicit_restrictions = GOP_PIPELINE_PROFILE
+        s.multihost_gop = mh
+        return s
+
+    kw = dict(qp=30, sub_gop_length=4, num_ref_pics=1)
+    want = write_nal_units(jax_encode_stream(
+        yuv, w, h, f, settings=settings(JaxSettings, 1), **kw))
+    got = write_nal_units(encode_stream(
+        yuv, w, h, f, settings=settings(EncoderSettings, 1), device="cpu",
+        **kw))
+    plain = write_nal_units(encode_stream(
+        yuv, w, h, f, settings=settings(EncoderSettings, 0), device="cpu",
+        **kw))
+    assert got == want == plain
 
 
 @pytest.mark.parametrize("switch", ["XVC_ME", "XVC_INTRA_PREPASS"])

@@ -247,7 +247,10 @@ def test_device_sad_table_fills_the_jax_cache(case, bitdepth):
         assert me.STATS["host_routed"] == 0
         # the sweep read the reference's padded luma, copied once
         assert me.STATS["reference_uploads"] == 1
-        np.testing.assert_array_equal(ref.device_luma[1].numpy(), plane)
+        # one copy a device: (generation, {device: plane})
+        assert list(ref.device_luma[1]) == [torch.device("cpu")]
+        np.testing.assert_array_equal(
+            ref.device_luma[1][torch.device("cpu")].numpy(), plane)
     else:
         assert not tab.cache
         assert me.STATS["device_calls"] == 0

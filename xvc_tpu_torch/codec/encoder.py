@@ -12,18 +12,20 @@ pictures.  With ``num_threads > 0`` the pictures of a sub-GOP burst are
 coded on worker threads
 (``parallel/pipeline.EncodePipeline``), each once its reference pictures
 are reconstructed, and harvested in DOC order on the session's thread:
-the same stream as the sequential encode.  The workers issue their
-device work on the card's current stream, which is the same default
-stream in every thread; a pool clamped to one worker takes the
-sequential path.  What is not ported raises ``NotImplementedError`` when
-the session is set up, never mid-stream: the cross-host GOP pipeline
-(ROADMAP queue 1 item 7).
+the same stream as the sequential encode.  With a mesh installed
+(``engine.set_mesh``) each worker is pinned to slot ``doc % n`` of this
+process's slots, where its picture's lookahead and motion-search sweeps
+run; a pool clamped to one worker takes the sequential path.  With
+``multihost_gop`` (``xvc_tpu/codec/encoder.py:151-163``, ``:444-452``)
+the pictures are split over the processes of a ``torch.distributed``
+group by DOC (``parallel/multihost.py``): the owner codes a picture and
+sends its NAL bytes and reconstruction to the others.
 """
 import numpy as np
 
 from .. import constants as k
 from .. import segment as seg
-from ..engine import resolve_device
+from ..engine import mesh_for, resolve_device
 from ..parallel.pipeline import EncodePipeline, _pool_size
 from .encoder_settings import EncoderSettings
 from .picture_encoder import PictureEncoder
@@ -65,6 +67,7 @@ class Encoder:
         self.segment_header.soc = 0
         self.prev_segment_header = seg.SegmentHeader()
         self.settings = EncoderSettings()
+        self.multihost_gop = False
         self.input_bitdepth = 8
         self.framerate = 60.0
         self.segment_length = 640
@@ -134,10 +137,6 @@ class Encoder:
     def set_encoder_settings(self, settings):
         """(ref: encoder.cc:202-230)"""
         assert self.poc == 0
-        if settings.multihost_gop:
-            raise NotImplementedError(
-                "multihost_gop (the cross-host GOP pipeline) is not ported "
-                "(ROADMAP queue 1 item 7)")
         self.settings = settings
         sh = self.segment_header
         sh.num_ref_pics = settings.default_num_ref_pics
@@ -168,6 +167,20 @@ class Encoder:
             if not hasattr(restr, name):
                 raise ValueError("unknown restriction flag: %r" % (name,))
             setattr(restr, name, True)
+        self.multihost_gop = bool(settings.multihost_gop)
+        if self.multihost_gop:
+            # the processes exchange only the reconstruction planes; the
+            # TMVP motion fields stay in the process that coded them, so
+            # the signaled planes-only profile is mandatory
+            from ..parallel.multihost import GOP_PIPELINE_PROFILE
+            missing = [n for n in GOP_PIPELINE_PROFILE
+                       if not getattr(restr, n)]
+            if missing:
+                raise ValueError(
+                    "multihost_gop requires the GOP pipeline restriction "
+                    "profile; missing: %s (set settings."
+                    "explicit_restrictions = multihost.GOP_PIPELINE_PROFILE)"
+                    % ", ".join(missing))
 
     # ---- encoding ----
     def encode(self, pic_bytes, user_data=0):
@@ -431,9 +444,31 @@ class Encoder:
                               sh.leading_pictures)
         buffer_flag = 1 if pic_enc.buffer_flag else 0
         if self.pipeline is not None:
+            # GOP across slots: each in-flight picture owns a slot for its
+            # lookahead and motion search (on a mesh spanning processes,
+            # one of this process's slots)
+            mesh = mesh_for(self.device)
+            slot = None if mesh is None else \
+                mesh.local_slots[self.doc % len(mesh.local_slots)]
             job = self.pipeline.submit(pic_enc, deps, sh, self.segment_qp,
-                                       buffer_flag, self.settings)
+                                       buffer_flag, self.settings, slot)
             self._encode_jobs.append((pic_enc, deps, job))
+        elif self.multihost_gop:
+            # pictures split over the processes by DOC; the owner's NAL
+            # bytes and reconstruction go to every other process
+            from ..parallel import multihost
+            mesh = mesh_for(self.device)
+            if mesh is not None and mesh.multiprocess:
+                # only the owner codes the picture: a collective of the
+                # sharded lookahead would wait for the other processes
+                raise RuntimeError("multihost_gop codes a picture in one "
+                                   "process; install no mesh spanning "
+                                   "processes for it")
+            owner = self.doc % multihost.process_count()
+            nal_bytes = multihost.encode_or_receive(self, pic_enc, sh,
+                                                    owner)
+            pic_enc.output_status = "finished"
+            self._on_picture_encoded(pic_enc, deps, nal_bytes)
         else:
             nal_bytes = pic_enc.encode(sh, self.segment_qp, buffer_flag,
                                        self.settings)

@@ -12,7 +12,7 @@ int16 surface of the padded plane geometry (``begin_native16``,
 ``rec16``) and reads its references' from the same surfaces
 (``shadow16``); the int32 planes are filled from that surface when a
 host reader asks for them.  The motion search keeps a copy of a
-reference picture's padded luma on its device (``device_luma``,
+reference picture's padded luma on each device (``device_luma``,
 ``gpu/me.reference_luma``); a recycled buffer (``PictureEncoder.
 init_pic``) and a new border (``pad_border``) drop it
 (``drop_device_luma``).
@@ -47,9 +47,9 @@ class YuvPicture:
              self.width[c] + 2 * self.pad_x[c]) for c in range(3)]
         self.planes = [np.zeros(self._plane_shapes[c], dtype=np.int32)
                        for c in range(3)]
-        # the motion search's copy of the padded luma on a device
-        # (generation, tensor), valid while ``luma_generation`` is the
-        # one it was taken at
+        # the motion search's copies of the padded luma, one a device
+        # (generation, {device: tensor}), valid while
+        # ``luma_generation`` is the one they were taken at
         self.device_luma = None
         self.luma_generation = 0
 

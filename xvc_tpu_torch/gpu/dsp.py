@@ -311,13 +311,14 @@ def pad_pow2(n):
 # transfer and dispatch counts (uploads per picture: one per dtype),
 # counted under a lock by the workers of a threaded decode
 STATS = {"uploads": 0, "upload_bytes": 0, "downloads": 0,
-         "download_bytes": 0, "dispatches": 0}
+         "download_bytes": 0, "dispatches": 0, "moves": 0, "move_bytes": 0}
 _STATS_LOCK = threading.Lock()
 
 
 def count_transfer(kind, nbytes=0):
-    """One more ``kind`` ("uploads", "downloads" or "dispatches") in
-    ``STATS``, with its bytes."""
+    """One more ``kind`` ("uploads", "downloads", "moves": a reference
+    plane copied from one mesh slot's frame store to another's, or
+    "dispatches") in ``STATS``, with its bytes."""
     with _STATS_LOCK:
         STATS[kind] += 1
         if kind != "dispatches":

@@ -21,9 +21,15 @@ Steps 1-4 and the store are shared with the replay path of the pictures
 this path refuses (``gpu/recon.py``, whose ``Reconstructor`` subclasses
 ``FlatReconstructor``; ``ineligible_reason`` says which).
 
-Reference pictures live in a per-device ``FrameStore`` (int16 (S, Hp,
-Wp) luma and (S, 2, Hp, Wp) chroma), written in place with ``copy_``
-(the JAX version's donated ``_store_set3``/``_store_set4``).  The padded
+Reference pictures live in a ``FrameStore`` a place (int16 (S, Hp, Wp)
+luma and (S, 2, Hp, Wp) chroma), written in place with ``copy_`` (the
+JAX version's donated ``_store_set3``/``_store_set4``).  A place is the
+mesh slot the thread is pinned to (``engine.set_pin_device``), else the
+device: a picture decoded on one slot is moved into another slot's
+store once, when a picture there first reads it (``ensure_slot``,
+counted in ``dsp.STATS["moves"]``).  Under a mesh with no pin the replay
+path shares its ITX and MC jobs over the mesh's slots
+(``_dispatch_sharded``).  The padded
 geometry is the JAX version's (``_padded_shape``), so MC window clamping
 matches.  A picture's slots hang on ``rec_pic._torch_slots``, never on
 the JAX package's ``_dev_slots``.
@@ -42,6 +48,8 @@ import numpy as np
 import torch
 
 from .. import constants as k
+from ..engine import get_pin_device, mesh_for, pin_for
+from ..parallel import mesh as mesh_mod
 from ..profiling import span
 from ..restrictions import Restrictions
 from . import dsp
@@ -72,10 +80,11 @@ class FrameStore:
     superstacks (an MC launch already issued reads the old ones, which
     hold every slot it can name)."""
 
-    def __init__(self, luma_shape, chroma_shape, device, n0=8):
+    def __init__(self, luma_shape, chroma_shape, device, key, n0=8):
         self.luma_shape = luma_shape
         self.chroma_shape = chroma_shape  # None for monochrome
         self.device = device
+        self.key = key
         self.n = 0
         self.free = []
         self.released = []  # slots of pictures that died, not yet free
@@ -151,15 +160,28 @@ def _padded_shape(rec_pic, comp):
     return padded_shape(*rec_pic._plane_shapes[comp])
 
 
+def place_key(device):
+    """The key of the frame stores of ``device`` for this thread: the
+    slot it is pinned to where that slot lies on ``device``, else the
+    device itself."""
+    pin = get_pin_device()
+    if pin is not None and pin.device == torch.device(device):
+        return pin.key
+    return str(device)
+
+
 def get_store(rec_pic, device):
+    """The store of the picture's geometry at this thread's place on
+    ``device`` (``place_key``)."""
     ls = _padded_shape(rec_pic, 0)
     cs = _padded_shape(rec_pic, 1) \
         if rec_pic.chroma_format != k.ChromaFormat.MONOCHROME else None
-    key = (ls, cs, str(device))
+    place = place_key(device)
+    key = (ls, cs, place)
     with _STORE_LOCK:
         st = _STORES.get(key)
         if st is None:
-            st = _STORES[key] = FrameStore(ls, cs, device)
+            st = _STORES[key] = FrameStore(ls, cs, device, place)
         return st
 
 
@@ -186,7 +208,7 @@ def _register(rec_pic, store, slot):
     # a finalizer frees the slot when the picture object dies, so
     # sessions that end without recycling their buffers leak no slots
     fin = weakref.finalize(rec_pic, store.release_later, slot)
-    _slot_map(rec_pic)[str(store.device)] = (store, slot, fin)
+    _slot_map(rec_pic)[store.key] = (store, slot, fin)
     return slot
 
 
@@ -199,18 +221,51 @@ def frame_store_put(rec_pic, dev_planes, device):
 
 
 def ensure_slot(rec_pic, device):
-    """Slot of a reference picture; a picture never written by this
-    package (decoded elsewhere, or an alternative reconstruction that
-    several workers' pictures may ask for at once) uploads its host
-    padded planes once."""
+    """Slot of a reference picture in the store of this thread's place
+    on ``device`` (``place_key``).  A picture stored at another place
+    (another mesh slot) has its padded planes copied from that store,
+    once (the JAX package's device-to-device move, ``xvc_tpu/tpu/
+    flat_recon.py:220-260``); a picture never written by this package
+    (decoded elsewhere, or an alternative reconstruction that several
+    workers' pictures may ask for at once) uploads its host padded
+    planes once."""
     with _STORE_LOCK:
         return _ensure_slot(rec_pic, device)
 
 
+def _move_planes(src, device):
+    """The padded planes of the store entry ``src`` (store, slot, _) on
+    ``device`` (views where it is the source's device), for a ``put`` on
+    the current stream.  The source was written on its own slot's stream
+    before its picture's download (a host sync), which comes before any
+    dependent picture starts; the allocator keeps the source superstacks
+    until this stream has read them, even if their store grows
+    meanwhile."""
+    store, slot, _ = src
+    luma, chroma = store.stacks()
+    stream = mesh_mod.current_stream(device)
+    parts = [luma[slot]]
+    if chroma is not None:
+        parts += [chroma[2 * slot], chroma[2 * slot + 1]]
+    planes = {}
+    for comp, part in enumerate(parts):
+        if stream is not None and part.device == stream.device:
+            part.record_stream(stream)
+        planes[comp] = part.to(device)  # the store's put copies it
+        dsp.count_transfer("moves", part.numel() * part.element_size())
+    return planes
+
+
 def _ensure_slot(rec_pic, device):
-    ent = _slot_map(rec_pic).get(str(device))
+    slots = _slot_map(rec_pic)
+    ent = slots.get(place_key(device))
     if ent is not None:
         return ent[1]
+    store = get_store(rec_pic, device)
+    src = next(iter(slots.values()), None)
+    if src is not None:
+        return _register(rec_pic, store,
+                         store.put(_move_planes(src, device)))
     ncomp = 1 if rec_pic.chroma_format == k.ChromaFormat.MONOCHROME else 3
     planes = {}
     for comp in range(ncomp):
@@ -220,7 +275,6 @@ def _ensure_slot(rec_pic, device):
                              (0, tw - base.shape[1])), mode="edge")
         planes[comp] = torch.from_numpy(host).to(device)
         dsp.count_transfer("uploads", host.nbytes)
-    store = get_store(rec_pic, device)
     return _register(rec_pic, store, store.put(planes))
 
 
@@ -401,11 +455,14 @@ class FlatReconstructor:
         have_inter = bool(((leaves[:, C_TREE] == 0) &
                            (leaves[:, C_PRED] == 1)).any())
 
+        # a mesh and no pin: the ITX and MC jobs are shared over the slots
+        mesh = mesh_for(dev) if pin_for(dev) is None else None
         with span(stage + ".upload"):
             # the records and the arena go up as they are: the kernels
-            # derive every ITX and MC job from them
+            # derive every ITX and MC job from them (the decode-order
+            # leaves alone when the slots take ranges of them)
             batch = dsp.DevBatch()
-            h_rec = batch.add(rec_arr)
+            h_rec = batch.add(rec_arr if mesh is None else leaves)
             h_coeff = batch.add(pd._parse_coeff)
             if have_inter:
                 h_refs = batch.add(self._ref_tables())
@@ -417,30 +474,18 @@ class FlatReconstructor:
                                       for h in metas]
 
         with span(stage + ".dispatch"):
-            zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+            planes = self._zero_planes(dev)
+            resi_l, resi_c, pred_l, mask_l, pred_c, mask_c = planes
             records = batch.get(h_rec)
-            resi_l = zeros((1, H, W), torch.int32)
-            resi_c = zeros((2, Hc, Wc), torch.int32) if not self.mono else None
-            dsp.count_transfer("dispatches")
-            itx.itx_picture(resi_l, resi_c, records, batch.get(h_coeff),
-                            qp_scales, self.bitdepth, self.hp_tx,
-                            self.restr.disable_ext2_transform_dst,
-                            pd.chroma_shift_x, pd.chroma_shift_y)
-
-            # prediction planes + bi coverage masks; channel layout
-            # chan = dslot * nplanes + plane (slot-0 planes first)
-            pred_l = zeros((2, H, W), torch.int16)
-            mask_l = zeros((1, H, W), torch.int16)
-            pred_c = mask_c = chroma_stack = None
-            if not self.mono:
-                pred_c = zeros((4, Hc, Wc), torch.int16)
-                mask_c = zeros((2, Hc, Wc), torch.int16)
-            if have_inter:
-                luma_stack, chroma_stack = get_store(self.rec, dev).stacks()
-                dsp.count_transfer("dispatches")
-                mc_kernel.mc_picture(pred_l, mask_l, pred_c, mask_c, records,
-                                     batch.get(h_refs), luma_stack,
-                                     chroma_stack, self._mc_flags())
+            refs = batch.get(h_refs) if have_inter else None
+            if mesh is not None:
+                self._dispatch_sharded(mesh, planes, records,
+                                       batch.get(h_coeff), refs)
+            else:
+                self._dispatch(planes, records, batch.get(h_coeff),
+                               qp_scales, refs,
+                               get_store(self.rec, dev).stacks()
+                               if have_inter else None)
 
             plane_l, rpad_l = combine(pred_l, mask_l, resi_l, H, W, ph, pw,
                                       self.bitdepth)
@@ -449,6 +494,101 @@ class FlatReconstructor:
             if not self.mono:
                 self.plane_c, self.rpad_c = combine(
                     pred_c, mask_c, resi_c, Hc, Wc, phc, pwc, self.bitdepth)
+
+    def _zero_planes(self, dev):
+        """Zero residual planes (int32 (1, H, W) luma, (2, Hc, Wc) chroma)
+        and prediction planes and bi coverage masks (int16 (2, H, W) and
+        (1, H, W) luma, (4, Hc, Wc) and (2, Hc, Wc) chroma; channel
+        chan = dslot * nplanes + plane, slot-0 planes first) on ``dev``;
+        chroma None for monochrome."""
+        zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        H, W = self.pd.height, self.pd.width
+        Hc, Wc = self.rec.height[1], self.rec.width[1]
+        chroma = not self.mono
+        return (zeros((1, H, W), torch.int32),
+                zeros((2, Hc, Wc), torch.int32) if chroma else None,
+                zeros((2, H, W), torch.int16), zeros((1, H, W), torch.int16),
+                zeros((4, Hc, Wc), torch.int16) if chroma else None,
+                zeros((2, Hc, Wc), torch.int16) if chroma else None)
+
+    def _dispatch(self, planes, records, coeff, qp_scales, refs, stacks):
+        """``itx_picture`` and, where the picture has inter leaves (refs
+        and the store's ``stacks`` not None), ``mc_picture`` of the rows
+        ``records`` into ``planes`` (``_zero_planes``), on the current
+        stream of their device."""
+        pd = self.pd
+        resi_l, resi_c, pred_l, mask_l, pred_c, mask_c = planes
+        dsp.count_transfer("dispatches")
+        itx.itx_picture(resi_l, resi_c, records, coeff, qp_scales,
+                        self.bitdepth, self.hp_tx,
+                        self.restr.disable_ext2_transform_dst,
+                        pd.chroma_shift_x, pd.chroma_shift_y)
+        if refs is not None:
+            dsp.count_transfer("dispatches")
+            mc_kernel.mc_picture(pred_l, mask_l, pred_c, mask_c, records,
+                                 refs, stacks[0], stacks[1],
+                                 self._mc_flags())
+
+    def _dispatch_sharded(self, mesh, planes, leaves, coeff, refs):
+        """The block-sharded dispatch (``xvc_tpu/tpu/recon.py:62-69``,
+        ``_launch_itx_sharded`` :374, ``_launch_mc_sharded`` :401): each
+        of this process's slots takes a contiguous range of the
+        decode-order leaves (an affine CU is one leaf, so its subblocks
+        never split), the arena and the referenced store slots (copied to
+        the slot once a picture, counted as moves), and launches
+        ``itx_picture`` and ``mc_picture`` on its device and stream into
+        planes of its own.  The picture's device then adds them up into
+        ``planes``: a sample is written by one leaf only and every other
+        slot's plane is zero there, so the sums are the planes one launch
+        would write."""
+        dev = self.device
+        caller = mesh_mod.current_stream(dev)
+        stacks = None
+        if refs is not None:
+            stacks, refs = self._used_references(refs)
+        slots = mesh.local_slots
+        parts = []
+        for slot, (lo, hi) in zip(slots, mesh_mod.shard_bounds(
+                leaves.shape[0], len(slots))):
+            if lo == hi:
+                continue
+            mesh_mod.wait_for(slot, caller)
+            with mesh_mod.placed(slot):
+                sd = slot.device
+                own = self._zero_planes(sd)
+                slot_stacks = None
+                if stacks is not None:
+                    slot_stacks = [None if t is None else t.to(sd, copy=True)
+                                   for t in stacks]
+                    for t in slot_stacks:
+                        if t is not None:
+                            dsp.count_transfer(
+                                "moves", t.numel() * t.element_size())
+                self._dispatch(own, leaves[lo:hi].to(sd), coeff.to(sd),
+                               qp_scales_on(sd, self.pd, self.segment),
+                               None if refs is None else refs.to(sd),
+                               slot_stacks)
+            parts.append((slot, own))
+        for slot, own in parts:
+            for total, part in zip(planes, own):
+                if total is not None:
+                    total += mesh_mod.join(part, slot, caller).to(dev)
+
+    def _used_references(self, refs):
+        """(luma, chroma) stacks of the store slots ``refs`` names, in
+        order of slot, and ``refs`` renumbered into them."""
+        luma, chroma = get_store(self.rec, self.device).stacks()
+        tab = refs.cpu().numpy().copy()
+        used = sorted({int(v) for v in tab[:, :, 0].ravel() if v >= 0})
+        sel = torch.tensor(used, dtype=torch.long, device=luma.device)
+        luma = luma.index_select(0, sel)
+        if chroma is not None:
+            chroma = chroma.view((-1, 2) + chroma.shape[1:]).index_select(
+                0, sel).view((-1,) + chroma.shape[1:])
+        new = {v: i for i, v in enumerate(used)}
+        tab[:, :, 0] = [[new.get(int(v), -1) for v in row]
+                        for row in tab[:, :, 0]]
+        return (luma, chroma), torch.from_numpy(tab).to(refs.device)
 
     def _scans(self):
         """The intra scans whose metadata ``_device_half`` uploaded

@@ -16,19 +16,18 @@ other than SAD and SAD_FAST, a candidate box wider or taller than the
 192 x 192 window, and a window that leaves the padded plane leave the
 call's candidates to the host metric, as does a vector never prefetched.
 A device call reads the reference picture's padded luma where it lies
-on the device: one copy a picture (``reference_luma``), made at the
-first sweep that reads it and dropped when the picture's planes get new
-content.  A sweep (``sad_sweep``) sends only the block and the offsets;
-on the card they go into mapped pinned host memory that the ``me_sad``
-launch reads in place, and the SADs come back the same way: one device
-operation and an event wait.  On the CPU the same call is
+on the device: one copy a picture and device (``reference_luma``), made
+at the first sweep that reads it there and dropped when the picture's
+planes get new content.  A sweep (``sad_sweep``) sends only the block
+and the offsets; on the card they go into mapped pinned host memory that
+the ``me_sad`` launch reads in place, and the SADs come back the same
+way: one device operation and an event wait.  On the CPU the same call is
 ``sad_sweep_plain``.  ``STATS`` counts the calls, where they went, and
-the reference copies.
-
-Not ported: the per-picture device pin of ``prefetch``
-(``me.py:151-158``), which belongs to the encode pipeline's mesh
-(ROADMAP queue 1 item 7).
+the reference copies.  A picture pinned to a mesh slot (the encode
+pipeline's, ``engine.set_pin_device``; ``xvc_tpu/tpu/me.py:150-158``)
+runs its sweeps on the slot's device and stream.
 """
+import contextlib
 import ctypes
 import threading
 
@@ -36,7 +35,9 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..engine import pin_for
 from ..ops import metrics as met
+from ..parallel.mesh import placed
 from ..profiling import span
 
 WIN = 192  # the gather window of the reference (me.py _WIN)
@@ -303,9 +304,12 @@ def _resolve(device):
 
 def reference_luma(ref_pic, device):
     """``ref_pic``'s padded luma on ``device`` in ``packed_dtype``: the
-    copy kept on the picture (``YuvPicture.device_luma``) while the
+    copy on that device kept on the picture (``YuvPicture.device_luma``:
+    (generation, {device: plane}), one copy a device) while the
     picture's ``luma_generation`` is the one it was taken at, else a new
-    one (counted in ``STATS["reference_uploads"]``).  The padded plane
+    one (counted in ``STATS["reference_uploads"]``).  The upload is a
+    copy from pageable memory, complete when it returns, so a slot on
+    another stream of the same card reads it as it is.  The padded plane
     is copied as the host holds it, border included: a picture that was
     never padded keeps its buffer's old border, which the reference
     reads too (ROADMAP hazard 10).  Made under one lock, so threads that
@@ -314,12 +318,15 @@ def reference_luma(ref_pic, device):
     with _RESIDENT_LOCK:
         gen = ref_pic.luma_generation
         got = ref_pic.device_luma
-        if got is not None and got[0] == gen and got[1].device == dev:
-            return got[1]
+        if got is None or got[0] != gen:
+            got = ref_pic.device_luma = (gen, {})
+        plane = got[1].get(dev)
+        if plane is not None:
+            return plane
         with span("encode.me_reference"):
             plane = torch.from_numpy(ref_pic.padded_plane(0).astype(
                 _np_dtype(ref_pic.bitdepth))).to(dev)
-        ref_pic.device_luma = (gen, plane)
+        got[1][dev] = plane
         _count(reference_uploads=1)
         return plane
 
@@ -377,8 +384,12 @@ class DeviceSadTable:
             return
         cands = np.array([[m[1] - y0 for m in mvs], [m[0] - x0 for m in mvs]],
                          np.int32)
-        with span("encode.me_prefetch"):
-            plane = reference_luma(self.ref_pic, self.device)
+        # a picture pinned to a mesh slot sweeps on the slot
+        pin = pin_for(self.device)
+        with span("encode.me_prefetch"), \
+                contextlib.nullcontext() if pin is None else placed(pin):
+            plane = reference_luma(self.ref_pic, self.device if pin is None
+                                   else pin.device)
             sads = sad_sweep(plane, wy0, wx0, self.orig[:h, :w], cands, fast,
                              self.metric.bitdepth)
         _count(device_calls=1, device_candidates=len(mvs))

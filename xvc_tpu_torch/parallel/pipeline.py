@@ -10,25 +10,35 @@ finished reconstruction.  A decode's checksum and output conversion also
 run on the worker, after the picture has woken its dependents.  The
 native CABAC parse and the native CTU search (ctypes) release the GIL.
 
-Every worker issues its device work on PyTorch's current stream, which
-is the same default stream in every thread: a dependent picture starts
-only when its references' ``recon_done`` is set, after their device work
-has been issued on that stream and their planes downloaded, so the
-stream orders its reads after their writes.  The module state that the
-workers share is guarded or keyed per stream (``PERF.md``, "shared
-state").
+With no mesh, every worker issues its device work on PyTorch's current
+stream, the same default stream in every thread.  With a mesh installed
+(``engine.set_mesh``) each picture is pinned to a slot
+(``parallel/mesh.py``: the decoder's ``PictureDecoder.decode`` takes
+slot ``(doc // 2) % n`` for the pictures this pipeline marks
+``_pipelined``, the encoder's ``submit(..., device=slot)`` the slot the
+session gives it), and its pinned stages run on that slot's device and
+stream.  What orders a reference's writes before a dependent picture's
+reads is, in both cases, the host: a picture starts only when its
+references' ``recon_done`` is set, which comes after their planes were
+downloaded, a copy that waits for every write enqueued before it on the
+writer's stream.  A dependent pinned to another slot then copies the
+reference out of that slot's frame store on its own stream
+(``flat_recon.ensure_slot``), and the caching allocator keeps the source
+until that copy has run.  The module state that the workers share is
+guarded or keyed per stream (``PERF.md``, "shared state").
 
 Threaded and unthreaded runs are bit-identical by construction: every
 picture sees exactly the reference pictures the sequential session would
 have used (``tests/test_torch_threads.py``,
-``tests/test_torch_encode_threads.py``).  Unlike the JAX package, the
-decoder harvests with a blocking pull only, and every wait here is
-bounded by ``WAIT_SECONDS``.  The encoder has no mesh pin: one card
-serves every picture (ROADMAP queue 1 item 7 spreads them).
+``tests/test_torch_encode_threads.py``, ``tests/test_torch_mesh.py``).
+Unlike the JAX package, the decoder harvests with a blocking pull only,
+and every wait here is bounded by ``WAIT_SECONDS``.
 """
 import os
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as wait_all
+
+from .. import engine
 
 # the longest a worker waits for a reference picture, and the session for
 # a picture's job, before it raises TimeoutError
@@ -72,6 +82,7 @@ class DecodePipeline:
 
     def submit(self, pic_dec, deps, segment_header, prev_segment_header,
                bit_reader):
+        pic_dec._pipelined = True  # the mesh pin rotates over the slots
         pic_dec.recon_done.clear()
         job = PictureJob(pic_dec, deps)
 
@@ -106,7 +117,8 @@ class EncodePipeline:
     thread (``harvest``), so the stream is byte-identical to the
     sequential encode.  A picture that raises surfaces at harvest as that
     exception; its dependents wake and raise at once instead of coding
-    from it."""
+    from it.  ``device``: the mesh slot the picture's worker is pinned to
+    (``engine.set_pin_device``), or None."""
 
     def __init__(self, num_threads):
         self.executor = ThreadPoolExecutor(
@@ -114,7 +126,7 @@ class EncodePipeline:
             thread_name_prefix="xvc-enc")
 
     def submit(self, pic_enc, deps, segment_header, segment_qp, buffer_flag,
-               settings):
+               settings, device=None):
         pic_enc.recon_done.clear()
         pic_enc.encode_error = None
         job = PictureJob(pic_enc, deps)
@@ -130,12 +142,14 @@ class EncodePipeline:
                         raise RuntimeError(
                             "reference poc %d failed to encode"
                             % dep.pic_data.poc) from dep.encode_error
+                engine.set_pin_device(device)
                 return pic_enc.encode(segment_header, segment_qp,
                                       buffer_flag, settings)
             except BaseException as exc:
                 pic_enc.encode_error = exc
                 raise
             finally:
+                engine.set_pin_device(None)
                 pic_enc.recon_done.set()
 
         job.future = self.executor.submit(work)

@@ -2,8 +2,12 @@
 
 Own copy of the span table of ``xvc_tpu/profiling.py`` (``enable``,
 ``enabled``, ``reset``, ``span``, ``add_span_time``, ``report``,
-``format_report``), without its environment switches and without the
-``jax.profiler`` hooks:
+``format_report``), without its ``XVC_PROFILE`` switch, and its trace
+hooks on ``torch.profiler``: ``start_trace(trace_dir)`` /
+``stop_trace()`` record the host operators and, on a card, the device's
+kernels and copies, with every span as a range of its name, and write
+one Chrome trace (viewable in Perfetto) under ``trace_dir``;
+``XVC_TRACE_DIR=<dir>`` starts one at import.
 
     from xvc_tpu_torch import profiling
     profiling.enable(sync=True)
@@ -50,6 +54,8 @@ Run as a script it decodes a stream on the card and prints the table:
 """
 import collections
 import contextlib
+import os
+import tempfile
 import threading
 import time
 
@@ -60,6 +66,8 @@ _counts = collections.defaultdict(int)
 _lock = threading.Lock()
 _enabled = False
 _sync = False
+# the running trace: (torch.profiler.profile, its directory), or None
+_trace = None
 
 
 def enable(on=True, sync=False):
@@ -86,17 +94,25 @@ def _device_sync():
 
 @contextlib.contextmanager
 def span(name):
-    """Accumulate wall-clock for a named stage (no-op when disabled)."""
-    if not _enabled:
+    """Accumulate wall-clock for a named stage (no-op when disabled); while
+    a trace runs, also a range of that name in the trace."""
+    if not _enabled and _trace is None:
         yield
         return
+    if _trace is not None:
+        from torch.profiler import record_function
+        ranged = record_function(name)
+    else:
+        ranged = contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
-        yield
+        with ranged:
+            yield
     finally:
-        if _sync:
-            _device_sync()
-        _add(name, time.perf_counter() - t0, 1)
+        if _enabled:
+            if _sync:
+                _device_sync()
+            _add(name, time.perf_counter() - t0, 1)
 
 
 def _add(name, seconds, calls):
@@ -127,6 +143,43 @@ def format_report():
         lines.append("%-28s %10.3f %8d" % (name, row["seconds"],
                                            row["calls"]))
     return "\n".join(lines)
+
+
+def start_trace(trace_dir=None):
+    """Start a ``torch.profiler`` trace of this process: the host's
+    operators and the spans, and the device's kernels and copies where
+    CUDA is available.  ``trace_dir`` defaults to ``XVC_TRACE_DIR``, else
+    ``xvc_trace`` in the temporary directory.  Raises if a trace is
+    already running or the profiler cannot start."""
+    global _trace
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    if _trace is not None:
+        raise RuntimeError("a trace is already running")
+    out = trace_dir or os.environ.get("XVC_TRACE_DIR") or \
+        os.path.join(tempfile.gettempdir(), "xvc_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _trace = (prof, out)
+
+
+def stop_trace():
+    """Stop the running trace and write it as a Chrome trace,
+    ``<trace_dir>/xvc_trace_<pid>_<ms>.json``; returns its path (None if
+    no trace was running)."""
+    global _trace
+    if _trace is None:
+        return None
+    (prof, out), _trace = _trace, None
+    prof.stop()
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "xvc_trace_%d_%d.json" % (
+        os.getpid(), int(time.time() * 1000)))
+    prof.export_chrome_trace(path)
+    return path
 
 
 def profile_decode(data, device=None, warmup=1):
@@ -165,6 +218,9 @@ def main(argv=None):
           % (len(pics), seconds))
     return 0
 
+
+if os.environ.get("XVC_TRACE_DIR"):
+    start_trace()
 
 if __name__ == "__main__":
     raise SystemExit(main())
