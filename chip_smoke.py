@@ -3485,7 +3485,7 @@ def phase_mesh(torch, dev, pic0, threads):
     from xvc_tpu_torch import api, engine, kernels, profiling
     from xvc_tpu_torch.codec import picture_encoder
     from xvc_tpu_torch.codec.decoder import decode_stream
-    from xvc_tpu_torch.gpu import analysis, device_bench, dsp, intra_satd
+    from xvc_tpu_torch.gpu import analysis, device_bench, intra_satd
     from xvc_tpu_torch.gpu import recon
     from xvc_tpu_torch.gpu.lookahead import SIZES, frame_intra_lookahead
     from xvc_tpu_torch.nal import write_nal_units
@@ -3620,14 +3620,15 @@ def phase_mesh(torch, dev, pic0, threads):
         runs = {"mesh": [], "plain": []}
         moves = []
         for kind in ("mesh", "plain", "plain", "mesh"):
-            before = dict(dsp.STATS)
+            before = [profiling.counted(n)
+                      for n in ("xfer.move", "xfer.move.bytes")]
             if kind == "mesh":
                 pics, dt, launches = meshed(
                     MESH_DECODE_SLOTS, lambda: timed_session(
                         torch, name, stream, {}, nthreads))
-                moves.append((dsp.STATS["moves"] - before["moves"],
-                               dsp.STATS["move_bytes"] -
-                               before["move_bytes"]))
+                moves.append(tuple(
+                    profiling.counted(n) - b for n, b in
+                    zip(("xfer.move", "xfer.move.bytes"), before)))
             else:
                 pics, dt, launches = timed_session(torch, name, stream, {},
                                                    nthreads)
@@ -3769,7 +3770,7 @@ def phase_resampling(torch):
     from xvc_tpu_torch import kernels, profiling
     from xvc_tpu_torch.codec import output, picture_decoder
     from xvc_tpu_torch.codec.decoder import decode_stream
-    from xvc_tpu_torch.gpu import dsp, flat_recon
+    from xvc_tpu_torch.gpu import flat_recon
     from xvc_tpu_torch.parallel import pipeline
     pipeline.WAIT_SECONDS = 120.0
     out = {}
@@ -3794,9 +3795,9 @@ def phase_resampling(torch):
         return convert(pic, fmt, *args)
 
     def ensure_spy(rec_pic, device):
-        before = dsp.STATS["uploads"]
+        before = profiling.counted("xfer.htod")
         slot = ensure(rec_pic, device)
-        uploaded[0] += dsp.STATS["uploads"] - before
+        uploaded[0] += profiling.counted("xfer.htod") - before
         return slot
 
     picture_decoder.PictureDecoder.generate_alternative_rec_pic = spy

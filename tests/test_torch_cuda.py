@@ -1865,12 +1865,12 @@ def test_mesh_pinned_decode_on_two_slots_equals_unmeshed(cuda, monkeypatch,
     threads, whose references then move between the slots' stores): its
     hash list."""
     from xvc_tpu_torch import engine
-    from xvc_tpu_torch.gpu import dsp
+    from xvc_tpu_torch import profiling
     monkeypatch.setenv("XVC_THREADS_NO_CLAMP", "1")
     with open(data_path("bench/hd720_ld_dec.sha256")) as f:
         want = [line.split()[0] for line in f if line.strip()]
     _mesh_of([cuda, cuda])
-    moves = dsp.STATS["moves"]
+    moves = profiling.counted("xfer.move")
     try:
         pics = decode_stream(read_data("bench/hd720_ld.xvc"), device=cuda,
                              num_threads=threads)
@@ -1878,7 +1878,7 @@ def test_mesh_pinned_decode_on_two_slots_equals_unmeshed(cuda, monkeypatch,
         engine.set_mesh(None)
     assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
     assert all(p.conforming for p in pics)
-    assert (dsp.STATS["moves"] > moves) == (threads > 0)
+    assert (profiling.counted("xfer.move") > moves) == (threads > 0)
 
 
 def test_mesh_sharded_replay_dispatch_on_two_slots(cuda, monkeypatch):
@@ -1908,3 +1908,58 @@ def test_mesh_sharded_replay_dispatch_on_two_slots(cuda, monkeypatch):
     pics = decode_stream(read_data("ld64x48.xvc"), device=cuda)
     assert checked
     assert b"".join(p.bytes for p in pics) == read_data("ld64x48_dec.yuv")
+
+
+def test_session_spans_and_copy_counters_on_the_card(cuda):
+    """hd720_ld through ``api.DecoderSession`` on the card with the span
+    table enabled, under torch.profiler (after a warm decode): its hash
+    list; one ``device.wait`` a download; the counted copies each way
+    equal to the trace's copy events; the downloaded bytes those of the
+    visible int16 planes a picture (and, for a picture with a host tail,
+    its int32 planes and residuals)."""
+    from torch.profiler import ProfilerActivity, profile
+    from xvc_tpu_torch import api, profiling
+    from xvc_tpu_torch.nal import split_nal_units
+    data = read_data("bench/hd720_ld.xvc")
+    with open(data_path("bench/hd720_ld_dec.sha256")) as f:
+        want = [line.split()[0] for line in f if line.strip()]
+
+    def decode():
+        ses = api.DecoderSession(device=cuda)
+        out = []
+        for nal in split_nal_units(data):
+            ses.decode_nal(nal)
+            while (pic := ses.get_picture()) is not None:
+                out.append(pic)
+        ses.flush()
+        while (pic := ses.get_picture()) is not None:
+            out.append(pic)
+        return out
+
+    decode()
+    torch.cuda.synchronize()
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pics = decode()
+            torch.cuda.synchronize()
+        rep = profiling.report()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert [hashlib.sha256(p.bytes).hexdigest() for p in pics] == want
+    copies = {"DtoH": 0, "HtoD": 0}
+    for ev in prof.profiler.kineto_results.events():
+        for kind in copies:
+            copies[kind] += ev.name().startswith("Memcpy " + kind)
+    assert copies["DtoH"] == rep["xfer.dtoh"]["calls"]
+    assert copies["HtoD"] == rep["xfer.htod"]["calls"]
+    assert rep["device.wait"]["calls"] == rep["xfer.dtoh"]["calls"]
+    assert rep["session.output_wait"]["calls"] == len(pics)
+    assert rep["decode.session"]["calls"] >= len(pics)
+    samples = 1280 * 720 * 3 // 2
+    tails = rep.get("recon.download", {"calls": 0})["calls"]
+    assert rep["xfer.dtoh.bytes"]["calls"] == \
+        len(pics) * samples * 2 + tails * 2 * samples * 4

@@ -16,6 +16,7 @@ import torch
 from xvc_tpu import constants as k
 from xvc_tpu.tpu import dsp as jdsp
 from xvc_tpu.tpu import flat_recon as jfr
+from xvc_tpu_torch import profiling
 from xvc_tpu_torch.gpu import dsp, itx
 
 _BIG = 1 << 20
@@ -142,9 +143,9 @@ def test_devbatch_slices_are_exact():
         ((7, 3), np.int32), ((1,), np.int64))]
     batch = dsp.DevBatch()
     handles = [batch.add(a) for a in arrs]
-    before = dsp.STATS["uploads"]
+    before = profiling.counted("xfer.htod")
     batch.upload(torch.device("cpu"))
-    assert dsp.STATS["uploads"] - before == 2  # one copy per dtype
+    assert profiling.counted("xfer.htod") - before == 2  # one copy per dtype
     for a, hd in zip(arrs, handles):
         got = batch.get(hd)
         assert tuple(got.shape) == a.shape

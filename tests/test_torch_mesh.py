@@ -30,9 +30,9 @@ from xvc_tpu import engine as jengine
 from xvc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from xvc_tpu.restrictions import Restrictions as JaxRestrictions
 from xvc_tpu.tpu.lookahead import frame_intra_lookahead as jax_lookahead
-from xvc_tpu_torch import engine
+from xvc_tpu_torch import engine, profiling
 from xvc_tpu_torch.codec.decoder import decode_stream
-from xvc_tpu_torch.gpu import dsp, flat_recon, recon
+from xvc_tpu_torch.gpu import flat_recon, recon
 from xvc_tpu_torch.gpu.lookahead import frame_intra_lookahead
 from xvc_tpu_torch.gpu.records import C_AFFINE, C_LIC, C_PRED
 from xvc_tpu_torch.parallel import mesh as mesh_mod
@@ -104,15 +104,15 @@ def _decode(name, threads=0, slots=None):
     """(bytes of every picture, conformance flags, moves, move bytes)."""
     if slots:
         engine.set_mesh(mesh_mod.make_mesh(["cpu"] * slots))
-    before = dict(dsp.STATS)
+    before = [profiling.counted(n) for n in ("xfer.move", "xfer.move.bytes")]
     try:
         pics = decode_stream(read_data(name), device="cpu",
                              num_threads=threads)
     finally:
         engine.set_mesh(None)
     return ([p.bytes for p in pics], [p.conforming for p in pics],
-            dsp.STATS["moves"] - before["moves"],
-            dsp.STATS["move_bytes"] - before["move_bytes"])
+            profiling.counted("xfer.move") - before[0],
+            profiling.counted("xfer.move.bytes") - before[1])
 
 
 @pytest.mark.parametrize("name", ["ld64x48", "ra64x48"])
@@ -248,7 +248,7 @@ def test_moves_under_contention():
         flat_recon.frame_store_put(pic, planes, CPU)
     finally:
         engine.set_pin_device(None)
-    before = dsp.STATS["moves"]
+    before = profiling.counted("xfer.move")
     slots, barrier = [], threading.Barrier(16)
 
     def ask(slot):
@@ -271,7 +271,7 @@ def test_moves_under_contention():
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads) and len(slots) == 16
-    assert dsp.STATS["moves"] - before == 3 * 3
+    assert profiling.counted("xfer.move") - before == 3 * 3
     assert len(set(slots)) == 4  # one slot a store, the same for all asks
     for key, (store, slot, _) in pic._torch_slots.items():
         luma, chroma = store.stacks()

@@ -58,7 +58,8 @@ def test_splice_alternative_is_stored_without_an_upload(monkeypatch):
     from the host (``ensure_slot`` moves no byte); the pictures equal the
     JAX package's host decode."""
     from xvc_tpu_torch.codec import picture_decoder
-    from xvc_tpu_torch.gpu import dsp, flat_recon
+    from xvc_tpu_torch import profiling
+    from xvc_tpu_torch.gpu import flat_recon
 
     from .test_torch_recon import jax_host_decode
     made = []
@@ -73,9 +74,9 @@ def test_splice_alternative_is_stored_without_an_upload(monkeypatch):
     ensure = flat_recon._ensure_slot
 
     def ensure_spy(rec_pic, device):
-        before = dsp.STATS["uploads"]
+        before = profiling.counted("xfer.htod")
         slot = ensure(rec_pic, device)
-        uploaded.append(dsp.STATS["uploads"] - before)
+        uploaded.append(profiling.counted("xfer.htod") - before)
         return slot
 
     monkeypatch.setattr(picture_decoder.PictureDecoder,

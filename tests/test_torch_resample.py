@@ -22,8 +22,9 @@ import torch
 from xvc_tpu.ops import resample as jrs
 from xvc_tpu.tpu import resample_jax
 from xvc_tpu_torch import constants as k
+from xvc_tpu_torch import profiling
 from xvc_tpu_torch.codec.yuv import YuvPicture
-from xvc_tpu_torch.gpu import dsp, flat_recon
+from xvc_tpu_torch.gpu import flat_recon
 from xvc_tpu_torch.gpu import resample as gres
 from xvc_tpu_torch.ops import resample as rs
 
@@ -234,10 +235,10 @@ def test_store_window_equals_the_host_cut(bd, padded):
     border overlaid (the ring) where it did not."""
     pic = _stored_picture(bd, 96, 64, bd, padded=padded, crop=(8, 6))
     cases = _window_cases(pic)
-    uploads = dsp.STATS["uploads"]
+    uploads = profiling.counted("xfer.htod")
     windows = gres.store_windows(pic, _jobs(pic, cases), CPU, padded)
     # padded: the slot planes themselves; else one upload of every ring
-    assert dsp.STATS["uploads"] == uploads + (not padded)
+    assert profiling.counted("xfer.htod") == uploads + (not padded)
     store = flat_recon.get_store(pic, CPU)
     for (c, oy, ox, w, h), (win, y0, x0) in zip(cases, windows):
         assert win.dtype == torch.int16 and win.stride(0) % 2 == 0
@@ -326,9 +327,9 @@ def test_resample_to_store_equals_the_jax_alternative(monkeypatch, src, dst):
             jrs.resample_pic_plane(jalt, c, jsrc)
     jalt.pad_border()
     alt = YuvPicture(dfmt, dw, dh, dbd, True)
-    before = dict(dsp.STATS)
+    before = profiling.counted("xfer.htod")
     slot = rs.resample_pic(alt, pic, CPU, border_padded=True)
-    assert dsp.STATS["uploads"] == before["uploads"]
+    assert profiling.counted("xfer.htod") == before
     assert flat_recon.ensure_slot(alt, CPU) == slot
     luma, chroma = flat_recon.get_store(alt, CPU).stacks()
     for c in range(k.num_components(dfmt)):
@@ -339,7 +340,7 @@ def test_resample_to_store_equals_the_jax_alternative(monkeypatch, src, dst):
                                        jalt.padded_plane(c).shape)],
             mode="edge")
         assert np.array_equal(stored, want), c
-    assert dsp.STATS["uploads"] == before["uploads"]
+    assert profiling.counted("xfer.htod") == before
 
 
 def _tiling_model(window, y0, x0, case, out_shape=None, off=(0, 0)):

@@ -10,11 +10,15 @@ the motion search's SAD sweeps, the Python path's deblocking) on the card
 unless ``device`` names another, with ``params.threads`` picture threads;
 what the port lacks raises ``NotImplementedError`` when the session is
 made (``codec/encoder.py``).  ``DecoderSession(params, device=None)`` decodes
-through the device paths the same way.
+through the device paths the same way; where the span table is enabled
+(``profiling.enable``), ``get_picture`` adds each picture's wait from its
+decode's return to its hand-out to the row ``session.output_wait``.
 """
+import time
 from dataclasses import dataclass
 
 from . import constants as k
+from . import profiling
 from .codec.decoder import Decoder
 from .codec.encoder import Encoder
 from .codec.encoder_settings import EncoderSettings
@@ -235,6 +239,10 @@ class DecoderSession:
     ``device`` (None: the card, or "cpu", "cuda", "cuda:N")."""
 
     def __init__(self, params: DecoderParameters = None, device=None):
+        with profiling.span("decode.session"):
+            self._init(params, device)
+
+    def _init(self, params, device):
         self.params = params or DecoderParameters()
         self._dec = Decoder(device, num_threads=self.params.threads)
         self._dec.output_width = self.params.output_width
@@ -262,9 +270,13 @@ class DecoderSession:
 
     def get_picture(self):
         """Returns the next decoded picture (OutputPicture) or None."""
-        if self._pending:
-            return self._pending.pop(0)
-        return self._dec.get_decoded_picture()
+        pic = self._pending.pop(0) if self._pending else \
+            self._dec.get_decoded_picture()
+        if pic is not None and pic.decoded_at is not None and \
+                profiling.enabled():
+            profiling.add_span_time("session.output_wait",
+                                    time.perf_counter() - pic.decoded_at)
+        return pic
 
     def flush(self):
         self._dec.flush()

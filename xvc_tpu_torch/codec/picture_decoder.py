@@ -29,6 +29,7 @@ is no such reason: its pictures decode as non-conforming, as in the
 reference.
 """
 import threading
+import time
 from dataclasses import dataclass
 
 from .. import constants as k
@@ -45,6 +46,7 @@ from ..ops import resample
 from ..ops.deblock import DeblockingFilter
 from ..ops.quant import Qp
 from ..parallel.mesh import placed
+from .. import profiling
 from ..profiling import span
 from . import checksum as cksum
 from . import output
@@ -170,6 +172,9 @@ class PictureDecoder:
         self.is_conforming = True
         self.output_pic_bytes = b""
         self.pic_hash = b""
+        # when ``decode`` last returned, where the span table was enabled
+        # (the session's output wait starts there)
+        self.decoded_at = None
         # the decode of a threaded session (parallel/pipeline.py), and the
         # set when the reconstruction is final (its dependents wait on it)
         self.pending_job = None
@@ -249,7 +254,16 @@ class PictureDecoder:
         pictures usually reference each other).  The moves of the
         references decoded on other slots start before the parse.
         Placement changes no integer result: pinned and unmeshed decodes
-        give the same bytes."""
+        give the same bytes.  Where the span table is enabled, the return
+        is stamped in ``decoded_at``."""
+        try:
+            return self._decode_placed(segment, prev_segment, bit_reader,
+                                       on_recon)
+        finally:
+            self.decoded_at = time.perf_counter() \
+                if profiling.enabled() else None
+
+    def _decode_placed(self, segment, prev_segment, bit_reader, on_recon):
         mesh = mesh_for(self.device)
         if mesh is None or get_pin_device() is not None:
             return self._decode(segment, prev_segment, bit_reader, on_recon,

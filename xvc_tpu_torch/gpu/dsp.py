@@ -2,8 +2,9 @@
 
 Port of ``xvc_tpu/tpu/dsp.py``: dequantization and the inverse
 transform (``_itx_core``), the batched sub-pel MC core
-(``_mc_core_builder``), the bi-prediction average, and the packed
-host/device transfers (``DevBatch``, ``gather_flat``).  Every function is
+(``_mc_core_builder``), the bi-prediction average, the packed
+host/device transfers (``DevBatch``, ``gather_flat``) and the copies the
+span table counts (``upload``, ``download``, ``move``).  Every function is
 exact int32 arithmetic with the reference's int16 wrap points, so the
 result equals the JAX version bit for bit.  These are the plain versions
 the CUDA kernels (``gpu/mc.py``, ``gpu/itx.py``) are held against.
@@ -19,12 +20,12 @@ Differences from JAX that the port must undo:
     dequant product) the sum is taken in int64 and wrapped explicitly.
 """
 import functools
-import threading
 
 import numpy as np
 import torch
 
 from .. import constants as k
+from .. import profiling
 from ..codec import inter_mc as mc
 from ..ops import transform as tx
 
@@ -308,21 +309,32 @@ def pad_pow2(n):
 # Transfers: one upload per dtype, one download
 # ---------------------------------------------------------------------------
 
-# transfer and dispatch counts (uploads per picture: one per dtype),
-# counted under a lock by the workers of a threaded decode
-STATS = {"uploads": 0, "upload_bytes": 0, "downloads": 0,
-         "download_bytes": 0, "dispatches": 0, "moves": 0, "move_bytes": 0}
-_STATS_LOCK = threading.Lock()
+def upload(host, device, non_blocking=False):
+    """The CPU tensor ``host`` on ``device``: one host-to-device copy,
+    counted in the span table's ``xfer.htod`` rows (on the CPU device too,
+    where it is no copy)."""
+    out = host.to(device, non_blocking=non_blocking)
+    profiling.count("xfer.htod", 1, host.numel() * host.element_size())
+    return out
 
 
-def count_transfer(kind, nbytes=0):
-    """One more ``kind`` ("uploads", "downloads", "moves": a reference
-    plane copied from one mesh slot's frame store to another's, or
-    "dispatches") in ``STATS``, with its bytes."""
-    with _STATS_LOCK:
-        STATS[kind] += 1
-        if kind != "dispatches":
-            STATS[kind[:-1] + "_bytes"] += nbytes
+def download(t):
+    """The tensor ``t`` as a CPU tensor: one device-to-host copy, counted
+    in the span table's ``xfer.dtoh`` rows (on the CPU device too, where
+    it is no copy).  While spans are on, the host's wait for the card is
+    span ``device.wait`` (``profiling.wait_device``)."""
+    profiling.wait_device(t)
+    host = t.cpu()
+    profiling.count("xfer.dtoh", 1, host.numel() * host.element_size())
+    return host
+
+
+def move(t, device, copy=False):
+    """The tensor ``t`` of one mesh slot on ``device`` for another slot,
+    counted in the span table's ``xfer.move`` rows."""
+    out = t.to(device, copy=copy)
+    profiling.count("xfer.move", 1, t.numel() * t.element_size())
+    return out
 
 
 class DevBatch:
@@ -349,9 +361,8 @@ class DevBatch:
                 continue
             flat = torch.from_numpy(np.concatenate(chunks))
             if device.type == "cuda":
-                flat = flat.pin_memory().to(device, non_blocking=True)
-            self._dev[key] = flat
-            count_transfer("uploads", flat.numel() * flat.element_size())
+                flat = flat.pin_memory()
+            self._dev[key] = upload(flat, device, non_blocking=True)
         self._host = {"int16": [], "int32": []}
 
     def get(self, handle):
@@ -375,6 +386,5 @@ def gather_flat(outs):
         pos += o.numel()
     if not outs:
         return np.zeros((0,)), offs
-    host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
-    count_transfer("downloads", host.nbytes)
+    host = download(torch.cat([o.reshape(-1) for o in outs])).numpy()
     return host, offs

@@ -27,8 +27,8 @@ JAX version's donated ``_store_set3``/``_store_set4``).  A place is the
 mesh slot the thread is pinned to (``engine.set_pin_device``), else the
 device: a picture decoded on one slot is moved into another slot's
 store once, when a picture there first reads it (``ensure_slot``,
-counted in ``dsp.STATS["moves"]``).  Under a mesh with no pin the replay
-path shares its ITX and MC jobs over the mesh's slots
+counted in the span table's ``xfer.move`` rows).  Under a mesh with no
+pin the replay path shares its ITX and MC jobs over the mesh's slots
 (``_dispatch_sharded``).  The padded
 geometry is the JAX version's (``_padded_shape``), so MC window clamping
 matches.  A picture's slots hang on ``rec_pic._torch_slots``, never on
@@ -251,8 +251,7 @@ def _move_planes(src, device):
     for comp, part in enumerate(parts):
         if stream is not None and part.device == stream.device:
             part.record_stream(stream)
-        planes[comp] = part.to(device)  # the store's put copies it
-        dsp.count_transfer("moves", part.numel() * part.element_size())
+        planes[comp] = dsp.move(part, device)  # the store's put copies it
     return planes
 
 
@@ -273,8 +272,7 @@ def _ensure_slot(rec_pic, device):
         th, tw = _padded_shape(rec_pic, comp)
         host = np.pad(base, ((0, th - base.shape[0]),
                              (0, tw - base.shape[1])), mode="edge")
-        planes[comp] = torch.from_numpy(host).to(device)
-        dsp.count_transfer("uploads", host.nbytes)
+        planes[comp] = dsp.upload(torch.from_numpy(host), device)
     return _register(rec_pic, store, store.put(planes))
 
 
@@ -387,8 +385,8 @@ def qp_scales_on(device, pd, segment):
            segment.chroma_qp_offset_v)
     t = _QP_SCALES.get(key)
     if t is None:
-        t = _QP_SCALES.setdefault(key, torch.from_numpy(
-            itx.qp_scale_table(*key[1:])).to(device))
+        t = _QP_SCALES.setdefault(key, dsp.upload(torch.from_numpy(
+            itx.qp_scale_table(*key[1:])), device))
     return t
 
 
@@ -518,13 +516,11 @@ class FlatReconstructor:
         stream of their device."""
         pd = self.pd
         resi_l, resi_c, pred_l, mask_l, pred_c, mask_c = planes
-        dsp.count_transfer("dispatches")
         itx.itx_picture(resi_l, resi_c, records, coeff, qp_scales,
                         self.bitdepth, self.hp_tx,
                         self.restr.disable_ext2_transform_dst,
                         pd.chroma_shift_x, pd.chroma_shift_y)
         if refs is not None:
-            dsp.count_transfer("dispatches")
             mc_kernel.mc_picture(pred_l, mask_l, pred_c, mask_c, records,
                                  refs, stacks[0], stacks[1],
                                  self._mc_flags())
@@ -558,12 +554,9 @@ class FlatReconstructor:
                 own = self._zero_planes(sd)
                 slot_stacks = None
                 if stacks is not None:
-                    slot_stacks = [None if t is None else t.to(sd, copy=True)
+                    slot_stacks = [None if t is None else
+                                   dsp.move(t, sd, copy=True)
                                    for t in stacks]
-                    for t in slot_stacks:
-                        if t is not None:
-                            dsp.count_transfer(
-                                "moves", t.numel() * t.element_size())
                 self._dispatch(own, leaves[lo:hi].to(sd), coeff.to(sd),
                                qp_scales_on(sd, self.pd, self.segment),
                                None if refs is None else refs.to(sd),
@@ -578,9 +571,9 @@ class FlatReconstructor:
         """(luma, chroma) stacks of the store slots ``refs`` names, in
         order of slot, and ``refs`` renumbered into them."""
         luma, chroma = get_store(self.rec, self.device).stacks()
-        tab = refs.cpu().numpy().copy()
+        tab = dsp.download(refs).numpy().copy()
         used = sorted({int(v) for v in tab[:, :, 0].ravel() if v >= 0})
-        sel = torch.tensor(used, dtype=torch.long, device=luma.device)
+        sel = dsp.upload(torch.tensor(used, dtype=torch.long), luma.device)
         luma = luma.index_select(0, sel)
         if chroma is not None:
             chroma = chroma.view((-1, 2) + chroma.shape[1:]).index_select(
@@ -588,7 +581,7 @@ class FlatReconstructor:
         new = {v: i for i, v in enumerate(used)}
         tab[:, :, 0] = [[new.get(int(v), -1) for v in row]
                         for row in tab[:, :, 0]]
-        return (luma, chroma), torch.from_numpy(tab).to(refs.device)
+        return (luma, chroma), dsp.upload(torch.from_numpy(tab), refs.device)
 
     def _scans(self):
         """The intra scans whose metadata ``_device_half`` uploaded

@@ -231,7 +231,7 @@ def _picture_bases(device, high_precision):
     key = (str(device), "picture", bool(high_precision))
     t = _DEV_BASES.get(key)
     if t is None:
-        t = tuple(torch.as_tensor(a, device=device)
+        t = tuple(dsp.upload(torch.from_numpy(a), device)
                   for a in picture_bases_np(bool(high_precision)))
         _DEV_BASES[key] = t
     return t

@@ -52,6 +52,7 @@ from .. import constants as k
 from .. import kernels
 from ..engine import resolve_device
 from ..ops import resample as rs
+from .. import profiling
 from ..profiling import span
 from . import dsp
 from . import flat_recon
@@ -184,8 +185,9 @@ def _tables_on(device, p):
         ent = _TABLES.get(tkey)
         if ent is None:
             ent = _TABLES[tkey] = tuple(
-                torch.from_numpy(np.pad(t, ((0, 0), (0, -t.shape[1] % 4))))
-                .to(device) for t in (p.tab_x, p.tab_y))
+                dsp.upload(torch.from_numpy(
+                    np.pad(t, ((0, 0), (0, -t.shape[1] % 4)))), device)
+                for t in (p.tab_x, p.tab_y))
     return ent
 
 
@@ -405,13 +407,15 @@ def resample_to_buffer(pic, planes, src_bitdepth, dst_bitdepth, size,
 
 
 def download(t):
-    """``t`` on the host as numpy, one copy (pinned from the card)."""
-    if t.device.type == "cuda":
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        dsp.count_transfer("downloads", host.numel() * host.element_size())
-        return host.numpy()
-    return t.numpy()
+    """``t`` on the host as numpy, one copy (pinned from the card),
+    counted and waited for as ``dsp.download`` does."""
+    if t.device.type != "cuda":
+        return dsp.download(t).numpy()
+    profiling.wait_device(t)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    profiling.count("xfer.dtoh", 1, host.numel() * host.element_size())
+    return host.numpy()
 
 
 def resample_to_store(dst_pic, src_pic, device, border_padded=False):
@@ -469,11 +473,11 @@ def resample(padded_src, origin_y, origin_x, src_width, src_height,
                             src_height)
     dev = resolve_device(device)
     with span("resample.upload"):
-        window = torch.from_numpy(window).to(dev)
+        window = dsp.upload(torch.from_numpy(window), dev)
     out = resample_window(window, src_bitdepth, dst_width, dst_height,
                           dst_bitdepth)
     with span("resample.download"):
-        return out.cpu().numpy()
+        return dsp.download(out).numpy()
 
 
 def _check(window, dst_width, dst_height):

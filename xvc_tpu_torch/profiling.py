@@ -5,7 +5,8 @@ Own copy of the span table of ``xvc_tpu/profiling.py`` (``enable``,
 ``format_report``), without its ``XVC_PROFILE`` switch, and its trace
 hooks on ``torch.profiler``: ``start_trace(trace_dir)`` /
 ``stop_trace()`` record the host operators and, on a card, the device's
-kernels and copies, with every span as a range of its name, and write
+kernels and copies, with every span as a range of its name (the first,
+``profiling.start_trace``, opened by ``start_trace`` itself), and write
 one Chrome trace (viewable in Perfetto) under ``trace_dir``;
 ``XVC_TRACE_DIR=<dir>`` starts one at import.
 
@@ -21,16 +22,46 @@ next stage that waits.  ``enable(sync=True)`` makes every span end with
 is attributed to the stage that spent it (the reference's blocking
 ``XVC_FLAT_SYNC`` profile).  The synchronisation serialises host and
 device and so lengthens the whole run: it is for a breakdown, not for an
-end-to-end time.  Disabled spans record nothing and cost one test of a
-flag.
+end-to-end time.  Spans are on while the table is enabled or a trace
+runs; off, a span is one test of a flag: no clock is read and nothing is
+allocated.
+
+The table holds two kinds of rows, ``{"seconds": s, "calls": n}`` each:
+
+- spans, recorded only while the table is enabled (``enable``), and
+  ranges of their names in a running trace;
+- counters (``count``), counted whether or not the table is enabled,
+  with ``"seconds": 0.0``; ``reset`` clears them too.
 
 The spans the port records: the decode's (``decode.*``, ``flat.*``,
 ``recon.*``, ``deblock.*``; inside ``decode.post`` the resampler's
 ``resample.window`` (the host side of a window: the ring of a picture
 whose border was not padded, or a host cut), ``resample.upload``,
 ``resample.kernel`` (its launch) and ``resample.download``, and
-``output.pack`` (the host planes of an output cast into its bytes)) and
-the encoder's, per picture:
+``output.pack`` (the host planes of an output cast into its bytes)).
+Beside them, never around them, ``decode.session``: the decoder
+session's own work (``api.DecoderSession``, ``codec/decoder.py``): NAL
+and picture headers, segment headers, reference lists, finding or
+making a ``PictureDecoder`` and its ``init_pic``, the output picture's
+assembly, a new session; several ranges a picture, none around
+``PictureDecoder.decode``.  ``device.wait``: the host blocked on the
+card before a download (``gpu/dsp.py`` ``download``): while spans are
+on, the copy's stream is synchronised inside it first, so that the copy
+itself no longer waits; off, nothing is synchronised.
+``session.output_wait`` is a row of the table, no range: while the table
+is enabled, for each picture ``DecoderSession.get_picture`` hands out,
+the time from the return of its decode (on whichever thread ran it) to
+its hand-out, one call a picture.
+
+The counters: ``xfer.htod`` / ``xfer.htod.bytes`` (host-to-device
+copies and their bytes), ``xfer.dtoh`` / ``xfer.dtoh.bytes``
+(device-to-host) and ``xfer.move`` / ``xfer.move.bytes`` (a reference
+plane copied between mesh slots), counted at every such copy site of the
+decode path (``gpu/dsp.py`` ``upload`` / ``download`` / ``move``,
+``gpu/resample.py`` ``download``) and of the encoder's deblocking; on
+the CPU device they count the copies the card would make.
+
+The encoder's spans, per picture:
 ``encode.txrd_prepass`` (the transform-RD prepass), with, per block
 size, ``encode.txrd_prepass.extract`` (the host's block and reference
 extraction), ``.upload``, ``.device`` (prediction, SATD and the ``txrd``
@@ -92,13 +123,20 @@ def _device_sync():
         torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
+# what a span is while spans are off: reusable, so nothing is allocated
+_OFF = contextlib.nullcontext()
+
+
 def span(name):
     """Accumulate wall-clock for a named stage (no-op when disabled); while
     a trace runs, also a range of that name in the trace."""
     if not _enabled and _trace is None:
-        yield
-        return
+        return _OFF
+    return _span(name)
+
+
+@contextlib.contextmanager
+def _span(name):
     if _trace is not None:
         from torch.profiler import record_function
         ranged = record_function(name)
@@ -115,10 +153,41 @@ def span(name):
             _add(name, time.perf_counter() - t0, 1)
 
 
+def wait_device(tensor):
+    """While spans are on and ``tensor`` lies on a card: block, inside
+    span ``device.wait``, until the work enqueued so far on its device's
+    current stream is done.  A copy of ``tensor`` to the host on that
+    stream would wait for the same work, so nothing is reordered; spans
+    off, this is one test of a flag."""
+    if (not _enabled and _trace is None) or not tensor.is_cuda:
+        return
+    import torch
+    with _span("device.wait"):
+        torch.cuda.current_stream(tensor.device).synchronize()
+
+
 def _add(name, seconds, calls):
     with _lock:
         _stats[name] += seconds
         _counts[name] += calls
+
+
+def count(name, n=1, nbytes=None):
+    """Add ``n`` to the counter row ``name`` and, where ``nbytes`` is
+    given, ``nbytes`` to the row ``name + ".bytes"``, under one lock;
+    counted whether or not the table is enabled."""
+    with _lock:
+        _stats[name] += 0.0
+        _counts[name] += n
+        if nbytes is not None:
+            _stats[name + ".bytes"] += 0.0
+            _counts[name + ".bytes"] += nbytes
+
+
+def counted(name):
+    """The ``calls`` of the row ``name`` (0 where it has none)."""
+    with _lock:
+        return _counts.get(name, 0)
 
 
 def add_span_time(name, seconds, calls=1):
@@ -152,7 +221,7 @@ def start_trace(trace_dir=None):
     ``xvc_trace`` in the temporary directory.  Raises if a trace is
     already running or the profiler cannot start."""
     global _trace
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     import torch
     if _trace is not None:
         raise RuntimeError("a trace is already running")
@@ -163,6 +232,11 @@ def start_trace(trace_dir=None):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    # the first range of a trace opens a millisecond or more after its
+    # start stamp (the profiler's set-up); taken here, it leaves every
+    # later range, a caller's clock mark too, on time
+    with record_function("profiling.start_trace"):
+        pass
     _trace = (prof, out)
 
 
